@@ -1,0 +1,67 @@
+"""The port stands alone: it imports no jax and nothing of `coastline`, and
+its entry points refuse to run quietly on the CPU when no card is there."""
+
+import json
+import os
+import subprocess
+import sys
+
+import numpy as np
+import pytest
+import torch
+
+torch.set_num_threads(1)
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+
+_PROBE = """
+import importlib, json, pkgutil, sys
+import coastline_torch
+mods = sorted(m.name for m in pkgutil.walk_packages(coastline_torch.__path__, "coastline_torch."))
+for m in mods:
+    importlib.import_module(m)
+import chip_smoke
+bad = sorted(m for m in sys.modules
+             if m.split(".")[0] in ("jax", "jaxlib", "flax", "coastline"))
+print(json.dumps({"modules": mods, "bad": bad}))
+"""
+
+
+def test_port_and_chip_smoke_import_no_jax_and_no_coastline():
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    out = subprocess.run([sys.executable, "-c", _PROBE], cwd=REPO, env=env,
+                         capture_output=True, text=True, timeout=300)
+    assert out.returncode == 0, out.stderr
+    report = json.loads(out.stdout.strip().splitlines()[-1])
+    assert report["bad"] == []
+    for m in ("coastline_torch.infer.extract", "coastline_torch.infer.server",
+              "coastline_torch.kernels.fused_conv", "coastline_torch.kernels.morphology",
+              "coastline_torch.models.unet", "coastline_torch.utils.torch_import"):
+        assert m in report["modules"]
+
+
+def _entry_points():
+    from coastline_torch.infer.extract import CoastlineExtractor
+    from coastline_torch.infer.morphology import coastline_band, dilate
+
+    mask = np.zeros((8, 8), np.uint8)
+    return {
+        "extractor": lambda: CoastlineExtractor(),
+        "coastline_band": lambda: coastline_band(mask),
+        "dilate": lambda: dilate(mask),
+    }
+
+
+@pytest.mark.parametrize("name", ["extractor", "coastline_band", "dilate"])
+def test_entry_points_raise_without_a_card(name, monkeypatch):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        _entry_points()[name]()
+
+
+def test_cpu_runs_only_when_asked():
+    from coastline_torch.infer.morphology import coastline_band
+    from coastline_torch.utils.device import resolve_device
+
+    assert resolve_device("cpu") == torch.device("cpu")
+    band = coastline_band(np.ones((8, 8), np.uint8), 3, device="cpu")
+    assert band.device.type == "cpu" and int(band.sum()) == 0
