@@ -8,9 +8,11 @@ Needs one NVIDIA H100 and the CUDA toolkit; builds the kernels from
 
   1. the card's name and power limit (nvidia-smi);
   2. build every CUDA kernel (one nvcc per source, in parallel);
-  3. hold each kernel against its plain PyTorch version at the serving
-     path's shapes and time kernel, plain version and a library yardstick
-     with CUDA events;
+  3. hold each kernel against its plain PyTorch version at its paths'
+     shapes and time kernel, plain version and a library yardstick with
+     CUDA events: the fused conv (with and without ReLU), the dilation, and
+     the three CBAM kernels (pool, gated stats, tail) at the five Robust
+     U-Net level shapes, (2, 4, 4, 1024) and an odd shape, in bf16 and f32;
   4. the serving path at full width: the 31,043,586-parameter 2-class UNet
      (random weights from a numpy seed, through the weight bridge) in bf16
      behind `serve(batch_size=8)` answers 16 concurrent 512^2 requests, the
@@ -19,7 +21,18 @@ Needs one NVIDIA H100 and the CUDA toolkit; builds the kernels from
      and the masks are compared with a float32 run of the same extractor;
      a second server then times 64 requests once its thread is warm, and
      torch.profiler breaks the bf16 batch-8 forward down by kernel;
-  5. the last line: {"ok": true, "device": {...}}.
+  5. one 64-channel ResidualBlock at (8, 512, 512, 64) bf16: the fused
+     CBAM tail against its module composition (ChannelAttention, which
+     launches `fused_avg_max_pool`, SpatialAttention, residual ReLU);
+  6. the Robust U-Net eval path at full width: the 40,872,223-parameter
+     model from `create_model` (random weights from a numpy seed, through
+     the weight bridge), its logits against the port's CPU path at 64^2,
+     then `make_eval_epoch` over 16 synthetic 512^2 tiles at batch 8 in
+     bf16 and in f32; the launch counters must show 9 pool, 9 stats and 9
+     tail launches a forward and, in bf16, 2 fused convs; the forward is
+     timed at batch 8 and profiled by kernel;
+  7. a `kernels` JSON line, the card line and the last line:
+     {"ok": true, "device": {...}}.
 
 Float32 convolutions run with cuDNN's TF32 off, so every float32 number
 here is a true float32 result. Any failure raises and exits non-zero.
@@ -39,18 +52,30 @@ import torch.nn.functional as F
 from coastline_torch.infer.contours import extract_contours
 from coastline_torch.infer.extract import CoastlineExtractor
 from coastline_torch.infer.morphology import coastline_band, elliptical_kernel
-from coastline_torch.kernels import _build
+from coastline_torch.kernels import _build, cbam
 from coastline_torch.kernels.fused_conv import (fused_conv3x3_bn_relu,
                                                 fused_conv3x3_bn_relu_plain)
 from coastline_torch.kernels.morphology import dilate_disk, dilate_disk_plain, se_row_groups
-from coastline_torch.utils.torch_import import random_unet_variables
+from coastline_torch.kernels.pools import fused_avg_max_pool
+from coastline_torch.models.registry import create_model
+from coastline_torch.ops.blocks import ResidualBlock
+from coastline_torch.ops.primitives import Conv, ConvTranspose
+from coastline_torch.train.loop import (TrainConfig, batch_indices, make_eval_epoch,
+                                        normalize_images)
+from coastline_torch.utils.torch_import import (random_robust_unet_variables,
+                                                random_unet_variables, robust_unet_state_dict)
 
 # Published H100 SXM peaks (NVIDIA data sheet, dense): the roofs for bound_ms.
 PEAK_BYTES_PER_S = 3.35e12
 PEAK_BF16_FLOPS = 989e12
 PEAK_F32_OPS = 67e12  # non-tensor float32 rate; integer/float max runs on the same units
 UNET_PARAMS = 31_043_586
+ROBUST_UNET_PARAMS = 40_872_223
 CONV_SHAPE = (8, 512, 512, 64)
+# the Robust U-Net's ResidualBlock outputs at batch 8, 512^2: the CBAM kernels' shapes
+LEVEL_SHAPES = [(8, 512, 512, 64), (8, 256, 256, 128), (8, 128, 128, 256),
+                (8, 64, 64, 512), (8, 32, 32, 1024)]
+CBAM_SHAPES = LEVEL_SHAPES + [(2, 4, 4, 1024), (3, 37, 53, 48)]
 DILATE_CASES = [((8, 512, 512), 20), ((8, 512, 512), 5), ((8, 512, 512), 41),
                 ((1, 2048, 2048), 20), ((1, 64, 10980), 20)]  # first = serving shape
 
@@ -92,13 +117,16 @@ def check_fused_conv(dev, rng):
                           * np.float32(np.sqrt(6.0 / (9 * c)))).to(dev)
     scale = torch.from_numpy(rng.uniform(0.5, 1.5, c).astype(np.float32)).to(dev)
     bias = torch.from_numpy(rng.normal(0, 0.2, c).astype(np.float32)).to(dev)
-    got = fused_conv3x3_bn_relu(x, wt, scale, bias).float()
-    torch.cuda.synchronize()
-    ref = fused_conv3x3_bn_relu_plain(x, wt, scale, bias).float()
-    err = (got - ref).abs()
-    # same float32 sums in another order, one bf16 rounding: 1 bf16 ulp (2^-7 rel) + 1e-3
-    ok = bool(torch.all(err <= 2.0 ** -7 * ref.abs() + 1e-3))
-    del got, ref
+    errs, ok = {}, True
+    for relu in (True, False):  # the UNet's layers, then the Robust U-Net's conv 2 -> BN
+        got = fused_conv3x3_bn_relu(x, wt, scale, bias, relu=relu).float()
+        torch.cuda.synchronize()
+        ref = fused_conv3x3_bn_relu_plain(x, wt, scale, bias, relu=relu).float()
+        err = (got - ref).abs()
+        # same float32 sums in another order, one bf16 rounding: 1 bf16 ulp (2^-7 rel) + 1e-3
+        ok = ok and bool(torch.all(err <= 2.0 ** -7 * ref.abs() + 1e-3))
+        errs[f"relu_{relu}"] = float(err.max())
+        del got, ref, err
     xl = x.permute(0, 3, 1, 2)  # channels_last view
     wl = wt.permute(3, 2, 0, 1).to(torch.bfloat16).contiguous(memory_format=torch.channels_last)
     s16, b16 = scale.to(torch.bfloat16)[:, None, None], bias.to(torch.bfloat16)[:, None, None]
@@ -108,7 +136,7 @@ def check_fused_conv(dev, rng):
     flops = 2.0 * b * h * w * c * 9 * c
     nbytes = 2 * x.numel() * 2 + wt.numel() * 2 + 2 * c * 4
     bound_ms, bound_by = bound(nbytes, flops, PEAK_BF16_FLOPS)
-    result = dict(max_abs_err=float(err.max()), ms=ms, plain_ms=plain_ms,
+    result = dict(max_abs_err=max(errs.values()), max_abs_err_by_relu=errs, ms=ms, plain_ms=plain_ms,
                   library_ms=library_ms, bound_ms=bound_ms, bound_by=bound_by,
                   shape=list(CONV_SHAPE), tflops=flops / ms / 1e9,
                   library="channels_last F.conv2d bf16 (cuDNN) + bf16 scale/bias/ReLU")
@@ -156,6 +184,141 @@ def check_dilate(dev, rng):
             raise AssertionError(f"dilate_disk is not exact: {case}")
         cases.append(case)
     return cases
+
+
+def _mean_ok(got, ref, absmean, dt):
+    """A mean is a float32 sum taken in another order: 1e-5 relative in f32
+    or one bf16 ulp (2^-7 relative), plus 1e-5 of the mean magnitude summed
+    (cancellation)."""
+    rel = 1e-5 if dt == torch.float32 else 2.0 ** -7
+    return bool(torch.all((got.float() - ref.float()).abs()
+                          <= rel * ref.float().abs() + 1e-5 * absmean))
+
+
+def _tail_ok(got, ref, y, dt):
+    """The attention map is a 98-tap f32 sum in another order before its
+    roundings: 1e-5 (|y| + |ref|) + 1e-6 in f32, 2^-6 (|y| + |ref|) in bf16
+    (one bf16 ulp of the gate and of each rounded product)."""
+    d, scale = (got.float() - ref.float()).abs(), y.float().abs() + ref.float().abs()
+    if dt == torch.float32:
+        return bool(torch.all(d <= 1e-5 * scale + 1e-6))
+    return bool(torch.all(d <= 2.0 ** -6 * scale))
+
+
+def _cbam_inputs(shape, dt, dev, gen):
+    b, h, w, c = shape
+    x = torch.randn(shape, device=dev, generator=gen).to(dt)
+    s = torch.randn(shape, device=dev, generator=gen).to(dt)
+    gate = torch.sigmoid(torch.randn((b, c), device=dev, generator=gen)).to(dt)
+    sconv = torch.randn((7, 7, 2, 1), device=dev, generator=gen) * 0.15
+    return x, s, gate, sconv
+
+
+def check_cbam(dev):
+    """The three CBAM kernels against their plain versions at every listed
+    shape in bf16 and f32; times at (8, 512, 512, 64) bf16."""
+    gen = torch.Generator(device=dev).manual_seed(0)
+    cases, errs = [], {"avg_max_pool": 0.0, "gated_spatial_stats": 0.0, "cbam_tail": 0.0}
+    for dt in (torch.bfloat16, torch.float32):
+        for shape in CBAM_SHAPES:
+            x, s, gate, sconv = _cbam_inputs(shape, dt, dev, gen)
+            avg, mx = cbam.avg_max_pool(x)
+            fa, fm = fused_avg_max_pool(x)
+            stats = cbam.gated_spatial_stats(x, gate)
+            tail = cbam.cbam_tail_apply(x, s, gate, stats, sconv)
+            torch.cuda.synchronize()
+            r_avg, r_mx = cbam.avg_max_pool_plain(x)
+            r_stats = cbam.gated_spatial_stats_plain(x, gate)
+            r_tail = cbam.cbam_tail_apply_plain(x, s, gate, stats, sconv)
+            z_abs = (x * gate[:, None, None, :]).float().abs().mean(-1)
+            case = dict(
+                shape=list(shape), dtype=str(dt).split(".")[-1],
+                pool_max_exact=bool(torch.equal(mx, r_mx) and torch.equal(fm, r_mx)),
+                pool_mean_ok=_mean_ok(avg, r_avg, x.float().abs().mean((1, 2)), dt)
+                and bool(torch.equal(fa, avg)),
+                stats_max_exact=bool(torch.equal(stats[:, 1], r_stats[:, 1])),
+                stats_mean_ok=_mean_ok(stats[:, 0], r_stats[:, 0], z_abs, dt),
+                tail_ok=_tail_ok(tail, r_tail, x, dt),
+                pool_err=float((avg.float() - r_avg.float()).abs().max()),
+                stats_err=float((stats.float() - r_stats.float()).abs().max()),
+                tail_err=float((tail.float() - r_tail.float()).abs().max()))
+            errs["avg_max_pool"] = max(errs["avg_max_pool"], case["pool_err"])
+            errs["gated_spatial_stats"] = max(errs["gated_spatial_stats"], case["stats_err"])
+            errs["cbam_tail"] = max(errs["cbam_tail"], case["tail_err"])
+            cases.append(case)
+            log("cbam_check", json.dumps(case))
+            if not all(v for k, v in case.items() if k.endswith(("_exact", "_ok"))):
+                raise AssertionError(f"a CBAM kernel disagrees with its plain version: {case}")
+            del x, s, gate, stats, tail, r_stats, r_tail
+
+    b, h, w, c = shape = LEVEL_SHAPES[0]
+    x, s, gate, sconv = _cbam_inputs(shape, torch.bfloat16, dev, gen)
+    stats = cbam.gated_spatial_stats(x, gate)
+    xl = x.permute(0, 3, 1, 2)  # the channels_last NCHW view
+    w16 = sconv.to(torch.bfloat16).permute(3, 2, 0, 1)
+    n, px = x.numel(), b * h * w
+    timings = {
+        "avg_max_pool": (lambda: cbam.avg_max_pool(x), lambda: cbam.avg_max_pool_plain(x),
+                         lambda: (xl.mean((2, 3)), xl.amax((2, 3))),
+                         "channels_last x.mean((2,3)) + x.amax((2,3))",
+                         2 * n + 2 * b * c * 2, 2 * n),
+        "gated_spatial_stats": (
+            lambda: cbam.gated_spatial_stats(x, gate),
+            lambda: cbam.gated_spatial_stats_plain(x, gate),
+            lambda: (lambda z: (z.mean(-1), z.amax(-1)))(x * gate[:, None, None, :]),
+            "z = x * gate, then z.mean(-1) and z.amax(-1)",
+            2 * n + 2 * b * c + 2 * 2 * px, 3 * n),
+        "cbam_tail": (
+            lambda: cbam.cbam_tail_apply(x, s, gate, stats, sconv),
+            lambda: cbam.cbam_tail_apply_plain(x, s, gate, stats, sconv),
+            lambda: torch.relu(x * gate[:, None, None, :] * torch.sigmoid(
+                F.conv2d(stats, w16, padding=3)).permute(0, 2, 3, 1) + s),
+            "F.conv2d(stats, w, padding=3) bf16 + sigmoid + the eager chain",
+            3 * 2 * n + 2 * b * c + 2 * 2 * px + 98 * 4, 4 * n + 2 * 98 * px),
+    }
+    out = {}
+    for name, (kern, plain, lib, lib_name, nbytes, ops) in timings.items():
+        ms = cuda_ms(kern, 20)
+        plain_ms = cuda_ms(plain, 5, 1)
+        library_ms = cuda_ms(lib, 20)
+        bound_ms, bound_by = bound(nbytes, ops, PEAK_F32_OPS)
+        out[name] = dict(max_abs_err=errs[name], ms=ms, plain_ms=plain_ms,
+                         library_ms=library_ms, bound_ms=bound_ms, bound_by=bound_by,
+                         gb_per_s=nbytes / ms / 1e6, shape=list(shape), dtype="bfloat16",
+                         library=lib_name)
+        log(name, json.dumps(out[name]))
+    return out, cases
+
+
+def residual_block_check(dev, shape=(8, 512, 512, 64)):
+    """One ResidualBlock(64) at (8, 512, 512, 64) bf16: the fused tail
+    against the module composition, whose ChannelAttention launches
+    `fused_avg_max_pool`."""
+    b, h, w, c = shape
+    gen = torch.Generator(device=dev).manual_seed(1)
+    block = ResidualBlock(c, c, init="kaiming_out",
+                          generator=torch.Generator().manual_seed(1)).to(dev).eval()
+    x = torch.randn((b, c, h, w), device=dev, generator=gen).to(
+        torch.bfloat16).contiguous(memory_format=torch.channels_last)
+    with torch.inference_mode():
+        y, shortcut = block.body(x)
+        before = fused_avg_max_pool.launches
+        ref = block.module_tail(y, shortcut).float()
+        fused_launches = fused_avg_max_pool.launches - before
+        got = block.fused_tail(y, shortcut).float()
+        torch.cuda.synchronize()
+        d = (got - ref).abs()
+        # one bf16 ulp for each of the gates and the three rounded ops (tests/test_torch_cbam.py)
+        ok = bool(torch.all(d <= 2.0 ** -5 * (y.float().abs() + ref.abs())))
+        fused_ms = cuda_ms(lambda: block.fused_tail(y, shortcut), 10)
+        module_ms = cuda_ms(lambda: block.module_tail(y, shortcut), 10)
+    result = dict(shape=list(shape), max_abs_err=float(d.max()),
+                  fused_avg_max_pool_launches=fused_launches, fused_tail_ms=fused_ms,
+                  module_tail_ms=module_ms)
+    log("residual_block_64", json.dumps(result))
+    if not ok or fused_launches != 1:
+        raise AssertionError(f"ResidualBlock fused tail disagrees with its modules: {result}")
+    return result
 
 
 def logits_check(variables, dev):
@@ -256,7 +419,8 @@ def serving_path(variables, dev, rng, size=512):
                   shoreline_polylines=len(lines),
                   shoreline_points=[len(p) for p in lines])
     log("serving_path", json.dumps(result))
-    result["profile"] = profile_forward(ex, x8)
+    result["profile"] = profile_forward(lambda: ex.predict_masks_batch_async(x8),
+                                        "profile_unet_forward_b8_bf16")
     if agree < 0.95:
         raise AssertionError(f"bf16 masks agree with f32 on only {agree:.4f} of pixels")
     return result
@@ -265,44 +429,168 @@ def serving_path(variables, dev, rng, size=512):
 _KERNEL_CLASSES = (  # (class, substrings of the CUDA kernel name), first match wins
     ("fused_conv3x3_bn_relu (ours)", ("fused_conv_kernel",)),
     ("dilate_disk (ours)", ("dilate_kernel",)),
+    ("avg_max_pool (ours)", ("cbam_avg_max",)),
+    ("gated_spatial_stats (ours)", ("cbam_gated_stats",)),
+    ("cbam_tail (ours)", ("cbam_tail_kernel",)),
     ("elementwise: bias, BN affine, ReLU, casts", ("elementwise",)),
     ("concat", ("CatArray",)),
     ("max pool", ("max_pool",)),
     ("argmax / softmax", ("reduce", "softmax", "argmax")),
     ("cuDNN conv and transposed conv", ("conv", "xmma", "gemm", "cudnn", "sm90", "cutlass",
                                         "nhwc", "nchw", "dgrad", "fprop", "implicit")),
+    ("cuBLAS GEMM (nvjet)", ("nvjet",)),
 )
 
 
-def profile_forward(ex, x8, steps: int = 3):
-    """Device time by kernel class over `steps` batch-8 forwards
-    (torch.profiler), and the device's idle share of that window."""
+def profile_forward(forward, label: str, steps: int = 3):
+    """Device time by kernel class over `steps` calls of `forward` (a
+    batch-8 forward; torch.profiler), and the device's idle share of that
+    window."""
     from torch.profiler import ProfilerActivity, profile
 
-    ex.predict_masks_batch_async(x8)
+    forward()
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
         for _ in range(steps):
-            ex.predict_masks_batch_async(x8)
+            forward()
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
-    kernels = [e for e in prof.key_averages()
-               if e.device_type == torch.autograd.DeviceType.CUDA and e.self_device_time_total > 0]
-    by_class = {}
+    kernels = sorted((e for e in prof.key_averages()
+                      if e.device_type == torch.autograd.DeviceType.CUDA
+                      and e.self_device_time_total > 0),
+                     key=lambda e: -e.self_device_time_total)
+    by_class, other = {}, []
     for e in kernels:
         cls = next((c for c, keys in _KERNEL_CLASSES if any(k in e.key for k in keys)), "other")
         ms, n = by_class.get(cls, (0.0, 0))
         by_class[cls] = (ms + e.self_device_time_total / 1e3 / steps, n + e.count / steps)
+        if cls == "other":
+            other.append(e)
     busy_ms = sum(ms for ms, _ in by_class.values())
+
+    def rows(events, n):
+        return [dict(kernel=e.key[:100], ms_per_forward=e.self_device_time_total / 1e3 / steps,
+                     launches_per_forward=e.count / steps) for e in events[:n]]
+
     result = dict(steps=steps, wall_ms_per_forward=wall_ms / steps,
                   device_ms_per_forward=busy_ms, idle_share=1 - busy_ms * steps / wall_ms,
                   classes={c: dict(ms_per_forward=ms, launches_per_forward=n)
                            for c, (ms, n) in sorted(by_class.items(), key=lambda kv: -kv[1][0])},
-                  top=[dict(kernel=e.key[:100], ms_per_forward=e.self_device_time_total / 1e3 / steps,
-                            launches_per_forward=e.count / steps)
-                       for e in sorted(kernels, key=lambda e: -e.self_device_time_total)[:10]])
-    log("profile_forward_b8_bf16", json.dumps(result))
+                  top=rows(kernels, 10), top_other=rows(other, 6))
+    log(label, json.dumps(result))
+    return result
+
+
+def robust_logits_check(sd, dev):
+    """Small-input reference: Robust U-Net logits on the card vs the port's
+    CPU path (plain versions) on the same weights and input."""
+    x = torch.from_numpy(np.random.default_rng(1).normal(size=(2, 3, 64, 64)).astype(np.float32))
+    out = {}
+    for name, dt in (("f32", torch.float32), ("bf16", torch.bfloat16)):
+        cpu, gpu = create_model("Robust UNet", dtype=dt), create_model("Robust UNet", dtype=dt)
+        cpu.load_state_dict(sd, strict=True)
+        gpu.load_state_dict(sd, strict=True)
+        with torch.inference_mode():
+            ref = cpu.eval()(x, return_logits=True)
+            got = gpu.to(dev).eval()(x.to(dev), return_logits=True).cpu()
+        assert torch.isfinite(got).all()
+        out[name] = dict(max_abs_err=float((got - ref).abs().max()), logit_std=float(ref.std()),
+                         mask_agree=float(((got > 0) == (ref > 0)).float().mean()))
+    log("robust_logits_vs_cpu", json.dumps(out))
+    if out["f32"]["max_abs_err"] > 1e-3 * max(1.0, out["f32"]["logit_std"]):
+        raise AssertionError(f"f32 Robust U-Net logits disagree with the CPU path: {out}")
+    if out["bf16"]["max_abs_err"] > 0.1 * out["bf16"]["logit_std"] or out["bf16"]["mask_agree"] < 0.95:
+        raise AssertionError(f"bf16 Robust U-Net logits disagree with the CPU path: {out}")
+    return out
+
+
+ROBUST_COUNTERS = {"avg_max_pool": cbam.avg_max_pool, "gated_spatial_stats": cbam.gated_spatial_stats,
+                   "cbam_tail": cbam.cbam_tail_apply, "fused_conv3x3_bn_relu": fused_conv3x3_bn_relu,
+                   "fused_avg_max_pool": fused_avg_max_pool}
+
+
+def conv_flops(model, x) -> float:
+    """Multiply-adds x 2 of every convolution and transposed convolution in
+    one forward of `model` on `x`, counted from the layer shapes."""
+    total = []
+
+    def hook(mod, args, out):
+        k = mod.weight.shape[-1] * mod.weight.shape[-2]
+        cin = args[0].shape[1]
+        total.append(2.0 * out.numel() * cin * k / (4 if isinstance(mod, ConvTranspose) else 1))
+
+    hooks = [m.register_forward_hook(hook) for m in model.modules()
+             if isinstance(m, (Conv, ConvTranspose))]
+    with torch.inference_mode():
+        model(x, return_logits=True)
+    for h in hooks:
+        h.remove()
+    return sum(total)
+
+
+def robust_unet_path(dev, size=512, n_images=16, batch=8):
+    """The Robust U-Net eval path at full width: `create_model` + the weight
+    bridge, then `make_eval_epoch` over synthetic tiles in bf16 and f32."""
+    sd = robust_unet_state_dict(random_robust_unet_variables(seed=0))
+    logits = robust_logits_check(sd, dev)
+    rng = np.random.default_rng(2)
+    images = rng.integers(0, 256, (n_images, size, size, 3), dtype=np.uint8)
+    yy, xx = np.mgrid[0:size, 0:size]
+    masks = np.stack([yy > size / 2 + 40 * np.sin(xx / 60.0 + i) + 15 * np.sin(xx / 17.0)
+                      for i in range(n_images)]).astype(np.int32)
+    idx, valid = batch_indices(n_images, batch, shuffle=False, rng=rng)
+    x8 = torch.from_numpy(images[:batch]).to(dev)
+    result, probs = dict(logits_vs_cpu=logits, epochs={}), {}
+    for name, dt in (("bf16", torch.bfloat16), ("f32", torch.float32)):
+        model = create_model("Robust UNet", dtype=dt)
+        model.load_state_dict(sd, strict=True)
+        n_params = sum(p.numel() for p in model.parameters())
+        if n_params != ROBUST_UNET_PARAMS:
+            raise AssertionError(f"Robust U-Net has {n_params} parameters, "
+                                 f"expected {ROBUST_UNET_PARAMS}")
+        eval_epoch = make_eval_epoch(model, TrainConfig(eval_batch_size=batch), device=dev)
+        eval_epoch(images[:batch], masks[:batch], idx[:1], valid[:1])  # warm-up (cuDNN plans)
+        torch.cuda.synchronize()
+        for fn in ROBUST_COUNTERS.values():
+            fn.launches = 0
+        t0 = time.perf_counter()
+        loss, agg = eval_epoch(images, masks, idx, valid)
+        epoch_s = time.perf_counter() - t0
+        launches = {k: fn.launches for k, fn in ROBUST_COUNTERS.items()}
+        forwards = len(idx)
+        want = {"avg_max_pool": 9, "gated_spatial_stats": 9, "cbam_tail": 9,
+                "fused_conv3x3_bn_relu": 2 if dt == torch.bfloat16 else 0,
+                "fused_avg_max_pool": 0}
+        if any(launches[k] != n * forwards for k, n in want.items()):
+            raise AssertionError(f"{name}: launches {launches} for {forwards} forwards, "
+                                 f"want {want} a forward")
+        if not (np.isfinite(loss) and all(np.isfinite(v) for v in agg.values())):
+            raise AssertionError(f"{name}: non-finite eval results {loss} {agg}")
+        x = normalize_images(x8).permute(0, 3, 1, 2)
+        with torch.inference_mode():
+            probs[name] = model(x).cpu()
+            fwd_ms = cuda_ms(lambda: model(x, return_logits=True), 5 if dt == torch.float32 else 10)
+        result["epochs"][name] = dict(loss=loss, metrics=agg, launches=launches, forwards=forwards,
+                                      epoch_s=epoch_s, images_per_s=n_images / epoch_s,
+                                      forward_b8_ms=fwd_ms)
+        log(f"robust_eval_epoch_{name}", json.dumps(result["epochs"][name]))
+        if dt == torch.bfloat16:
+            with torch.inference_mode():
+                result["profile"] = profile_forward(lambda: model(x, return_logits=True),
+                                                    "profile_robust_unet_forward_b8_bf16")
+            flops = conv_flops(model, x)
+            result["conv_gflop_b8"] = flops / 1e9
+            result["conv_bound_ms_b8"] = flops / PEAK_BF16_FLOPS * 1e3
+        del model, eval_epoch
+        torch.cuda.empty_cache()
+    agree = float(((probs["bf16"] > 0.5) == (probs["f32"] > 0.5)).float().mean())
+    result["bf16_vs_f32_mask_agreement"] = agree
+    result["water_fraction_f32"] = float((probs["f32"] > 0.5).float().mean())
+    log("robust_unet_path", json.dumps({k: v for k, v in result.items()
+                                        if k not in ("profile", "epochs", "logits_vs_cpu")}))
+    if agree < 0.95:
+        raise AssertionError(f"bf16 masks agree with f32 on only {agree:.4f} of pixels")
     return result
 
 
@@ -332,16 +620,24 @@ def main(argv=None) -> int:
     rng = np.random.default_rng(0)
     conv = check_fused_conv(dev, rng)
     dil = check_dilate(dev, rng)
+    cbam_times, cbam_cases = check_cbam(dev)
     variables = random_unet_variables(seed=0)
     logits = logits_check(variables, dev)
     serving = serving_path(variables, dev, rng)
+    block = residual_block_check(dev)
+    robust = robust_unet_path(dev)
+
+    def robust_launches(name):
+        return sum(e["launches"][name] for e in robust["epochs"].values())
 
     main_dil = dil[0]
+    conv_paths = {"serving": serving["launches"]["fused_conv3x3_bn_relu"],
+                  "robust_unet_eval": robust_launches("fused_conv3x3_bn_relu")}
     kernels = [
         dict(name="fused_conv3x3_bn_relu", route="cuda",
              source="coastline_torch/csrc/fused_conv3x3_bn_relu.cu",
              replaces="coastline/pallas/fused_conv.py:107",
-             launches=serving["launches"]["fused_conv3x3_bn_relu"],
+             launches=sum(conv_paths.values()), launches_by_path=conv_paths,
              max_abs_err=conv["max_abs_err"], ms=conv["ms"], plain_ms=conv["plain_ms"],
              bound_ms=conv["bound_ms"], bound_by=conv["bound_by"],
              library_ms=conv["library_ms"], shape=conv["shape"]),
@@ -354,11 +650,26 @@ def main(argv=None) -> int:
              shape=main_dil["shape"], size=main_dil["size"],
              library="conv-threshold: F.conv2d f32 with the SE, then > 0", cases=dil),
     ]
+    for name, source, replaces in (
+            ("avg_max_pool", "avg_max_pool.cu",
+             "coastline/pallas/cbam.py:141 (and coastline/pallas/pools.py:56)"),
+            ("gated_spatial_stats", "gated_spatial_stats.cu", "coastline/pallas/cbam.py:213"),
+            ("cbam_tail", "cbam_tail.cu", "coastline/pallas/cbam.py:328")):
+        t = cbam_times[name]
+        entry = dict(name=name, route="cuda", source=f"coastline_torch/csrc/{source}",
+                     replaces=replaces, launches=robust_launches(name),
+                     max_abs_err=t["max_abs_err"], ms=t["ms"], plain_ms=t["plain_ms"],
+                     bound_ms=t["bound_ms"], bound_by=t["bound_by"],
+                     library_ms=t["library_ms"], shape=t["shape"], library=t["library"])
+        if name == "avg_max_pool":
+            entry["fused_avg_max_pool_launches_residual_block"] = block["fused_avg_max_pool_launches"]
+        kernels.append(entry)
     if args.out:
         os.makedirs(os.path.dirname(args.out) or ".", exist_ok=True)
         with open(args.out, "w") as f:
             json.dump(dict(card=card, build_s=build_s, kernels=kernels, logits=logits,
-                           serving=serving), f, indent=1)
+                           serving=serving, cbam_cases=cbam_cases, residual_block=block,
+                           robust_unet=robust), f, indent=1)
     log(json.dumps({"kernels": kernels}))
     log(card)
     log(json.dumps({"ok": True, "device": {"platform": "gpu",

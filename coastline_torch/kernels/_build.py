@@ -3,8 +3,9 @@
 Each `csrc/<name>.cu` has a plain C interface and is compiled by `nvcc` on
 first use into its own shared library under `build/coastline_torch/`,
 loaded with ctypes. All sources are compiled in parallel, one `nvcc` each.
-Library names carry a hash of the source and the flags, so an edited
-source is never served from a stale build. Nothing here runs at import
+Library names carry a hash of the source, the shared headers
+(`csrc/*.cuh`) and the flags, so an edited source or header is never served
+from a stale build. Nothing here runs at import
 time: the CPU tests import every module and have no `nvcc`.
 """
 
@@ -36,6 +37,8 @@ def _nvcc() -> str:
 
 def _target(src: Path) -> Path:
     digest = hashlib.sha256(src.read_bytes() + " ".join(NVCC_FLAGS).encode())
+    for header in sorted(CSRC.glob("*.cuh")):
+        digest.update(header.read_bytes())
     return BUILD_DIR / f"{src.stem}-{digest.hexdigest()[:16]}.so"
 
 

@@ -17,7 +17,7 @@ from typing import Optional
 import torch
 from torch import nn
 
-from coastline_torch.ops.blocks import ConvBNAct, conv_bn_act
+from coastline_torch.ops.blocks import ConvBNAct, conv_bn
 from coastline_torch.ops.primitives import Conv, ConvTranspose, max_pool
 
 
@@ -30,7 +30,7 @@ class DoubleConv(nn.Sequential):
                          *ConvBNAct(out_ch, out_ch, generator=generator))
 
     def forward(self, x):
-        return conv_bn_act(self[3], self[4], conv_bn_act(self[0], self[1], x))
+        return conv_bn(self[3], self[4], conv_bn(self[0], self[1], x, act=True), act=True)
 
 
 class UNet(nn.Module):
@@ -53,8 +53,9 @@ class UNet(nn.Module):
         self.dec1 = DoubleConv(128, 64, g)
         self.final = Conv(64, n_classes, 1, generator=g)
 
-    def forward(self, x):
-        """(N, C, H, W) float -> (N, n_classes, H, W) float32 logits."""
+    def forward(self, x, return_logits: bool = True):
+        """(N, C, H, W) float -> (N, n_classes, H, W) float32 logits; like the
+        JAX UNet it returns logits whatever `return_logits` says."""
         x = x.to(self.dtype).contiguous(memory_format=torch.channels_last)
         e1 = self.enc1(x)
         e2 = self.enc2(max_pool(e1))

@@ -17,42 +17,49 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from coastline_torch.ops.initializers import (kaiming_normal_fanout_, torch_bias_init_,
+                                              torch_conv_kernel_init_, torch_convt_kernel_init_)
 
-def _uniform_(t: torch.Tensor, bound: float, generator: Optional[torch.Generator]):
-    with torch.no_grad():
-        t.uniform_(-bound, bound, generator=generator)
+_CONV_INITS = {"torch": torch_conv_kernel_init_, "kaiming_out": kaiming_normal_fanout_}
 
 
 class Conv(nn.Module):
-    """torch Conv2d (stride 1, with bias) and torch's default init
-    (`primitives.py:51-95`, init='torch'). The bias is added after the
-    convolution in the compute dtype, where the JAX layer adds it."""
+    """torch Conv2d (stride 1) with the JAX layer's options
+    (`primitives.py:51-95`): `use_bias`, `dilation`, and `init` 'torch'
+    (torch's default) or 'kaiming_out' (kaiming-normal fan_out, the Robust
+    U-Net's). The bias, when there is one, is torch's default
+    U(+-1/sqrt(fan_in)) and is added after the convolution in the compute
+    dtype, where the JAX layer adds it. Without a bias there is no `bias`
+    entry in the state_dict, as in the reference."""
 
     def __init__(self, in_ch: int, out_ch: int, kernel_size: int = 3,
-                 padding: int = 0, generator: Optional[torch.Generator] = None):
+                 padding: int = 0, dilation: int = 1, use_bias: bool = True,
+                 init: str = "torch", generator: Optional[torch.Generator] = None):
         super().__init__()
+        if init not in _CONV_INITS:
+            raise ValueError(f"init must be one of {sorted(_CONV_INITS)}, got {init!r}")
         self.in_ch, self.out_ch = in_ch, out_ch
-        self.kernel_size, self.padding = kernel_size, padding
+        self.kernel_size, self.padding, self.dilation = kernel_size, padding, dilation
+        self.init = init
         self.weight = nn.Parameter(torch.empty(out_ch, in_ch, kernel_size, kernel_size))
-        self.bias = nn.Parameter(torch.empty(out_ch))
+        self.bias = nn.Parameter(torch.empty(out_ch)) if use_bias else None
         self.reset_parameters(generator)
 
     def reset_parameters(self, generator: Optional[torch.Generator] = None):
-        fan_in = self.weight[0].numel()
-        # kaiming_uniform(a=sqrt(5)) == U(+-1/sqrt(fan_in)), torch's default
-        _uniform_(self.weight, 1.0 / math.sqrt(fan_in), generator)
-        _uniform_(self.bias, 1.0 / math.sqrt(fan_in), generator)
+        _CONV_INITS[self.init](self.weight, generator)
+        if self.bias is not None:
+            torch_bias_init_(self.bias, math.prod(self.weight.shape[1:]), generator)
 
     def forward(self, x):
-        y = F.conv2d(x, self.weight.to(x.dtype), padding=self.padding)
-        return y + self.bias.to(x.dtype)[:, None, None]
+        y = F.conv2d(x, self.weight.to(x.dtype), padding=self.padding, dilation=self.dilation)
+        return y if self.bias is None else y + self.bias.to(x.dtype)[:, None, None]
 
 
 class ConvTranspose(nn.Module):
-    """torch ConvTranspose2d(k=2, stride=2) with bias — the UNet's
-    upsampler (`primitives.py:98-146`). The weight is in torch's
-    (in, out, kh, kw) layout; the JAX package stores it flipped, and the
-    weight bridge (`utils/torch_import.py`) un-flips it."""
+    """torch ConvTranspose2d(k=2, stride=2) with bias and torch's default
+    init — the U-Nets' upsampler (`primitives.py:98-146`). The weight is in
+    torch's (in, out, kh, kw) layout; the JAX package stores it flipped, and
+    the weight bridge (`utils/torch_import.py`) un-flips it."""
 
     def __init__(self, in_ch: int, out_ch: int,
                  generator: Optional[torch.Generator] = None):
@@ -62,9 +69,8 @@ class ConvTranspose(nn.Module):
         self.reset_parameters(generator)
 
     def reset_parameters(self, generator: Optional[torch.Generator] = None):
-        fan_in = self.weight[0].numel()  # torch: out_ch * kh * kw
-        _uniform_(self.weight, 1.0 / math.sqrt(fan_in), generator)
-        _uniform_(self.bias, 1.0 / math.sqrt(fan_in), generator)
+        torch_convt_kernel_init_(self.weight, generator)  # torch: fan_in = out * kh * kw
+        torch_bias_init_(self.bias, math.prod(self.weight.shape[1:]), generator)
 
     def forward(self, x):
         y = F.conv_transpose2d(x, self.weight.to(x.dtype), stride=2)

@@ -8,7 +8,12 @@ dependencies:
 
 Tolerances: dilation is exact; the fused conv may differ from its plain
 version by one bf16 ulp (2^-7 relative) + 1e-3, the same float32 sums taken
-in another order before one bf16 rounding.
+in another order before one bf16 rounding. CBAM kernels: every max is exact;
+a mean is a float32 sum in another order, so |d| <= 1e-5 |ref| (float32) or
+one bf16 ulp, 2^-7 |ref| (bfloat16), plus 1e-5 of the mean magnitude summed
+(cancellation); the tail's attention map is a 98-tap float32 sum in another
+order before its roundings: |d| <= 1e-5 (|y| + |ref|) + 1e-6 in float32 and
+2^-6 (|y| + |ref|) in bfloat16.
 """
 
 import numpy as np
@@ -16,6 +21,8 @@ import pytest
 import torch
 
 from coastline_torch.infer.morphology import elliptical_kernel
+from coastline_torch.kernels import cbam
+from coastline_torch.kernels.pools import fused_avg_max_pool
 from coastline_torch.kernels.fused_conv import (fused_conv3x3_bn_relu,
                                                 fused_conv3x3_bn_relu_plain)
 from coastline_torch.kernels.morphology import dilate_disk, dilate_disk_plain
@@ -100,3 +107,122 @@ def test_unet_bf16_on_card_launches_the_fused_conv_twice(dev, batch, tta, forwar
     got = gpu.predict_masks_batch(x)
     assert fused_conv3x3_bn_relu.launches == before + 2 * forwards
     assert np.mean(got == cpu.predict_masks_batch(x)) >= 0.95
+
+
+CBAM_SHAPES = [(2, 16, 128, 64), (2, 4, 4, 1024), (3, 37, 53, 48), (1, 7, 45, 64),
+               (2, 5, 6, 3), (1, 9, 300, 200)]
+DTYPES = [torch.float32, torch.bfloat16]
+
+
+def _mean_ok(got, ref, absmean, dtype):
+    rel = 1e-5 if dtype == torch.float32 else 2.0 ** -7
+    got, ref = got.float().cpu(), ref.float().cpu()
+    return bool(torch.all((got - ref).abs() <= rel * ref.abs() + 1e-5 * absmean.float().cpu()))
+
+
+def _tail_ok(got, ref, y, dtype):
+    got, ref, y = got.float().cpu(), ref.float().cpu(), y.float().cpu().abs()
+    if dtype == torch.float32:
+        return bool(torch.all((got - ref).abs() <= 1e-5 * (y + ref.abs()) + 1e-6))
+    return bool(torch.all((got - ref).abs() <= 2.0 ** -6 * (y + ref.abs())))
+
+
+def _cbam_case(shape, dtype, dev, seed=0):
+    rng = np.random.default_rng(seed)
+    b, h, w, c = shape
+    x = torch.from_numpy(rng.normal(size=shape).astype(np.float32)).to(dev, dtype)
+    gate = torch.sigmoid(torch.from_numpy(rng.normal(size=(b, c)).astype(np.float32))).to(dev, dtype)
+    return x, gate
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("shape", CBAM_SHAPES)
+def test_avg_max_pool_kernel_matches_plain(dev, shape, dtype):
+    x, _ = _cbam_case(shape, dtype, dev)
+    x[0, 0, 0, 0] = -100.0  # a channel whose max is far from its mean
+    for fn in (cbam.avg_max_pool, fused_avg_max_pool):
+        before = fn.launches
+        avg, mx = fn(x)
+        torch.cuda.synchronize()
+        assert fn.launches == before + 1
+        ref_avg, ref_mx = cbam.avg_max_pool_plain(x)
+        assert avg.dtype == dtype and avg.shape == (shape[0], shape[3])
+        assert torch.equal(mx, ref_mx)
+        assert _mean_ok(avg, ref_avg, x.float().abs().mean((1, 2)), dtype)
+
+
+def test_avg_max_pool_kernel_keeps_nan_and_negative_max(dev):
+    x = -torch.rand(2, 9, 10, 64, device=dev) - 1.0
+    x[1, 3, 4, 7] = float("nan")
+    avg, mx = cbam.avg_max_pool(x)
+    assert torch.isnan(mx[1, 7]) and torch.isnan(avg[1, 7]) and int(torch.isnan(mx).sum()) == 1
+    assert float(mx[0].max()) < -1.0
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("shape", CBAM_SHAPES)
+def test_gated_spatial_stats_kernel_matches_plain(dev, shape, dtype):
+    x, gate = _cbam_case(shape, dtype, dev, 1)
+    before = cbam.gated_spatial_stats.launches
+    got = cbam.gated_spatial_stats(x, gate)
+    torch.cuda.synchronize()
+    assert cbam.gated_spatial_stats.launches == before + 1
+    ref = cbam.gated_spatial_stats_plain(x, gate)
+    assert got.shape == (shape[0], 2) + shape[1:3] and got.dtype == dtype
+    assert torch.equal(got[:, 1], ref[:, 1])
+    z = (x * gate[:, None, None, :]).float().abs().mean(-1)
+    assert _mean_ok(got[:, 0], ref[:, 0], z, dtype)
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("shape", CBAM_SHAPES)
+def test_cbam_tail_kernel_matches_plain(dev, shape, dtype):
+    y, gate = _cbam_case(shape, dtype, dev, 2)
+    s, _ = _cbam_case(shape, dtype, dev, 3)
+    stats = cbam.gated_spatial_stats_plain(y, gate)
+    w = torch.from_numpy(np.random.default_rng(4).normal(0, 0.15, (7, 7, 2, 1))
+                         .astype(np.float32)).to(dev)
+    before = cbam.cbam_tail_apply.launches
+    got = cbam.cbam_tail_apply(y, s, gate, stats, w)
+    torch.cuda.synchronize()
+    assert cbam.cbam_tail_apply.launches == before + 1
+    assert got.dtype == dtype and got.shape == y.shape
+    assert _tail_ok(got, cbam.cbam_tail_apply_plain(y, s, gate, stats, w), y, dtype)
+
+
+def test_cbam_kernels_reject_non_contiguous(dev):
+    x, gate = _cbam_case((2, 8, 8, 64), torch.bfloat16, dev)
+    xt = x.transpose(1, 2)
+    with pytest.raises(ValueError, match="contiguous"):
+        cbam.avg_max_pool(xt)
+    with pytest.raises(ValueError, match="contiguous"):
+        cbam.gated_spatial_stats(xt, gate)
+
+
+@pytest.mark.parametrize("dtype,fused_convs", [(torch.bfloat16, 2), (torch.float32, 0)])
+def test_robust_unet_on_card_launches_the_cbam_kernels(dev, dtype, fused_convs):
+    """Nine pool, stats and tail launches a forward, two fused convs in bf16;
+    the card's logits agree with the CPU path's."""
+    from coastline_torch.models.robust_unet import RobustUNet
+    from coastline_torch.utils.torch_import import (random_robust_unet_variables,
+                                                    robust_unet_state_dict)
+
+    sd = robust_unet_state_dict(random_robust_unet_variables(seed=0))
+    cpu, gpu = RobustUNet(dtype=dtype), RobustUNet(dtype=dtype)
+    cpu.load_state_dict(sd)
+    gpu.load_state_dict(sd)
+    gpu = gpu.to(dev).eval()
+    x = torch.from_numpy(np.random.default_rng(1).normal(size=(2, 3, 64, 64)).astype(np.float32))
+    fns = (cbam.avg_max_pool, cbam.gated_spatial_stats, cbam.cbam_tail_apply,
+           fused_conv3x3_bn_relu)
+    before = [f.launches for f in fns]
+    with torch.inference_mode():
+        got = gpu(x.to(dev), return_logits=True).cpu()
+        ref = cpu.eval()(x, return_logits=True)
+    assert [f.launches - b for f, b in zip(fns, before)] == [9, 9, 9, fused_convs]
+    assert torch.isfinite(got).all()
+    err, std = float((got - ref).abs().max()), float(ref.std())
+    if dtype == torch.float32:
+        assert err <= 1e-3 * max(1.0, std)
+    else:
+        assert err <= 0.1 * std and float(((got > 0) == (ref > 0)).float().mean()) >= 0.95

@@ -35,23 +35,30 @@ def test_port_and_chip_smoke_import_no_jax_and_no_coastline():
     assert report["bad"] == []
     for m in ("coastline_torch.infer.extract", "coastline_torch.infer.server",
               "coastline_torch.kernels.fused_conv", "coastline_torch.kernels.morphology",
-              "coastline_torch.models.unet", "coastline_torch.utils.torch_import"):
+              "coastline_torch.models.unet", "coastline_torch.utils.torch_import",
+              "coastline_torch.kernels.cbam", "coastline_torch.kernels.pools",
+              "coastline_torch.models.robust_unet", "coastline_torch.models.registry",
+              "coastline_torch.ops.initializers", "coastline_torch.train.losses",
+              "coastline_torch.train.metrics", "coastline_torch.train.loop"):
         assert m in report["modules"]
 
 
 def _entry_points():
     from coastline_torch.infer.extract import CoastlineExtractor
     from coastline_torch.infer.morphology import coastline_band, dilate
+    from coastline_torch.models.robust_unet import RobustUNet
+    from coastline_torch.train.loop import TrainConfig, make_eval_epoch
 
     mask = np.zeros((8, 8), np.uint8)
     return {
         "extractor": lambda: CoastlineExtractor(),
         "coastline_band": lambda: coastline_band(mask),
         "dilate": lambda: dilate(mask),
+        "make_eval_epoch": lambda: make_eval_epoch(RobustUNet(base=16), TrainConfig()),
     }
 
 
-@pytest.mark.parametrize("name", ["extractor", "coastline_band", "dilate"])
+@pytest.mark.parametrize("name", ["extractor", "coastline_band", "dilate", "make_eval_epoch"])
 def test_entry_points_raise_without_a_card(name, monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="no CUDA device"):
