@@ -172,8 +172,14 @@ def pool_geometry(b, hw, c, vec, sms):
     return gb, -(-hw // px), px
 
 
-def _avg_max_pool_launch(x):
-    """Launch the pool kernel on CUDA `x` (checked by the caller)."""
+def run_avg_max_pool(x, wrapper):
+    """The body of `avg_max_pool` and of `kernels.pools.fused_avg_max_pool`,
+    which launch the same kernel under their own counts: checks `x`, runs
+    the plain version for a CPU tensor, else launches the pool kernel and
+    adds one to `wrapper.launches`."""
+    _check("x", x, 4)
+    if not _on_card(x):
+        return avg_max_pool_plain(x)
     b, h, w, c = x.shape
     vec = _vec(c, x)
     gb, slices, px = pool_geometry(b, h * w, c, vec, _sm_count(x.device.index))
@@ -186,18 +192,14 @@ def _avg_max_pool_launch(x):
                                      avg.data_ptr(), mx.data_ptr(), b, h * w, c,
                                      _DTYPES[x.dtype], vec, gb, slices, px, _stream(x))
     _build.check(status, "avg_max_pool launch")
+    wrapper.launches += 1
     return avg, mx
 
 
 def avg_max_pool(x):
     """(B, H, W, C) float32 or bfloat16 -> (avg (B, C), max (B, C)) in x.dtype,
     one read of x."""
-    _check("x", x, 4)
-    if not _on_card(x):
-        return avg_max_pool_plain(x)
-    out = _avg_max_pool_launch(x)
-    avg_max_pool.launches += 1
-    return out
+    return run_avg_max_pool(x, avg_max_pool)
 
 
 def gated_spatial_stats(x, gate):

@@ -8,20 +8,14 @@ one `ChannelAttention` calls at eval (`coastline/ops/blocks.py:103-108`), and
 it keeps its own launch count.
 """
 
-from coastline_torch.kernels.cbam import (_avg_max_pool_launch, _check, _on_card,
-                                          avg_max_pool_plain)
+from coastline_torch.kernels.cbam import run_avg_max_pool
 
 
 def fused_avg_max_pool(x):
     """(B, H, W, C) float32 or bfloat16 -> (avg (B, C), max (B, C)) in x.dtype,
     one read of x. A CUDA tensor launches the kernel (or raises); a CPU
     tensor runs `avg_max_pool_plain`."""
-    _check("x", x, 4)
-    if not _on_card(x):
-        return avg_max_pool_plain(x)
-    out = _avg_max_pool_launch(x)
-    fused_avg_max_pool.launches += 1
-    return out
+    return run_avg_max_pool(x, fused_avg_max_pool)
 
 
 fused_avg_max_pool.launches = 0

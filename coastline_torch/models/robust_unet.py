@@ -33,10 +33,10 @@ class RobustUNet(nn.Module):
         super().__init__()
         g = torch.Generator().manual_seed(0)  # the random init is seeded, as JAX's PRNGKey(0)
         self.dtype = dtype
-        b, init = base, "kaiming_out"
+        b = base
 
         def rb(cin, cout, rate):
-            return ResidualBlock(cin, cout, rate, init=init, generator=g)
+            return ResidualBlock(cin, cout, rate, generator=g)
 
         def down(cin, cout, rate):
             return nn.Sequential(nn.MaxPool2d(2), rb(cin, cout, rate))
@@ -46,16 +46,15 @@ class RobustUNet(nn.Module):
         self.down2 = down(2 * b, 4 * b, 0.2)
         self.down3 = down(4 * b, 8 * b, 0.2)
         self.bottleneck = nn.Sequential(nn.MaxPool2d(2),
-                                        DilatedBlock(8 * b, 16 * b, init=init, generator=g),
+                                        DilatedBlock(8 * b, 16 * b, generator=g),
                                         rb(16 * b, 16 * b, 0.3))
         for level, (cin, rate) in zip((4, 3, 2, 1), ((16 * b, 0.2), (8 * b, 0.2),
                                                      (4 * b, 0.1), (2 * b, 0.1))):
             cout = cin // 2
             setattr(self, f"up{level}", ConvTranspose(cin, cout, generator=g))
-            setattr(self, f"att{level}",
-                    AttentionGate(cout, cout, cout // 2, init=init, generator=g))
+            setattr(self, f"att{level}", AttentionGate(cout, cout, cout // 2, generator=g))
             setattr(self, f"dec{level}", rb(cin, cout, rate))
-        self.outc = nn.Sequential(Conv(b, n_classes, 1, init=init, generator=g))
+        self.outc = nn.Sequential(Conv(b, n_classes, 1, init="kaiming_out", generator=g))
 
     def forward(self, x, return_logits: bool = False):
         """(N, 3, H, W) float -> (N, n_classes, H, W) float32 probabilities, or

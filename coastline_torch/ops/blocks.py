@@ -10,8 +10,10 @@ forward launches it twice. Every other conv, and everything in float32, runs
 
 The Robust U-Net's blocks (`ops/blocks.py:30-245`): Dropout2d,
 ChannelAttention, SpatialAttention, AttentionGate, ResidualBlock and
-DilatedBlock, with the reference's state_dict names. They are eval-only
-until the training slice: train mode raises. At eval a ResidualBlock ends in
+DilatedBlock, with the reference's state_dict names and the Robust U-Net's
+init: every conv kaiming-normal fan_out, the channel MLP flax `he_normal`.
+They are eval-only until the training slice: train mode raises. At eval a
+ResidualBlock ends in
 `kernels.cbam.fused_cbam_tail` (three CUDA kernels on the card) for every
 shape; `ResidualBlock.module_tail` keeps the module composition it equals.
 """
@@ -23,8 +25,9 @@ from torch import nn
 from coastline_torch.kernels.cbam import channel_gate, fused_cbam_tail
 from coastline_torch.kernels.fused_conv import fused_conv3x3_bn_relu
 from coastline_torch.kernels.pools import fused_avg_max_pool
-from coastline_torch.ops.initializers import he_normal_
 from coastline_torch.ops.primitives import Conv, Norm
+
+_INIT = "kaiming_out"  # every conv of the Robust U-Net's blocks (`Main_Final.py:282-288`)
 
 
 def fold_bn(conv: Conv, norm: Norm):
@@ -91,20 +94,18 @@ class Dropout2d(nn.Module):
 class ChannelAttention(nn.Module):
     """CBAM channel gate (`blocks.py:79-114`): x * sigmoid(mlp(avg) +
     mlp(max)) over the global average- and max-pooled channels, mlp = two
-    bias-free 1x1 convs (`fc.0`, `fc.2`, ratio 16) with a ReLU between. Under
-    `init='kaiming_out'` the MLP is drawn from flax's `he_normal`, as in the
-    JAX package. At eval the pooling is `kernels.pools.fused_avg_max_pool`."""
+    bias-free 1x1 convs (`fc.0`, `fc.2`, ratio 16) with a ReLU between,
+    drawn from flax's `he_normal` as in the JAX package. At eval the pooling
+    is `kernels.pools.fused_avg_max_pool`."""
 
-    def __init__(self, channels: int, ratio: int = 16, init: str = "torch",
-                 generator=None):
+    def __init__(self, channels: int, generator=None):
         super().__init__()
-        hidden = channels // ratio
-        self.fc = nn.Sequential(Conv(channels, hidden, 1, use_bias=False, generator=generator),
-                                nn.ReLU(),
-                                Conv(hidden, channels, 1, use_bias=False, generator=generator))
-        if init == "kaiming_out":
-            he_normal_(self.fc[0].weight, generator)
-            he_normal_(self.fc[2].weight, generator)
+        hidden = channels // 16
+
+        def fc(cin, cout):
+            return Conv(cin, cout, 1, use_bias=False, init="he_normal", generator=generator)
+
+        self.fc = nn.Sequential(fc(channels, hidden), nn.ReLU(), fc(hidden, channels))
 
     def dense_kernels(self):
         """(fc1 (C, C // r), fc2 (C // r, C)): the MLP in the JAX Dense layout."""
@@ -121,10 +122,9 @@ class SpatialAttention(nn.Module):
     max_c])) with `conv1` (1, 2, 7, 7), no bias; the mean is summed in
     float32 and the sigmoid stays in the compute dtype."""
 
-    def __init__(self, kernel_size: int = 7, init: str = "torch", generator=None):
+    def __init__(self, generator=None):
         super().__init__()
-        self.conv1 = Conv(2, 1, kernel_size, padding=kernel_size // 2, use_bias=False,
-                          init=init, generator=generator)
+        self.conv1 = Conv(2, 1, 7, padding=3, use_bias=False, init=_INIT, generator=generator)
 
     def hwio(self):
         """The conv weight in the JAX HWIO layout, (7, 7, 2, 1)."""
@@ -142,12 +142,11 @@ class AttentionGate(nn.Module):
     back; returns x * psi. `W_g`, `W_x`, `psi` are Sequential(1x1 conv with
     bias, BN), as in the reference."""
 
-    def __init__(self, f_g: int, f_l: int, f_int: int, init: str = "torch",
-                 generator=None):
+    def __init__(self, f_g: int, f_l: int, f_int: int, generator=None):
         super().__init__()
 
         def branch(cin, cout):
-            return nn.Sequential(Conv(cin, cout, 1, init=init, generator=generator), Norm(cout))
+            return nn.Sequential(Conv(cin, cout, 1, init=_INIT, generator=generator), Norm(cout))
 
         self.W_g = branch(f_g, f_int)
         self.W_x = branch(f_l, f_int)
@@ -165,24 +164,21 @@ class ResidualBlock(nn.Module):
     1x1 conv + BN (`shortcut.0`/`.1`) when the widths differ, else the
     identity. At eval the tail after bn2 is `fused_cbam_tail`."""
 
-    def __init__(self, in_ch: int, out_ch: int, dropout_rate: float = 0.1,
-                 init: str = "torch", generator=None):
+    def __init__(self, in_ch: int, out_ch: int, dropout_rate: float = 0.1, generator=None):
         super().__init__()
-        if in_ch != out_ch:
-            self.shortcut = nn.Sequential(
-                Conv(in_ch, out_ch, 1, use_bias=False, init=init, generator=generator),
-                Norm(out_ch))
-        else:
-            self.shortcut = None
-        self.conv1 = Conv(in_ch, out_ch, 3, padding=1, use_bias=False, init=init,
-                          generator=generator)
+
+        def conv(cin, k):
+            return Conv(cin, out_ch, k, padding=k // 2, use_bias=False, init=_INIT,
+                        generator=generator)
+
+        self.shortcut = nn.Sequential(conv(in_ch, 1), Norm(out_ch)) if in_ch != out_ch else None
+        self.conv1 = conv(in_ch, 3)
         self.bn1 = Norm(out_ch)
         self.dropout = Dropout2d(dropout_rate)
-        self.conv2 = Conv(out_ch, out_ch, 3, padding=1, use_bias=False, init=init,
-                          generator=generator)
+        self.conv2 = conv(out_ch, 3)
         self.bn2 = Norm(out_ch)
-        self.ca = ChannelAttention(out_ch, init=init, generator=generator)
-        self.sa = SpatialAttention(init=init, generator=generator)
+        self.ca = ChannelAttention(out_ch, generator=generator)
+        self.sa = SpatialAttention(generator=generator)
 
     def body(self, x):
         """(bn2 output, shortcut): everything before the CBAM tail."""
@@ -211,13 +207,16 @@ class DilatedBlock(nn.Module):
     3x3 d2 | 3x3 d4 (`conv1`..`conv4`, with bias), each out/4 channels,
     concat -> BN (`bn`) -> ReLU."""
 
-    def __init__(self, in_ch: int, out_ch: int, init: str = "torch", generator=None):
+    def __init__(self, in_ch: int, out_ch: int, generator=None):
         super().__init__()
         f4 = out_ch // 4
-        self.conv1 = Conv(in_ch, f4, 1, init=init, generator=generator)
-        self.conv2 = Conv(in_ch, f4, 3, padding=1, init=init, generator=generator)
-        self.conv3 = Conv(in_ch, f4, 3, padding=2, dilation=2, init=init, generator=generator)
-        self.conv4 = Conv(in_ch, f4, 3, padding=4, dilation=4, init=init, generator=generator)
+
+        def conv(k, d):
+            return Conv(in_ch, f4, k, padding=d * (k // 2), dilation=d, init=_INIT,
+                        generator=generator)
+
+        self.conv1, self.conv2 = conv(1, 1), conv(3, 1)
+        self.conv3, self.conv4 = conv(3, 2), conv(3, 4)
         self.bn = Norm(out_ch)
 
     def forward(self, x):

@@ -17,17 +17,20 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from coastline_torch.ops.initializers import (kaiming_normal_fanout_, torch_bias_init_,
-                                              torch_conv_kernel_init_, torch_convt_kernel_init_)
+from coastline_torch.ops.initializers import (he_normal_, kaiming_normal_fanout_,
+                                              torch_bias_init_, torch_conv_kernel_init_,
+                                              torch_convt_kernel_init_)
 
-_CONV_INITS = {"torch": torch_conv_kernel_init_, "kaiming_out": kaiming_normal_fanout_}
+_CONV_INITS = {"torch": torch_conv_kernel_init_, "kaiming_out": kaiming_normal_fanout_,
+               "he_normal": he_normal_}
 
 
 class Conv(nn.Module):
     """torch Conv2d (stride 1) with the JAX layer's options
     (`primitives.py:51-95`): `use_bias`, `dilation`, and `init` 'torch'
-    (torch's default) or 'kaiming_out' (kaiming-normal fan_out, the Robust
-    U-Net's). The bias, when there is one, is torch's default
+    (torch's default), 'kaiming_out' (kaiming-normal fan_out, the Robust
+    U-Net's convs) or 'he_normal' (flax's, the Robust U-Net's channel MLP
+    as the JAX package draws it). The bias, when there is one, is torch's default
     U(+-1/sqrt(fan_in)) and is added after the convolution in the compute
     dtype, where the JAX layer adds it. Without a bias there is no `bias`
     entry in the state_dict, as in the reference."""

@@ -27,25 +27,13 @@ from coastline_torch.utils.device import resolve_device
 
 @dataclass(frozen=True)
 class TrainConfig:
-    """Training protocol knobs, defaults = the comparison protocol
-    (`Main_Final.py:549-553,834`); the same fields as the JAX package's."""
+    """The fields of the JAX package's `TrainConfig` that the evaluation
+    epoch reads, with its defaults (the comparison protocol); the training
+    fields come with the training slice. The batch size is the width of the
+    `idx` plan handed to the epoch (`batch_indices`)."""
 
-    epochs: int = 20
-    lr: float = 1e-4
-    weight_decay: float = 1e-4
-    batch_size: int = 2
-    eval_batch_size: int = 2
     loss: str = "bce"  # bce (sigmoid models) | ce (2-class UNet) | hsv_bce
-    hsv_weight: float = 0.1
-    plateau_on: str = "train"
-    plateau_patience: int = 5
-    plateau_factor: float = 0.5
     threshold: float = 0.5
-    augment: bool = False
-    log_every: int = 5
-    seed: int = 0
-    nan_policy: str = "halt"
-    log_path: str = ""
 
 
 def batch_indices(n: int, batch_size: int, *, shuffle: bool, rng: np.random.Generator):

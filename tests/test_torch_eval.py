@@ -100,8 +100,7 @@ def _dataset(n=5, size=32, seed=5):
 
 def _run_both(jax_model, variables, port_model, config):
     images, masks = _dataset()
-    idx, valid = batch_indices(len(images), config.eval_batch_size, shuffle=False,
-                               rng=np.random.default_rng(0))
+    idx, valid = batch_indices(len(images), 2, shuffle=False, rng=np.random.default_rng(0))
     assert valid[-1, -1] == 0.0  # the wrap-around padding is in the plan, marked invalid
     logits = np.asarray(jax_model.apply(variables, jax_loop.normalize_images(jnp.asarray(images)),
                                         train=False, return_logits=True))
@@ -122,7 +121,7 @@ def test_eval_epoch_bce_matches_jax_robust_unet():
     variables = random_robust_unet_variables(seed=3, base=16)
     model = RobustUNet(base=16)
     model.load_state_dict(robust_unet_state_dict(variables), strict=True)
-    got = _run_both(JaxRobustUNet(base=16), variables, model, TrainConfig(eval_batch_size=2))
+    got = _run_both(JaxRobustUNet(base=16), variables, model, TrainConfig())
     assert 0.0 < got["mean_accuracy"] < 1.0
 
 
@@ -130,7 +129,7 @@ def test_eval_epoch_ce_matches_jax_unet():
     variables = random_unet_variables(seed=4)
     model = UNet()
     model.load_state_dict(unet_state_dict(variables), strict=True)
-    _run_both(JaxUNet(), variables, model, TrainConfig(eval_batch_size=2, loss="ce"))
+    _run_both(JaxUNet(), variables, model, TrainConfig(loss="ce"))
 
 
 def test_eval_epoch_rejects_losses_of_the_training_slice():
