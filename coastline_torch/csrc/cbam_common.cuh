@@ -1,5 +1,6 @@
 // Shared device helpers of the CBAM kernels (avg_max_pool.cu,
-// gated_spatial_stats.cu, cbam_tail.cu): dtype conversion, the per-op
+// gated_spatial_stats.cu, cbam_tail.cu) and of SegNet's indexed pool and
+// unpool (unpool.cu): dtype conversion, the per-op
 // rounding of a bf16 computation, NaN-keeping max, and 16-byte vector
 // loads and stores of VEC consecutive channels.
 #pragma once

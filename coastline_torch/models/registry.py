@@ -3,11 +3,12 @@
 same snake_case aliases."""
 
 from coastline_torch.models.robust_unet import RobustUNet
+from coastline_torch.models.segnet import SegNet
 from coastline_torch.models.unet import UNet
 
-_REGISTRY = {"Robust UNet": RobustUNet, "UNet": UNet}
+_REGISTRY = {"Robust UNet": RobustUNet, "SegNet": SegNet, "UNet": UNet}
 _ALIASES = {"robust unet": "Robust UNet", "robust_unet": "Robust UNet",
-            "robustunet": "Robust UNet", "unet": "UNet"}
+            "robustunet": "Robust UNet", "segnet": "SegNet", "unet": "UNet"}
 
 
 def available_models():

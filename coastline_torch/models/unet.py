@@ -3,8 +3,9 @@
 transposed-conv upsampling, concat skips `[up, skip]`, 1x1 head, raw logits.
 
 Module names follow the reference state_dict (`enc1..enc4`, `bottleneck`,
-`dec4..dec1` as Sequential(conv, bn, relu, conv, bn, relu), `upconv4..1`,
-`final`), so a reference `.pth` loads with `strict=True`.
+`dec4..dec1` as Sequential(conv, bn, relu, conv, bn, relu), each a two-conv
+`ConvStack`; `upconv4..1`, `final`), so a reference `.pth` loads with
+`strict=True`.
 
 `dtype` is the compute dtype (the JAX `dtype=`): the input is cast to it,
 parameters stay float32 and are cast at use, and the logits come back as
@@ -12,25 +13,11 @@ float32. Activations are kept in channels_last memory, so the fused conv
 kernel reads its NHWC input without a copy.
 """
 
-from typing import Optional
-
 import torch
 from torch import nn
 
-from coastline_torch.ops.blocks import ConvBNAct, conv_bn
+from coastline_torch.ops.blocks import ConvStack
 from coastline_torch.ops.primitives import Conv, ConvTranspose, max_pool
-
-
-class DoubleConv(nn.Sequential):
-    """Two ConvBNActs flattened into one Sequential (indices 0/1 and 3/4)."""
-
-    def __init__(self, in_ch: int, out_ch: int,
-                 generator: Optional[torch.Generator] = None):
-        super().__init__(*ConvBNAct(in_ch, out_ch, generator=generator),
-                         *ConvBNAct(out_ch, out_ch, generator=generator))
-
-    def forward(self, x):
-        return conv_bn(self[3], self[4], conv_bn(self[0], self[1], x, act=True), act=True)
 
 
 class UNet(nn.Module):
@@ -38,19 +25,19 @@ class UNet(nn.Module):
         super().__init__()
         g = torch.Generator().manual_seed(0)  # the random init is seeded, as JAX's PRNGKey(0)
         self.dtype = dtype
-        self.enc1 = DoubleConv(3, 64, g)
-        self.enc2 = DoubleConv(64, 128, g)
-        self.enc3 = DoubleConv(128, 256, g)
-        self.enc4 = DoubleConv(256, 512, g)
-        self.bottleneck = DoubleConv(512, 1024, g)
+        self.enc1 = ConvStack((3, 64, 64), g)
+        self.enc2 = ConvStack((64, 128, 128), g)
+        self.enc3 = ConvStack((128, 256, 256), g)
+        self.enc4 = ConvStack((256, 512, 512), g)
+        self.bottleneck = ConvStack((512, 1024, 1024), g)
         self.upconv4 = ConvTranspose(1024, 512, generator=g)
-        self.dec4 = DoubleConv(1024, 512, g)
+        self.dec4 = ConvStack((1024, 512, 512), g)
         self.upconv3 = ConvTranspose(512, 256, generator=g)
-        self.dec3 = DoubleConv(512, 256, g)
+        self.dec3 = ConvStack((512, 256, 256), g)
         self.upconv2 = ConvTranspose(256, 128, generator=g)
-        self.dec2 = DoubleConv(256, 128, g)
+        self.dec2 = ConvStack((256, 128, 128), g)
         self.upconv1 = ConvTranspose(128, 64, generator=g)
-        self.dec1 = DoubleConv(128, 64, g)
+        self.dec1 = ConvStack((128, 64, 64), g)
         self.final = Conv(64, n_classes, 1, generator=g)
 
     def forward(self, x, return_logits: bool = True):

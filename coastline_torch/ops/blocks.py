@@ -3,10 +3,11 @@
 conv -> BN (-> ReLU): in bf16, a 3x3/pad-1 conv with 64 input and 64 output
 channels goes through the fused conv kernel with BN and any conv bias folded
 into one per-channel affine, with or without the ReLU. The UNet's two
-full-resolution 64->64 ConvBNActs and the Robust U-Net's two 64-channel
-ResidualBlocks' second conv (conv -> BN, no ReLU) are that shape, so each
-forward launches it twice. Every other conv, and everything in float32, runs
-`F.conv2d` -> BN (-> ReLU), as the JAX package leaves those to XLA.
+full-resolution 64->64 ConvBNActs, SegNet's `enc1` conv 2 and `dec1` conv 0,
+and the Robust U-Net's two 64-channel ResidualBlocks' second conv (conv ->
+BN, no ReLU) are that shape, so each forward launches it twice. Every other
+conv, and everything in float32, runs `F.conv2d` -> BN (-> ReLU), as the JAX
+package leaves those to XLA.
 
 The Robust U-Net's blocks (`ops/blocks.py:30-245`): Dropout2d,
 ChannelAttention, SpatialAttention, AttentionGate, ResidualBlock and
@@ -17,6 +18,8 @@ ResidualBlock ends in
 `kernels.cbam.fused_cbam_tail` (three CUDA kernels on the card) for every
 shape; `ResidualBlock.module_tail` keeps the module composition it equals.
 """
+
+from typing import Optional
 
 import torch
 import torch.nn.functional as F
@@ -67,6 +70,27 @@ class ConvBNAct(nn.Sequential):
 
     def forward(self, x):
         return conv_bn(self[0], self[1], x, act=True)
+
+
+class ConvStack(nn.Sequential):
+    """ConvBNActs of `widths` (in, out 1, out 2, ...) flattened into one
+    Sequential, conv at 3j and BN at 3j + 1 — the reference's layout of the
+    UNet's double convs and SegNet's stages — optionally followed by a
+    `head`: a 3x3 conv with bias to that many channels, without BN (SegNet's
+    `dec1.3`)."""
+
+    def __init__(self, widths, generator=None, head: Optional[int] = None):
+        layers = [m for cin, cout in zip(widths, widths[1:])
+                  for m in ConvBNAct(cin, cout, generator=generator)]
+        if head is not None:
+            layers.append(Conv(widths[-1], head, 3, padding=1, generator=generator))
+        super().__init__(*layers)
+        self.n_convs = len(widths) - 1
+
+    def forward(self, x):
+        for j in range(self.n_convs):
+            x = conv_bn(self[3 * j], self[3 * j + 1], x, act=True)
+        return x if len(self) == 3 * self.n_convs else self[-1](x)
 
 
 def _eval_only(module: nn.Module):

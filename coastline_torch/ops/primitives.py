@@ -11,12 +11,13 @@ Randomness comes only from the `torch.Generator` handed to
 """
 
 import math
-from typing import Optional
+from typing import Optional, Tuple
 
 import torch
 import torch.nn.functional as F
 from torch import nn
 
+from coastline_torch.kernels import unpool
 from coastline_torch.ops.initializers import (he_normal_, kaiming_normal_fanout_,
                                               torch_bias_init_, torch_conv_kernel_init_,
                                               torch_convt_kernel_init_)
@@ -105,3 +106,26 @@ class Norm(nn.BatchNorm2d):
 def max_pool(x):
     """torch MaxPool2d(2) (`primitives.py:252-267`)."""
     return F.max_pool2d(x, 2)
+
+
+def max_pool_with_indices(x):
+    """SegNet's 2x2/stride-2 max pool with window codes (`primitives.py:340-356`)
+    on NCHW `x` in channels_last memory: (values, int32 codes 0..3), both
+    NCHW views of NHWC tensors. On CUDA it launches
+    `kernels.unpool.max_pool_with_indices` on the NHWC view of `x`."""
+    vals, codes = unpool.max_pool_with_indices(x.permute(0, 2, 3, 1))
+    return vals.permute(0, 3, 1, 2), codes.permute(0, 3, 1, 2)
+
+
+def max_unpool(vals, codes, output_size: Optional[Tuple[int, int]] = None):
+    """Inverse of `max_pool_with_indices` (`primitives.py:359-375`): each value
+    at its window position, zeros (carrying the value's sign) elsewhere, NCHW
+    in channels_last memory. `output_size` (H, W) crops, then zero-pads, the
+    (2h, 2w) result."""
+    y = unpool.max_unpool(vals.permute(0, 2, 3, 1), codes.permute(0, 2, 3, 1)).permute(0, 3, 1, 2)
+    if output_size is not None and tuple(y.shape[2:]) != tuple(output_size):
+        oh, ow = output_size
+        y = y[:, :, :oh, :ow]
+        y = F.pad(y, (0, ow - y.shape[3], 0, oh - y.shape[2])).contiguous(
+            memory_format=torch.channels_last)
+    return y

@@ -1,7 +1,7 @@
 """Weight bridge: JAX-package variables (as numpy) -> port state_dicts.
 
-The port's own copy of the UNet and Robust U-Net exporters in
-`coastline/utils/torch_import.py:765-866`: flax NHWC conv kernels
+The port's own copy of the UNet, Robust U-Net and SegNet exporters in
+`coastline/utils/torch_import.py:765-888`: flax NHWC conv kernels
 (kh, kw, in, out) become torch (out, in, kh, kw); the JAX ConvTranspose
 kernel, stored spatially flipped, is un-flipped into torch's
 (in, out, kh, kw); ChannelAttention's Dense kernels (in, out) become 1x1
@@ -220,4 +220,59 @@ def random_robust_unet_variables(seed: int = 0, base: int = 64, n_classes: int =
         params[f"AttentionGate_{i}"], stats[f"AttentionGate_{i}"] = ag_p, ag_s
         params[f"ConvTranspose_{i}"] = kernel(2, 2 * c, c, fan_in=2 * c)
     params["Conv_0"] = {"Conv_0": kernel(1, b, n_classes)}
+    return {"params": params, "batch_stats": stats}
+
+
+SEGNET_STAGES = (("enc1", (3, 64, 64)), ("enc2", (64, 128, 128)),
+                 ("enc3", (128, 256, 256, 256)), ("enc4", (256, 512, 512, 512)),
+                 ("dec4", (512, 512, 512, 256)), ("dec3", (256, 256, 256, 128)),
+                 ("dec2", (128, 128, 64)), ("dec1", (64, 64)))
+
+
+def export_reference_segnet(variables: Mapping) -> Dict[str, np.ndarray]:
+    """JAX SegNet {'params', 'batch_stats'} -> reference state_dict as numpy:
+    ConvBNAct_0..18 in call order onto conv 3j / BN 3j + 1 of each stage, the
+    head `Conv_0` onto `dec1.3`."""
+    p, s = variables["params"], variables["batch_stats"]
+    out: Dict = {}
+    i = 0
+    for name, widths in SEGNET_STAGES:
+        for j in range(len(widths) - 1):
+            cba_p, cba_s = p[f"ConvBNAct_{i}"], s[f"ConvBNAct_{i}"]
+            _emit(out, f"{name}.{3 * j}", _conv_inv(cba_p["Conv_0"]["Conv_0"]))
+            _bn_inv(f"{name}.{3 * j + 1}", cba_p["Norm_0"]["BatchNorm_0"],
+                    cba_s["Norm_0"]["BatchNorm_0"], out)
+            i += 1
+    _emit(out, "dec1.3", _conv_inv(p["Conv_0"]["Conv_0"]))
+    return out
+
+
+def segnet_state_dict(variables: Mapping) -> Dict[str, torch.Tensor]:
+    """JAX SegNet variables -> port SegNet state_dict."""
+    return _tensors(export_reference_segnet(variables))
+
+
+def random_segnet_variables(seed: int = 0, n_classes: int = 1) -> Dict:
+    """A JAX-layout SegNet variables tree of numpy arrays drawn from `seed`:
+    He-uniform kernels (fan_in = 9 * in), biases U(+-0.1), BN statistics and
+    affines drawn away from 0/1 so a wrong fold or epsilon shows, as
+    `random_unet_variables` draws them."""
+    rng = np.random.default_rng(seed)
+
+    def conv(cin, cout):
+        bound = np.sqrt(6.0 / (9 * cin))
+        return {"kernel": rng.uniform(-bound, bound, (3, 3, cin, cout)).astype(np.float32),
+                "bias": rng.uniform(-0.1, 0.1, cout).astype(np.float32)}
+
+    params, stats = {}, {}
+    widths = [w for _, stage in SEGNET_STAGES for w in zip(stage, stage[1:])]
+    for i, (cin, cout) in enumerate(widths):
+        params[f"ConvBNAct_{i}"] = {
+            "Conv_0": {"Conv_0": conv(cin, cout)},
+            "Norm_0": {"BatchNorm_0": {"scale": rng.uniform(0.8, 1.2, cout).astype(np.float32),
+                                       "bias": rng.normal(0.0, 0.1, cout).astype(np.float32)}}}
+        stats[f"ConvBNAct_{i}"] = {"Norm_0": {"BatchNorm_0": {
+            "mean": rng.normal(0.0, 0.1, cout).astype(np.float32),
+            "var": rng.uniform(0.5, 1.5, cout).astype(np.float32)}}}
+    params["Conv_0"] = {"Conv_0": conv(64, n_classes)}
     return {"params": params, "batch_stats": stats}

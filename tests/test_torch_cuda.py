@@ -226,3 +226,102 @@ def test_robust_unet_on_card_launches_the_cbam_kernels(dev, dtype, fused_convs):
         assert err <= 1e-3 * max(1.0, std)
     else:
         assert err <= 0.1 * std and float(((got > 0) == (ref > 0)).float().mean()) >= 0.95
+
+
+def _tie_input(shape, dtype, dev, seed=0, nonfinite=False):
+    """ReLU zeros (whole windows of them), equal pairs at window positions 0
+    and 3, negated channels (-0.0 ties), zeros of random sign, and with
+    `nonfinite` two NaNs in one window (the first wins) and +-inf."""
+    gen = torch.Generator().manual_seed(seed)
+    b, h, w, c = shape
+    x = torch.relu(torch.randn(shape, generator=gen))
+    if h % 2 == 0 and w % 2 == 0:
+        xw = x.view(b, h // 2, 2, w // 2, 2, c)
+        xw[:, :, 1, :, 1, ::3] = xw[:, :, 0, :, 0, ::3]
+    x[..., 1::5] = -x[..., 1::5]
+    x[..., 2::7] = torch.where(torch.rand(shape, generator=gen) < 0.5, 0.0, -0.0)[..., 2::7]
+    if nonfinite:
+        x[0, 0, 1, 0] = x[0, 1, 1, 0] = float("nan")
+        x[-1, 0, 0, -1], x[-1, 1, 0, -1] = float("inf"), float("-inf")
+    return x.to(dev, dtype)
+
+
+def _bits_equal(a, b):
+    """Bit for bit (signs of zero included), any NaN equal to any NaN."""
+    a, b = a.cpu(), b.cpu()
+    if a.dtype != b.dtype or a.shape != b.shape:
+        return False
+    if not a.is_floating_point():
+        return torch.equal(a, b)
+    nan = torch.isnan(a)
+    ints = torch.int16 if a.element_size() == 2 else torch.int32
+    return torch.equal(nan, torch.isnan(b)) and torch.equal(a.view(ints)[~nan], b.view(ints)[~nan])
+
+
+UNPOOL_SHAPES = [(2, 16, 128, 64), (3, 38, 54, 20), (2, 8, 8, 512), (1, 6, 10, 1), (2, 4, 6, 21)]
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("shape", UNPOOL_SHAPES)
+def test_max_pool_with_indices_kernel_matches_plain(dev, shape, dtype):
+    from coastline_torch.kernels import unpool
+
+    x = _tie_input(shape, dtype, dev, nonfinite=True)
+    before = unpool.max_pool_with_indices.launches
+    vals, codes = unpool.max_pool_with_indices(x)
+    torch.cuda.synchronize()
+    assert unpool.max_pool_with_indices.launches == before + 1
+    r_vals, r_codes = unpool.max_pool_with_indices_plain(x.cpu())
+    assert _bits_equal(codes, r_codes) and _bits_equal(vals, r_vals)
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("shape", UNPOOL_SHAPES)
+def test_max_unpool_kernel_matches_plain(dev, shape, dtype):
+    from coastline_torch.kernels import unpool
+
+    v = _tie_input(shape, dtype, dev, seed=1, nonfinite=True)
+    k = torch.randint(0, 4, shape, generator=torch.Generator().manual_seed(2), dtype=torch.int32)
+    before = unpool.max_unpool.launches
+    out = unpool.max_unpool(v, k.to(dev))
+    torch.cuda.synchronize()
+    assert unpool.max_unpool.launches == before + 1
+    assert _bits_equal(out, unpool.max_unpool_plain(v.cpu(), k))
+
+
+def test_unpool_kernels_reject_non_contiguous(dev):
+    from coastline_torch.kernels import unpool
+
+    x = _tie_input((2, 8, 8, 64), torch.bfloat16, dev)
+    with pytest.raises(ValueError, match="contiguous"):
+        unpool.max_pool_with_indices(x.transpose(1, 2))
+    vals, codes = unpool.max_pool_with_indices(x)
+    with pytest.raises(ValueError, match="contiguous"):
+        unpool.max_unpool(vals.transpose(1, 2), codes.transpose(1, 2))
+
+
+@pytest.mark.parametrize("dtype,fused_convs", [(torch.bfloat16, 2), (torch.float32, 0)])
+def test_segnet_on_card_launches_the_unpool_kernels(dev, dtype, fused_convs):
+    """Four pool and four unpool launches a forward, two fused convs in bf16;
+    in f32 the card's logits agree with the CPU path's on 99.9% of them (a
+    pool window near a tie may pick another position)."""
+    from coastline_torch.kernels import unpool
+    from coastline_torch.models.segnet import SegNet
+    from coastline_torch.utils.torch_import import random_segnet_variables, segnet_state_dict
+
+    sd = segnet_state_dict(random_segnet_variables(seed=0))
+    cpu, gpu = SegNet(dtype=dtype), SegNet(dtype=dtype)
+    cpu.load_state_dict(sd)
+    gpu.load_state_dict(sd)
+    gpu = gpu.to(dev).eval()
+    x = torch.from_numpy(np.random.default_rng(1).normal(size=(2, 3, 64, 64)).astype(np.float32))
+    fns = (unpool.max_pool_with_indices, unpool.max_unpool, fused_conv3x3_bn_relu)
+    before = [f.launches for f in fns]
+    with torch.inference_mode():
+        got = gpu(x.to(dev), return_logits=True).cpu()
+        ref = cpu.eval()(x, return_logits=True)
+    assert [f.launches - b for f, b in zip(fns, before)] == [4, 4, fused_convs]
+    assert torch.isfinite(got).all()
+    if dtype == torch.float32:
+        tol = 1e-3 * max(1.0, float(ref.std()))
+        assert float(((got - ref).abs() <= tol).float().mean()) >= 0.999

@@ -14,17 +14,20 @@ import pytest
 import torch
 
 from coastline.models.robust_unet import RobustUNet as JaxRobustUNet
+from coastline.models.segnet import SegNet as JaxSegNet
 from coastline.models.unet import UNet as JaxUNet
 from coastline.train import loop as jax_loop
 from coastline.train import losses as jax_losses
 from coastline.train import metrics as jax_metrics
 from coastline_torch.models.robust_unet import RobustUNet
+from coastline_torch.models.segnet import SegNet
 from coastline_torch.models.unet import UNet
 from coastline_torch.train import losses, metrics
 from coastline_torch.train.loop import (TrainConfig, batch_indices, make_eval_epoch,
                                         normalize_images)
 from coastline_torch.utils.torch_import import (random_robust_unet_variables,
-                                                random_unet_variables, robust_unet_state_dict,
+                                                random_segnet_variables, random_unet_variables,
+                                                robust_unet_state_dict, segnet_state_dict,
                                                 unet_state_dict)
 
 torch.set_num_threads(1)
@@ -122,6 +125,14 @@ def test_eval_epoch_bce_matches_jax_robust_unet():
     model = RobustUNet(base=16)
     model.load_state_dict(robust_unet_state_dict(variables), strict=True)
     got = _run_both(JaxRobustUNet(base=16), variables, model, TrainConfig())
+    assert 0.0 < got["mean_accuracy"] < 1.0
+
+
+def test_eval_epoch_bce_matches_jax_segnet():
+    variables = random_segnet_variables(seed=10)
+    model = SegNet()
+    model.load_state_dict(segnet_state_dict(variables), strict=True)
+    got = _run_both(JaxSegNet(), variables, model, TrainConfig())
     assert 0.0 < got["mean_accuracy"] < 1.0
 
 

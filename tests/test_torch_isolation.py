@@ -39,7 +39,8 @@ def test_port_and_chip_smoke_import_no_jax_and_no_coastline():
               "coastline_torch.kernels.cbam", "coastline_torch.kernels.pools",
               "coastline_torch.models.robust_unet", "coastline_torch.models.registry",
               "coastline_torch.ops.initializers", "coastline_torch.train.losses",
-              "coastline_torch.train.metrics", "coastline_torch.train.loop"):
+              "coastline_torch.train.metrics", "coastline_torch.train.loop",
+              "coastline_torch.kernels.unpool", "coastline_torch.models.segnet"):
         assert m in report["modules"]
 
 
@@ -47,6 +48,7 @@ def _entry_points():
     from coastline_torch.infer.extract import CoastlineExtractor
     from coastline_torch.infer.morphology import coastline_band, dilate
     from coastline_torch.models.robust_unet import RobustUNet
+    from coastline_torch.models.segnet import SegNet
     from coastline_torch.train.loop import TrainConfig, make_eval_epoch
 
     mask = np.zeros((8, 8), np.uint8)
@@ -55,10 +57,12 @@ def _entry_points():
         "coastline_band": lambda: coastline_band(mask),
         "dilate": lambda: dilate(mask),
         "make_eval_epoch": lambda: make_eval_epoch(RobustUNet(base=16), TrainConfig()),
+        "segnet_eval_epoch": lambda: make_eval_epoch(SegNet(), TrainConfig()),
     }
 
 
-@pytest.mark.parametrize("name", ["extractor", "coastline_band", "dilate", "make_eval_epoch"])
+@pytest.mark.parametrize("name", ["extractor", "coastline_band", "dilate", "make_eval_epoch",
+                                  "segnet_eval_epoch"])
 def test_entry_points_raise_without_a_card(name, monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="no CUDA device"):

@@ -36,6 +36,7 @@ from coastline.utils.torch_import import (export_reference_robust_unet as
 from coastline_torch.kernels.fused_conv import fused_conv3x3_bn_relu
 from coastline_torch.models.registry import available_models, canonical_name, create_model
 from coastline_torch.models.robust_unet import RobustUNet
+from coastline_torch.models.segnet import SegNet
 from coastline_torch.models.unet import UNet
 from coastline_torch.ops import blocks
 from coastline_torch.ops.blocks import AttentionGate, DilatedBlock, ResidualBlock
@@ -207,15 +208,17 @@ def test_blocks_are_eval_only():
 
 
 def test_registry_names_aliases_and_unknown():
-    assert available_models() == ["Robust UNet", "UNet"]
+    assert available_models() == ["Robust UNet", "SegNet", "UNet"]
     for alias in ("Robust UNet", "robust_unet", "RobustUNet", "ROBUSTUNET"):
         assert canonical_name(alias) == "Robust UNet"
-    assert canonical_name("unet") == "UNet" and canonical_name("SegNet") == "SegNet"
+    assert canonical_name("unet") == "UNet" and canonical_name("segnet") == "SegNet"
+    assert canonical_name("PSPNet") == "PSPNet"  # not ported: passes through
     model = create_model("robust_unet", base=16, dtype=torch.bfloat16)
     assert isinstance(model, RobustUNet) and model.dtype == torch.bfloat16
     assert isinstance(create_model("UNet", n_classes=2), UNet)
-    with pytest.raises(KeyError, match=r"available: \['Robust UNet', 'UNet'\]"):
-        create_model("SegNet")
+    assert isinstance(create_model("SEGNET", dtype=torch.bfloat16), SegNet)
+    with pytest.raises(KeyError, match=r"available: \['Robust UNet', 'SegNet', 'UNet'\]"):
+        create_model("PSPNet")
 
 
 @pytest.mark.parametrize("dtype,fused_convs", [(torch.bfloat16, 2), (torch.float32, 0)])
