@@ -10,7 +10,8 @@ Needs one NVIDIA H100 and the CUDA toolkit; builds the kernels from
   2. build every CUDA kernel (one nvcc per source, in parallel);
   3. hold each kernel against its plain PyTorch version at its paths'
      shapes and time kernel, plain version and a library yardstick with
-     CUDA events: the fused conv (with and without ReLU), the dilation, the
+     CUDA events: the fused conv (with and without ReLU, at the serving
+     shape and eight ragged ones), the dilation, the
      three CBAM kernels (pool, gated stats, tail) at the five Robust U-Net
      level shapes, (2, 4, 4, 1024) and an odd shape, and SegNet's indexed
      pool and unpool at its four levels and an odd shape, on inputs full of
@@ -85,6 +86,9 @@ UNET_PARAMS = 31_043_586
 ROBUST_UNET_PARAMS = 40_872_223
 SEGNET_PARAMS = 15_278_593
 CONV_SHAPE = (8, 512, 512, 64)
+# widths off the 64-pixel tile, one row, one column, one pixel, batch 1, a straddling tile
+RAGGED_CONV_SHAPES = [(1, 9, 65, 64), (2, 5, 127, 64), (1, 6, 130, 64), (2, 1, 70, 64),
+                      (2, 33, 1, 64), (1, 1, 1, 64), (1, 512, 512, 64), (2, 67, 200, 64)]
 # the Robust U-Net's ResidualBlock outputs at batch 8, 512^2: the CBAM kernels' shapes
 LEVEL_SHAPES = [(8, 512, 512, 64), (8, 256, 256, 128), (8, 128, 128, 256),
                 (8, 64, 64, 512), (8, 32, 32, 1024)]
@@ -117,6 +121,31 @@ def cuda_ms(fn, iters: int, warmup: int = 2) -> float:
     return start.elapsed_time(end) / iters
 
 
+def device_ms(fn, iters: int = 20) -> float:
+    """Mean milliseconds of `fn` on the device alone: CUDA events around
+    `iters` back-to-back calls queued behind a kernel that keeps the card
+    busy until all of them are enqueued, so the wrapper's host path, which
+    back-to-back `cuda_ms` reads once a kernel is shorter than it, is hidden.
+    The sleep doubles until the queue was still full when the last call was
+    enqueued."""
+    fn()
+    torch.cuda.synchronize()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    cycles = 1 << 22
+    for _ in range(8):
+        torch.cuda._sleep(cycles)
+        start.record()
+        for _ in range(iters):
+            fn()
+        end.record()
+        queued_in_time = not start.query()
+        torch.cuda.synchronize()
+        if queued_in_time:
+            return start.elapsed_time(end) / iters
+        cycles *= 2
+    raise AssertionError("could not queue the calls ahead of the card")
+
+
 def bound(nbytes: float, ops: float, peak_ops: float):
     t_bytes, t_ops = nbytes / PEAK_BYTES_PER_S, ops / peak_ops
     return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops else "operations")
@@ -137,27 +166,31 @@ def check_fused_conv(dev, rng):
     scale = torch.from_numpy(rng.uniform(0.5, 1.5, c).astype(np.float32)).to(dev)
     bias = torch.from_numpy(rng.normal(0, 0.2, c).astype(np.float32)).to(dev)
     errs, ok = {}, True
-    for relu in (True, False):  # the UNet's layers, then the Robust U-Net's conv 2 -> BN
-        got = fused_conv3x3_bn_relu(x, wt, scale, bias, relu=relu).float()
-        torch.cuda.synchronize()
-        ref = fused_conv3x3_bn_relu_plain(x, wt, scale, bias, relu=relu).float()
-        err = (got - ref).abs()
-        # same float32 sums in another order, one bf16 rounding: 1 bf16 ulp (2^-7 rel) + 1e-3
-        ok = ok and bool(torch.all(err <= 2.0 ** -7 * ref.abs() + 1e-3))
-        errs[f"relu_{relu}"] = float(err.max())
-        del got, ref, err
+    for shape in [CONV_SHAPE] + RAGGED_CONV_SHAPES:
+        xs = x if shape == CONV_SHAPE else x[:shape[0], :shape[1], :shape[2]].contiguous()
+        for relu in (True, False):  # the UNet's and SegNet's layers, the Robust U-Net's conv 2
+            got = fused_conv3x3_bn_relu(xs, wt, scale, bias, relu=relu).float()
+            torch.cuda.synchronize()
+            ref = fused_conv3x3_bn_relu_plain(xs, wt, scale, bias, relu=relu).float()
+            err = (got - ref).abs()
+            # same float32 sums in another order, one bf16 rounding: 1 bf16 ulp (2^-7 rel) + 1e-3
+            ok = ok and bool(torch.all(err <= 2.0 ** -7 * ref.abs() + 1e-3))
+            errs[f"{'x'.join(map(str, shape))}_relu_{relu}"] = float(err.max())
+            del got, ref, err
     xl = x.permute(0, 3, 1, 2)  # channels_last view
     wl = wt.permute(3, 2, 0, 1).to(torch.bfloat16).contiguous(memory_format=torch.channels_last)
     s16, b16 = scale.to(torch.bfloat16)[:, None, None], bias.to(torch.bfloat16)[:, None, None]
     ms = cuda_ms(lambda: fused_conv3x3_bn_relu(x, wt, scale, bias), 20)
+    dev_ms = device_ms(lambda: fused_conv3x3_bn_relu(x, wt, scale, bias))
     plain_ms = cuda_ms(lambda: fused_conv3x3_bn_relu_plain(x, wt, scale, bias), 3, 1)
     library_ms = cuda_ms(lambda: torch.relu(F.conv2d(xl, wl, padding=1) * s16 + b16), 20)
     flops = 2.0 * b * h * w * c * 9 * c
     nbytes = 2 * x.numel() * 2 + wt.numel() * 2 + 2 * c * 4
     bound_ms, bound_by = bound(nbytes, flops, PEAK_BF16_FLOPS)
-    result = dict(max_abs_err=max(errs.values()), max_abs_err_by_relu=errs, ms=ms, plain_ms=plain_ms,
-                  library_ms=library_ms, bound_ms=bound_ms, bound_by=bound_by,
-                  shape=list(CONV_SHAPE), tflops=flops / ms / 1e9,
+    result = dict(max_abs_err=max(errs.values()), max_abs_err_by_case=errs, ms=ms,
+                  device_ms=dev_ms, plain_ms=plain_ms, library_ms=library_ms, bound_ms=bound_ms,
+                  bound_by=bound_by, share_of_bound=bound_ms / dev_ms, shape=list(CONV_SHAPE),
+                  tflops=flops / dev_ms / 1e9,
                   library="channels_last F.conv2d bf16 (cuDNN) + bf16 scale/bias/ReLU")
     log("fused_conv3x3_bn_relu", json.dumps(result))
     if not ok:
@@ -188,6 +221,7 @@ def check_dilate(dev, rng):
         lib_equal = bool(torch.equal(conv_threshold_dilate(m, ker), dilate_disk(m, ker)))
         iters = 50 if m.numel() <= 4 << 20 else 20
         ms = cuda_ms(lambda: dilate_disk(m, ker), iters)
+        dev_ms = device_ms(lambda: dilate_disk(m, ker), iters)
         plain_ms = cuda_ms(lambda: dilate_disk_plain(m, ker), 5, 1)
         library_ms = cuda_ms(lambda: conv_threshold_dilate(m, ker), 3, 1)
         groups = se_row_groups(ker)
@@ -196,8 +230,9 @@ def check_dilate(dev, rng):
         bound_ms, bound_by = bound(2 * m.numel(), ops_px * m.numel(), PEAK_F32_OPS)
         case = dict(shape=list(shape), size=size, max_abs_err=max(errs),
                     max_abs_err_binary_u8_gray_u8_gray_f32=errs,
-                    conv_threshold_equal=lib_equal, ms=ms, plain_ms=plain_ms,
-                    library_ms=library_ms, bound_ms=bound_ms, bound_by=bound_by)
+                    conv_threshold_equal=lib_equal, ms=ms, device_ms=dev_ms, plain_ms=plain_ms,
+                    library_ms=library_ms, bound_ms=bound_ms, bound_by=bound_by,
+                    share_of_bound=bound_ms / dev_ms)
         log("dilate_disk", json.dumps(case))
         if max(errs) != 0.0 or not lib_equal:
             raise AssertionError(f"dilate_disk is not exact: {case}")
@@ -852,13 +887,16 @@ def main(argv=None) -> int:
              launches=sum(conv_paths.values()), launches_by_path=conv_paths,
              max_abs_err=conv["max_abs_err"], ms=conv["ms"], plain_ms=conv["plain_ms"],
              bound_ms=conv["bound_ms"], bound_by=conv["bound_by"],
-             library_ms=conv["library_ms"], shape=conv["shape"]),
+             library_ms=conv["library_ms"], device_ms=conv["device_ms"],
+             share_of_bound=conv["share_of_bound"],
+             tflops=conv["tflops"], shape=conv["shape"]),
         dict(name="dilate_disk", route="cuda", source="coastline_torch/csrc/dilate_disk.cu",
              replaces="coastline/pallas/morphology.py:262",
              launches=serving["launches"]["dilate_disk"],
              max_abs_err=max(c["max_abs_err"] for c in dil), ms=main_dil["ms"],
              plain_ms=main_dil["plain_ms"], bound_ms=main_dil["bound_ms"],
              bound_by=main_dil["bound_by"], library_ms=main_dil["library_ms"],
+             device_ms=main_dil["device_ms"], share_of_bound=main_dil["share_of_bound"],
              shape=main_dil["shape"], size=main_dil["size"],
              library="conv-threshold: F.conv2d f32 with the SE, then > 0", cases=dil),
     ]

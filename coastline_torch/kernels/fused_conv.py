@@ -8,8 +8,11 @@ accumulation and a bf16 result; `relu=False` gives the plain affine.
 Bound on an H100 SXM at the serving shape (8, 512, 512, 64): 154.6 GFLOP
 against 989 TFLOP/s (0.156 ms) and 537 MB against 3.35 TB/s (0.160 ms), so
 it sits on the ridge between the two roofs. The kernel keeps the 576 x 64
-weight matrix resident in shared memory in persistent CTAs and reads each
-activation tile once with its halo; see the source for the tiling.
+weight matrix resident in shared memory in persistent CTAs, loads each
+activation tile with its halo by TMA into a two-stage ring, and multiplies
+with wgmma; see the source for the tiling. The wrapper repacks the weights
+(`pack_weights`) and the kernel builds its TMA descriptors over `x` and the
+output, which need a contiguous NHWC layout and a 16-byte-aligned base.
 
 `fused_conv3x3_bn_relu` launches the kernel for a CUDA tensor (or raises),
 and runs `fused_conv3x3_bn_relu_plain` only for a tensor on the CPU.
@@ -38,6 +41,13 @@ def fused_conv3x3_bn_relu_plain(x, w, scale, bias, relu: bool = True):
     return y.to(torch.bfloat16).permute(0, 2, 3, 1).contiguous()
 
 
+def pack_weights(w):
+    """HWIO (3, 3, 64, 64) -> the kernel's (9 * 64, 64) bf16 matrix: row
+    tap * 64 + output channel, its 64 input channels contiguous (K-major B
+    of the kernel's wgmma, tap = 3 * dy + dx)."""
+    return w.to(torch.bfloat16).permute(0, 1, 3, 2).reshape(9 * C, C).contiguous()
+
+
 def _lib():
     lib = _build.library("fused_conv3x3_bn_relu")
     fn = lib.coastline_fused_conv3x3_bn_relu
@@ -64,13 +74,16 @@ def fused_conv3x3_bn_relu(x, w, scale, bias, relu: bool = True):
         return fused_conv3x3_bn_relu_plain(x, w, scale, bias, relu)
     if x.device.type != "cuda":
         raise ValueError(f"unsupported device {x.device}")
-    if not x.is_contiguous() or x.data_ptr() % 16:
+    if not x.is_contiguous():
         raise ValueError("x must be a contiguous NHWC tensor (channels_last "
-                         "activations permuted to NHWC) aligned to 16 bytes")
+                         "activations permuted to NHWC)")
+    if x.data_ptr() % 16:
+        raise ValueError("x must start on a 16-byte boundary (its TMA descriptor "
+                         "needs an aligned base)")
     for t in (w, scale, bias):
         if t.device != x.device:
             raise ValueError("x, w, scale and bias must be on one device")
-    wmat = w.to(torch.bfloat16).reshape(9 * C, C).contiguous()
+    wmat = pack_weights(w)
     scale = scale.to(torch.float32).contiguous()
     bias = bias.to(torch.float32).contiguous()
     out = torch.empty_like(x, memory_format=torch.contiguous_format)

@@ -8,8 +8,9 @@ zero outside the image, grayscale max starting from 0, on (H, W) or
 Bound on an H100: at uint8 the mask moves at 2 bytes a pixel (1.3 us for
 (8, 512, 512) at 3.35 TB/s), so the per-pixel max work decides the time.
 The kernel stages each output tile with its SE halo in shared memory, which
-takes the place of the TPU kernel's VMEM row/2-D bands, and grows each
-horizontal window from the previous, narrower SE row group; see the source.
+takes the place of the TPU kernel's VMEM row/2-D bands, packs four uint8
+pixels a 32-bit word, and grows each horizontal window from the previous,
+narrower SE row group; see the source.
 
 `dilate_disk` launches the kernel for a CUDA tensor (or raises) and runs
 `dilate_disk_plain`, the same decomposition in torch, only for a tensor on

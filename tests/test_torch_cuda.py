@@ -40,12 +40,18 @@ def dev():
 
 @pytest.mark.parametrize("shape,size", [((8, 512, 512), 20), ((3, 97, 301), 41),
                                         ((1, 64, 10980), 20), ((2, 40, 40), 1),
-                                        ((1, 130, 129), 2), ((2, 5, 7), 9)])
+                                        ((1, 130, 129), 2), ((2, 5, 7), 9),
+                                        ((3, 37, 61), 20), ((3, 40, 66), 2), ((2, 33, 131), 5),
+                                        ((3, 13, 21), 1), ((2, 29, 203), 41), ((4, 7, 3), 20)])
 def test_dilate_kernel_matches_plain(dev, shape, size):
+    """Also widths = 1, 2, 3 mod 4 (the packed words' ragged ends), even
+    sizes (asymmetric reach) and batch slices whose base is not 4-byte
+    aligned (H * W odd): the kernel's word staging takes every legal view."""
     rng = np.random.default_rng(size)
     ker = elliptical_kernel(size)
     x = torch.from_numpy(rng.integers(0, 256, shape, dtype=np.uint8)).to(dev)
-    for t in (x, (x > 250).to(torch.uint8), x.float(), x[0]):
+    slices = (x[1], x[-1], x[1:]) if len(x) > 1 else ()
+    for t in (x, (x > 250).to(torch.uint8), x.float(), x[0], *slices):
         before = dilate_disk.launches
         got = dilate_disk(t, ker)
         torch.cuda.synchronize()
@@ -71,9 +77,15 @@ def _conv_case(shape, dev, seed=0):
     return x, w, scale, bias
 
 
-@pytest.mark.parametrize("shape", [(2, 16, 128, 64), (1, 7, 45, 64), (3, 33, 17, 64)])
+@pytest.mark.parametrize("shape", [(2, 16, 128, 64), (1, 7, 45, 64), (3, 33, 17, 64),
+                                   (1, 9, 65, 64), (2, 5, 127, 64), (1, 6, 130, 64),
+                                   (2, 1, 70, 64), (2, 33, 1, 64), (1, 1, 1, 64),
+                                   (1, 512, 512, 64), (2, 67, 200, 64)])
 @pytest.mark.parametrize("relu", [True, False])
 def test_fused_conv_kernel_matches_plain(dev, shape, relu):
+    """Also widths that are no multiple of the 64-pixel tile, one row, one
+    column, one pixel, batch 1 at full size and a tile-straddling shape: the
+    TMA box's zero fill and the clipped TMA store at every edge."""
     x, w, scale, bias = _conv_case(shape, dev)
     before = fused_conv3x3_bn_relu.launches
     got = fused_conv3x3_bn_relu(x, w, scale, bias, relu=relu)
@@ -83,6 +95,19 @@ def test_fused_conv_kernel_matches_plain(dev, shape, relu):
     ref = fused_conv3x3_bn_relu_plain(x.cpu(), w.cpu(), scale.cpu(), bias.cpu(), relu=relu)
     got, ref = got.float().cpu(), ref.float()
     assert torch.all((got - ref).abs() <= 2.0 ** -7 * ref.abs() + 1e-3)
+
+
+def test_fused_conv_kernel_takes_an_aligned_slice_and_rejects_a_misaligned_one(dev):
+    x, w, scale, bias = _conv_case((2, 12, 70, 64), dev)
+    buf = torch.zeros(x.numel() + 16, dtype=torch.bfloat16, device=dev)
+    aligned = buf[8:8 + x.numel()].view(x.shape)  # 16 bytes into the buffer
+    aligned.copy_(x)
+    got = fused_conv3x3_bn_relu(aligned, w, scale, bias)
+    ref = fused_conv3x3_bn_relu_plain(x, w, scale, bias).float()
+    assert torch.all((got.float() - ref).abs() <= 2.0 ** -7 * ref.abs() + 1e-3)
+    misaligned = buf[1:1 + x.numel()].view(x.shape)  # 2 bytes in
+    with pytest.raises(ValueError, match="16-byte"):
+        fused_conv3x3_bn_relu(misaligned, w, scale, bias)
 
 
 def test_fused_conv_rejects_non_contiguous(dev):

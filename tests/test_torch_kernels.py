@@ -24,7 +24,7 @@ from coastline.pallas.fused_conv import fused_conv3x3_bn_relu as jax_fused_conv
 from coastline.pallas.morphology import dilate_disk as jax_dilate_disk
 from coastline_torch.infer.morphology import elliptical_kernel
 from coastline_torch.kernels.fused_conv import (fused_conv3x3_bn_relu,
-                                                fused_conv3x3_bn_relu_plain)
+                                                fused_conv3x3_bn_relu_plain, pack_weights)
 from coastline_torch.kernels.morphology import (dilate_disk, dilate_disk_plain,
                                                 se_row_groups)
 
@@ -163,3 +163,15 @@ def test_fused_conv_wrapper_checks():
     before = fused_conv3x3_bn_relu.launches
     fused_conv3x3_bn_relu(xt.to(torch.bfloat16), wt, st, bt)
     assert fused_conv3x3_bn_relu.launches == before  # the plain version launches nothing
+
+
+def test_pack_weights_is_the_tpu_kernels_matrix_transposed_per_tap():
+    """The CUDA kernel's B operand: for tap t = 3 dy + dx, rows t * 64 + o hold
+    the 64 input channels of output channel o, the transpose of each tap's
+    block of the (9 * 64, 64) matrix that the TPU kernel multiplies by."""
+    _, w, _, _ = _conv_inputs()
+    jax_wmat = np.asarray(jnp.asarray(w, jnp.bfloat16).reshape(9 * 64, 64), np.float32)
+    got = pack_weights(torch.from_numpy(w))
+    assert got.dtype == torch.bfloat16 and got.shape == (9 * 64, 64) and got.is_contiguous()
+    np.testing.assert_array_equal(got.float().numpy().reshape(9, 64, 64),
+                                  jax_wmat.reshape(9, 64, 64).transpose(0, 2, 1))
