@@ -42,7 +42,20 @@ Needs one NVIDIA H100 and the CUDA toolkit; builds the kernels from
      `make_eval_epoch` in bf16 and f32 with 4 pool, 4 unpool and, in bf16,
      2 fused-conv launches a forward; losses and mean metrics within 5e-3,
      masks on 85% of pixels (`segnet_path` says why);
-  8. a `kernels` JSON line, the card line and the last line:
+  8. the production training path at full width: the 2-class UNet (random
+     weights from a numpy seed, through the weight bridge) trained by
+     `WaterSegmentationTrainer` for 3 epochs over 32 synthetic 512^2 tiles
+     at batch 8 in bf16 with augmentation, validating on 8 tiles after each
+     epoch and saving a resume point each epoch; the train loss must fall,
+     the fused conv must launch twice a validation forward and never in a
+     train step, the best export must load strictly into a UNet and an
+     extractor, and the restored state must equal the saved one bit for
+     bit. Then two f32 Adam steps at (2, 64, 64) a batch on the card against
+     the CPU path (BN biases shifted off the ReLU's kink, `shift_bn`), a 2 + 1
+     epoch resume against 3 straight epochs under
+     `torch.use_deterministic_algorithms(True)`, step times in bf16 and f32,
+     epoch rates, peak memory and a profile of one bf16 train step;
+  9. a `kernels` JSON line, the card line and the last line:
      {"ok": true, "device": {...}}.
 
 Float32 convolutions run with cuDNN's TF32 off, so every float32 number
@@ -50,10 +63,12 @@ here is a true float32 result. Any failure raises and exits non-zero.
 """
 
 import argparse
+import contextlib
 import json
 import os
 import subprocess
 import sys
+import tempfile
 import time
 
 import numpy as np
@@ -72,11 +87,18 @@ from coastline_torch.models import segnet as segnet_module
 from coastline_torch.models.registry import create_model
 from coastline_torch.ops.blocks import ResidualBlock
 from coastline_torch.ops.primitives import Conv, ConvTranspose
-from coastline_torch.train.loop import (TrainConfig, batch_indices, make_eval_epoch,
-                                        normalize_images)
+from coastline_torch.data.augment import make_augment_fn
+from coastline_torch.data.pipeline import DeviceDataset
+from coastline_torch.models.unet import UNet
+from coastline_torch.train import trainer as trainer_module
+from coastline_torch.train.checkpoint import CheckpointManager
+from coastline_torch.train.loop import (TrainConfig, batch_indices, create_train_state,
+                                        make_eval_epoch, make_train_epoch, normalize_images)
+from coastline_torch.train.trainer import TrainerConfig, WaterSegmentationTrainer
 from coastline_torch.utils.torch_import import (random_robust_unet_variables,
                                                 random_segnet_variables, random_unet_variables,
-                                                robust_unet_state_dict, segnet_state_dict)
+                                                robust_unet_state_dict, segnet_state_dict,
+                                                unet_state_dict)
 
 # Published H100 SXM peaks (NVIDIA data sheet, dense): the roofs for bound_ms.
 PEAK_BYTES_PER_S = 3.35e12
@@ -604,10 +626,10 @@ _KERNEL_CLASSES = (  # (class, substrings of the CUDA kernel name), first match 
 )
 
 
-def profile_forward(forward, label: str, steps: int = 3):
-    """Device time by kernel class over `steps` calls of `forward` (a
-    batch-8 forward; torch.profiler), and the device's idle share of that
-    window."""
+def profile_forward(forward, label: str, steps: int = 3, classes=_KERNEL_CLASSES):
+    """Device time by kernel class (`classes`) over `steps` calls of
+    `forward` (a batch-8 forward or train step; torch.profiler), and the
+    device's idle share of that window."""
     from torch.profiler import ProfilerActivity, profile
 
     forward()
@@ -624,7 +646,7 @@ def profile_forward(forward, label: str, steps: int = 3):
                      key=lambda e: -e.self_device_time_total)
     by_class, other = {}, []
     for e in kernels:
-        cls = next((c for c, keys in _KERNEL_CLASSES if any(k in e.key for k in keys)), "other")
+        cls = next((c for c, keys in classes if any(k in e.key for k in keys)), "other")
         ms, n = by_class.get(cls, (0.0, 0))
         by_class[cls] = (ms + e.self_device_time_total / 1e3 / steps, n + e.count / steps)
         if cls == "other":
@@ -838,10 +860,317 @@ def segnet_path(dev, **kw):
     return result
 
 
+TRAIN_SIZE, TRAIN_BATCH, TRAIN_TILES, VAL_TILES, TRAIN_EPOCHS = 512, 8, 32, 8, 3
+_TRAIN_CLASSES = (  # kernel classes of a train step, first match wins
+    ("fused_conv3x3_bn_relu (ours)", ("fused_conv_kernel",)),
+    ("Adam (foreach)", ("multi_tensor_apply",)),
+    ("cuDNN conv backward (dgrad, wgrad)", ("dgrad", "wgrad", "bprop", "backward")),
+    ("cuDNN conv and transposed conv forward", ("conv", "xmma", "gemm", "cudnn", "sm90", "cutlass",
+                                                "nhwc", "nchw", "fprop", "implicit")),
+    ("BN statistics and loss reductions", ("reduce",)),
+    ("max pool forward and backward", ("max_pool",)),
+    ("concat", ("CatArray",)),
+    ("augmentation gathers", ("index",)),
+    ("elementwise: casts, BN affine, ReLU and their gradients", ("elementwise", "vectorized")),
+    ("cuBLAS GEMM (nvjet)", ("nvjet",)),
+)
+
+
+def sync(dev):
+    if dev.type == "cuda":
+        torch.cuda.synchronize()
+
+
+def coast_tiles(n, size, seed):
+    """`n` (image, mask) tiles and the route that made them: the port's
+    `synthetic_dataset_arrays` (PIL's polygon fill) where Pillow imports,
+    else numpy alone, with `eval_path`'s winding shoreline as the mask and
+    dark noisy water under it, brighter land above."""
+    try:
+        from coastline_torch.data.synthetic import synthetic_dataset_arrays
+
+        images, masks = synthetic_dataset_arrays(n, size, seed)
+        return images, masks, "synthetic_dataset_arrays (Pillow rasterizer)"
+    except ImportError:
+        pass
+    rng = np.random.default_rng(seed)
+    yy, xx = np.mgrid[0:size, 0:size]
+    masks = np.stack([yy > size / 2 + 40 * np.sin(xx / 60.0 + rng.uniform(0, 2 * np.pi))
+                      + 15 * np.sin(xx / 17.0) for _ in range(n)]).astype(np.uint8)
+    water = rng.normal((35.0, 55.0, 95.0), 8.0, (n, size, size, 3))
+    land = rng.normal((120.0, 110.0, 90.0), 12.0, (n, size, size, 3))
+    images = np.where(masks[..., None] > 0, water, land).clip(0, 255).astype(np.uint8)
+    return images, masks, "numpy (no Pillow on this machine)"
+
+
+def states_equal(a, b) -> dict:
+    """Which parts of two TrainStates are equal bit for bit."""
+    sa, sb = a.model.state_dict(), b.model.state_dict()
+    oa, ob = a.optimizer.state_dict(), b.optimizer.state_dict()
+    return dict(
+        params_and_bn_stats=sa.keys() == sb.keys() and all(torch.equal(sa[k], sb[k]) for k in sa),
+        adam=oa["param_groups"] == ob["param_groups"] and oa["state"].keys() == ob["state"].keys()
+        and all(torch.equal(oa["state"][i][m], ob["state"][i][m])
+                for i in oa["state"] for m in ("step", "exp_avg", "exp_avg_sq")),
+        plateau=a.plateau == b.plateau, step=a.step == b.step,
+        generator=torch.equal(a.generator.get_state(), b.generator.get_state()))
+
+
+def make_trainer(save_dir, epochs, dev, sd, dtype="bfloat16", size=TRAIN_SIZE, batch=TRAIN_BATCH):
+    cfg = TrainerConfig(epochs=epochs, batch_size=batch, lr=1e-3, image_size=size,
+                        save_dir=save_dir, viz_every=0, augment=True, dtype=dtype,
+                        checkpoint_every=1)
+    trainer = WaterSegmentationTrainer(cfg, device=dev)
+    trainer.model.load_state_dict(sd, strict=True)
+    return trainer
+
+
+def counted_train(trainer, train_ds, val_ds, dev, **kw):
+    """`trainer.train` with each train epoch and validation timed on the
+    host clock (ending in a synchronize) and the fused conv's launches
+    inside each counted."""
+    rec = {"train": [], "validate": []}
+
+    def timed(kind, fn, idx_arg):
+        def wrapped(*args, **kwargs):
+            sync(dev)
+            before, t0 = fused_conv3x3_bn_relu.launches, time.perf_counter()
+            out = fn(*args, **kwargs)
+            sync(dev)
+            rec[kind].append(dict(s=time.perf_counter() - t0, batches=len(args[idx_arg]),
+                                  fused_conv_launches=fused_conv3x3_bn_relu.launches - before))
+            return out
+        return wrapped
+
+    make_epoch, make_validate = trainer_module.make_train_epoch, trainer._make_validate
+    trainer_module.make_train_epoch = lambda *a, **k: timed("train", make_epoch(*a, **k), 3)
+    trainer._make_validate = lambda: timed("validate", make_validate(), 2)
+    try:
+        hist = trainer.train(train_ds, val_ds, **kw)
+    finally:
+        trainer_module.make_train_epoch = make_epoch
+        del trainer._make_validate
+    return hist, rec
+
+
+def shift_bn(sd, beta=6.0):
+    """`sd` with every BN bias set to `beta`: each BN output is then about
+    N(beta, gamma^2), so no value lies near the ReLU's kink, where two
+    float32 paths that round differently can take opposite sides."""
+    return {k: torch.full_like(v, beta) if k.endswith(".bias") and
+            k[:-len("bias")] + "running_mean" in sd else v for k, v in sd.items()}
+
+
+def train_card_vs_cpu(dev, sd, size=64):
+    """One `make_train_epoch` of 2 Adam steps at (2, size, size) a batch,
+    f32, wd 0.1, lr 1e-4, no augmentation, on the card and on the CPU path
+    from the same weights and batches (cuDNN TF32 off). The JAX package's
+    bounds for f32 conv-gradient noise through Adam
+    (`tests/test_train_parity.py:89-108,186-189`): the loss to 1e-5
+    relative, every parameter to atol 5e-5 / rtol 1e-4, every BN statistic
+    to atol 2e-5 / rtol 2e-4.
+
+    The weights are `sd` with its BN biases at 6 (`shift_bn`). Adam's first
+    steps are about lr * sign(g), so a weight whose gradient the two paths
+    round to opposite signs moves 2 * lr apart, and a pre-ReLU value within
+    rounding of 0 that takes the ReLU's other side moves its channel's
+    gradients enough to flip many such signs. Measured on an H100 with BN
+    biases as drawn: 2,408 of the 31M values outside the bounds (up to
+    2.2e-4) from the main path's weights here, 32 from the torch-default
+    init at (2, 32, 32); shifted, that one put 1 outside (a rounding-level
+    sign flip) and this check none, so the card also runs in deterministic
+    mode, one sum order from run to run."""
+    sd = shift_bn(sd)
+    rng = np.random.default_rng(3)
+    images = rng.integers(0, 256, (4, size, size, 3), dtype=np.uint8)
+    masks = (rng.random((4, size, size)) > 0.5).astype(np.uint8)
+    idx, valid = np.array([[0, 1], [2, 3]], np.int32), np.ones((2, 2), np.float32)
+    cfg = TrainConfig(lr=1e-4, weight_decay=0.1, loss="ce", batch_size=2)
+    runs = {}
+    for d in (torch.device("cpu"), dev):
+        model = UNet()
+        model.load_state_dict(sd, strict=True)
+        state = create_train_state(model, cfg, device=d)
+        with deterministic() if d.type == "cuda" else contextlib.nullcontext():
+            state, loss = make_train_epoch(model, cfg, device=d)(state, images, masks, idx, valid)
+        runs[d.type] = (loss, {k: v.detach().cpu() for k, v in model.state_dict().items()})
+    (l_cpu, ref), (l_dev, got) = runs["cpu"], runs[dev.type]
+    out = dict(shape=[2, size, size, 3], steps=2, loss_cpu=l_cpu, loss_card=l_dev,
+               loss_rel_err=abs(l_dev - l_cpu) / abs(l_cpu), tensors_out_of_bound={},
+               elements_out_of_bound=0, max_abs_err_params=0.0, max_abs_err_bn_stats=0.0)
+    for k, r in ref.items():
+        if k.endswith("num_batches_tracked"):
+            continue
+        stat = ".running_" in k
+        atol, rtol = (2e-5, 2e-4) if stat else (5e-5, 1e-4)
+        err = (got[k] - r).abs()
+        key = "max_abs_err_bn_stats" if stat else "max_abs_err_params"
+        out[key] = max(out[key], float(err.max()))
+        bad = int((err > atol + rtol * r.abs()).sum())
+        if bad:
+            out["tensors_out_of_bound"][k] = bad
+            out["elements_out_of_bound"] += bad
+    out["ok"] = out["loss_rel_err"] <= 1e-5 and out["elements_out_of_bound"] == 0
+    log("unet_train_card_vs_cpu_f32", json.dumps(out))
+    return out
+
+
+@contextlib.contextmanager
+def deterministic():
+    """`torch.use_deterministic_algorithms(True)` inside the block (cuDNN's
+    deterministic algorithms: one sum order from run to run)."""
+    torch.use_deterministic_algorithms(True)
+    try:
+        yield
+    finally:
+        torch.use_deterministic_algorithms(False)
+
+
+def resume_check(dev, sd, train_ds, val_ds, size=TRAIN_SIZE, batch=TRAIN_BATCH):
+    """A 2-epoch run resumed for a third epoch against 3 straight epochs,
+    under `torch.use_deterministic_algorithms(True)`: every parameter, BN
+    statistic, Adam moment, the plateau, the generator and the histories
+    must be equal bit for bit."""
+    with deterministic():
+        with tempfile.TemporaryDirectory() as tmp:
+            straight = make_trainer(os.path.join(tmp, "a"), 3, dev, sd, size=size, batch=batch)
+            hist_a = straight.train(train_ds, val_ds, verbose=False)
+            make_trainer(os.path.join(tmp, "b"), 2, dev, sd, size=size,
+                         batch=batch).train(train_ds, val_ds, verbose=False)
+            resumed = make_trainer(os.path.join(tmp, "b"), 3, dev, sd, size=size, batch=batch)
+            hist_b = resumed.train(train_ds, val_ds, verbose=False, resume=True)
+    out = states_equal(straight.state, resumed.state)
+    out["histories"] = all(hist_a[k] == hist_b[k] for k in
+                           ("train_losses", "val_losses", "accuracies", "iou_scores",
+                            "learning_rates", "best_model_epoch"))
+    out["train_losses"] = hist_a["train_losses"]
+    log("unet_train_resume_deterministic", json.dumps(out))
+    return out
+
+
+def train_step_times(dev, sd, train_ds, batch=TRAIN_BATCH):
+    """One train step (gather, augment, forward, loss, backward, Adam) at
+    batch 8 timed with CUDA events in bf16 and f32; the bf16 one profiled
+    by kernel class."""
+    out = {}
+    idx, valid = batch_indices(batch, batch, shuffle=False, rng=np.random.default_rng(0))
+    cfg = TrainConfig(lr=1e-4, weight_decay=0.0, loss="ce", batch_size=batch)
+    for name, dt in (("bf16", torch.bfloat16), ("f32", torch.float32)):
+        model = UNet(dtype=dt)
+        model.load_state_dict(sd, strict=True)
+        state = create_train_state(model, cfg, device=dev)
+        epoch = make_train_epoch(model, cfg, make_augment_fn(), device=dev)
+
+        def step():
+            return epoch(state, train_ds.images, train_ds.masks, idx, valid, per_step=True)
+
+        before = fused_conv3x3_bn_relu.launches
+        out[f"step_b{batch}_{name}_ms"] = cuda_ms(step, 10 if dt == torch.bfloat16 else 5)
+        out[f"fused_conv_launches_{name}_steps"] = fused_conv3x3_bn_relu.launches - before
+        if dt == torch.bfloat16:
+            out["profile"] = profile_forward(step, "unet_train_profile_step_b8_bf16",
+                                             classes=_TRAIN_CLASSES)
+        del model, state, epoch
+        torch.cuda.empty_cache()
+    return out
+
+
+def train_path(dev, size=TRAIN_SIZE, batch=TRAIN_BATCH, n_train=TRAIN_TILES, n_val=VAL_TILES):
+    """The production training path at full width: `WaterSegmentationTrainer`
+    on the 31,043,586-parameter UNet (random weights from a numpy seed,
+    through the bridge), bf16, batch 8, augmentation on, 3 epochs at lr 1e-3
+    with a resume point every epoch, then the checks in the module
+    docstring. Returns the results; raises when a check fails."""
+    sd = unet_state_dict(random_unet_variables(seed=0))
+    images, masks, route = coast_tiles(n_train + n_val, size, seed=0)
+    log("unet_train_data", json.dumps(dict(route=route, train=n_train, val=n_val, size=size,
+                                           water_fraction=float(masks.mean()))))
+    train_ds = DeviceDataset.from_numpy(images[:n_train], masks[:n_train], device=dev)
+    val_ds = DeviceDataset.from_numpy(images[n_train:], masks[n_train:], device=dev)
+    result, failures = dict(route=route), []
+    with tempfile.TemporaryDirectory() as save_dir:
+        trainer = make_trainer(save_dir, TRAIN_EPOCHS, dev, sd, size=size, batch=batch)
+        n_params = sum(p.numel() for p in trainer.model.parameters())
+        if n_params != UNET_PARAMS:
+            raise AssertionError(f"UNet has {n_params} parameters, expected {UNET_PARAMS}")
+        if dev.type == "cuda":
+            torch.cuda.reset_peak_memory_stats()
+        fused_conv3x3_bn_relu.launches = 0
+        hist, rec = counted_train(trainer, train_ds, val_ds, dev)
+        launches = fused_conv3x3_bn_relu.launches
+        peak_gb = torch.cuda.max_memory_allocated() / 2**30 if dev.type == "cuda" else None
+        val_forwards = sum(r["batches"] for r in rec["validate"])
+        val_launches = sum(r["fused_conv_launches"] for r in rec["validate"])
+        train_launches = sum(r["fused_conv_launches"] for r in rec["train"])
+        warm = rec["train"][1:]
+        result.update(
+            train_losses=hist["train_losses"], val_losses=hist["val_losses"],
+            val_iou=hist["iou_scores"], val_accuracy=hist["accuracies"],
+            learning_rates=hist["learning_rates"], best_epoch=hist["best_model_epoch"],
+            fused_conv_launches=dict(total=launches, validate=val_launches,
+                                     train_steps=train_launches, validation_forwards=val_forwards),
+            epoch_s=[r["s"] for r in rec["train"]], validate_s=[r["s"] for r in rec["validate"]],
+            train_img_per_s_warm=n_train * len(warm) / sum(r["s"] for r in warm),
+            val_img_per_s=n_val * len(rec["validate"]) / sum(r["s"] for r in rec["validate"]),
+            peak_memory_gb=peak_gb, training_time_s=hist["training_time"])
+        log("unet_train_epochs", json.dumps(result))
+        if not all(np.isfinite(hist["train_losses"] + hist["val_losses"])):
+            failures.append("non-finite losses")
+        if not hist["train_losses"][-1] < hist["train_losses"][0]:
+            failures.append(f"train loss did not fall: {hist['train_losses']}")
+        if train_launches != 0 or val_launches != 2 * val_forwards or launches != val_launches:
+            failures.append(f"fused conv launches {result['fused_conv_launches']}: want 2 a "
+                            "validation forward and none in the train steps")
+
+        best = trainer.load_best()
+        fresh = UNet(dtype=torch.bfloat16)
+        fresh.load_state_dict(best, strict=True)
+        ex = CoastlineExtractor(torch_checkpoint=os.path.join(save_dir, "best", "model.pth"),
+                                dtype=torch.bfloat16, image_size=size, device=dev)
+        pred = ex.predict_masks_batch(images[n_train:])
+        result["best_export"] = dict(strict_load=True, mask_shape=list(pred.shape),
+                                     mask_accuracy_vs_labels=float((pred == masks[n_train:]).mean()))
+        template = create_train_state(UNet(dtype=torch.bfloat16),
+                                      TrainConfig(lr=1e-3, weight_decay=0.0, loss="ce"), device=dev)
+        ckpt = CheckpointManager(save_dir)
+        result["resume_point_step"] = ckpt.latest_step()
+        restored = ckpt.restore(template, step=ckpt.latest_step())
+        result["restored_equals_saved"] = states_equal(restored, trainer.state)
+        log("unet_train_checkpoint", json.dumps({k: result[k] for k in
+                                                 ("best_export", "resume_point_step",
+                                                  "restored_equals_saved")}))
+        if pred.shape != (n_val, size, size) or not set(np.unique(pred)) <= {0, 1}:
+            failures.append(f"bad masks from the best export: {pred.shape}")
+        if not all(result["restored_equals_saved"].values()):
+            failures.append(f"restored state differs: {result['restored_equals_saved']}")
+        del trainer, ex, fresh, restored, template
+    torch.cuda.empty_cache()
+
+    result["card_vs_cpu_f32"] = train_card_vs_cpu(dev, UNet().state_dict())
+    if not result["card_vs_cpu_f32"]["ok"]:
+        failures.append("f32 train steps on the card disagree with the CPU path")
+    result["resume"] = resume_check(dev, sd, train_ds, val_ds, size=size, batch=batch)
+    if not all(v for k, v in result["resume"].items() if k != "train_losses"):
+        failures.append(f"resumed run differs from the straight one: {result['resume']}")
+    timing = train_step_times(dev, sd, train_ds, batch=batch)
+    result["profile"] = timing.pop("profile")
+    result.update(timing)
+    if timing["fused_conv_launches_bf16_steps"] or timing["fused_conv_launches_f32_steps"]:
+        failures.append(f"a train step launched the fused conv: {timing}")
+    log("unet_train_timing", json.dumps(dict(timing, peak_memory_gb=result["peak_memory_gb"],
+                                             train_img_per_s_warm=result["train_img_per_s_warm"],
+                                             val_img_per_s=result["val_img_per_s"])))
+    if failures:
+        raise AssertionError("train path: " + "; ".join(failures))
+    return result
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--out", help="also write every result to this JSON file")
     args = ap.parse_args(argv)
+    # cuBLAS reads this when it first starts; the deterministic resume check needs it
+    os.environ.setdefault("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device available", file=sys.stderr)
         return 2
@@ -872,6 +1201,7 @@ def main(argv=None) -> int:
     block = residual_block_check(dev)
     robust = robust_unet_path(dev)
     segnet = segnet_path(dev)
+    train = train_path(dev)
 
     def path_launches(path, name):
         return sum(e["launches"][name] for e in path["epochs"].values())
@@ -879,7 +1209,8 @@ def main(argv=None) -> int:
     main_dil = dil[0]
     conv_paths = {"serving": serving["launches"]["fused_conv3x3_bn_relu"],
                   "robust_unet_eval": path_launches(robust, "fused_conv3x3_bn_relu"),
-                  "segnet_eval": path_launches(segnet, "fused_conv3x3_bn_relu")}
+                  "segnet_eval": path_launches(segnet, "fused_conv3x3_bn_relu"),
+                  "unet_train_validate": train["fused_conv_launches"]["validate"]}
     kernels = [
         dict(name="fused_conv3x3_bn_relu", route="cuda",
              source="coastline_torch/csrc/fused_conv3x3_bn_relu.cu",
@@ -927,7 +1258,8 @@ def main(argv=None) -> int:
         with open(args.out, "w") as f:
             json.dump(dict(card=card, build_s=build_s, kernels=kernels, logits=logits,
                            serving=serving, cbam_cases=cbam_cases, residual_block=block,
-                           robust_unet=robust, unpool_cases=unpool_cases, segnet=segnet),
+                           robust_unet=robust, unpool_cases=unpool_cases, segnet=segnet,
+                           unet_train=train),
                       f, indent=1)
     log(json.dumps({"kernels": kernels}))
     log(card)

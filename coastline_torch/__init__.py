@@ -1,4 +1,5 @@
-"""PyTorch/CUDA port of the coastline serving path.
+"""PyTorch/CUDA port of coastline: the serving path, the Robust U-Net's and
+SegNet's evaluation epochs and the production trainer.
 
 `coastline/` (JAX) is the frozen reference; this package computes the same
 functions with PyTorch on an NVIDIA H100, and its TPU (Pallas) kernels are

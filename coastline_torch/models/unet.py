@@ -10,7 +10,9 @@ Module names follow the reference state_dict (`enc1..enc4`, `bottleneck`,
 `dtype` is the compute dtype (the JAX `dtype=`): the input is cast to it,
 parameters stay float32 and are cast at use, and the logits come back as
 float32. Activations are kept in channels_last memory, so the fused conv
-kernel reads its NHWC input without a copy.
+kernel reads its NHWC input without a copy. `model.train()` normalizes with
+batch statistics and takes no fused kernel; `.eval()` puts the fused path
+back (`ops/blocks.py::conv_bn`).
 """
 
 import torch
@@ -21,9 +23,9 @@ from coastline_torch.ops.primitives import Conv, ConvTranspose, max_pool
 
 
 class UNet(nn.Module):
-    def __init__(self, n_classes: int = 2, dtype: torch.dtype = torch.float32):
+    def __init__(self, n_classes: int = 2, dtype: torch.dtype = torch.float32, seed: int = 0):
         super().__init__()
-        g = torch.Generator().manual_seed(0)  # the random init is seeded, as JAX's PRNGKey(0)
+        g = torch.Generator().manual_seed(seed)  # the random init is seeded, as JAX's PRNGKey
         self.dtype = dtype
         self.enc1 = ConvStack((3, 64, 64), g)
         self.enc2 = ConvStack((64, 128, 128), g)

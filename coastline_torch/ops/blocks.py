@@ -7,13 +7,17 @@ full-resolution 64->64 ConvBNActs, SegNet's `enc1` conv 2 and `dec1` conv 0,
 and the Robust U-Net's two 64-channel ResidualBlocks' second conv (conv ->
 BN, no ReLU) are that shape, so each forward launches it twice. Every other
 conv, and everything in float32, runs `F.conv2d` -> BN (-> ReLU), as the JAX
-package leaves those to XLA.
+package leaves those to XLA. In train mode no conv takes the fused kernel,
+which folds the running statistics and has no gradient (the JAX package's
+train mode takes the module path too, `coastline/ops/blocks.py:185-222`):
+`F.conv2d` -> train-mode BN (-> ReLU).
 
 The Robust U-Net's blocks (`ops/blocks.py:30-245`): Dropout2d,
 ChannelAttention, SpatialAttention, AttentionGate, ResidualBlock and
 DilatedBlock, with the reference's state_dict names and the Robust U-Net's
 init: every conv kaiming-normal fan_out, the channel MLP flax `he_normal`.
-They are eval-only until the training slice: train mode raises. At eval a
+They are eval-only until the comparison protocol's training slice (the
+next one): train mode raises. At eval a
 ResidualBlock ends in
 `kernels.cbam.fused_cbam_tail` (three CUDA kernels on the card) for every
 shape; `ResidualBlock.module_tail` keeps the module composition it equals.
@@ -49,10 +53,10 @@ def _fusable(conv: Conv, x: torch.Tensor) -> bool:
 
 
 def conv_bn(conv: Conv, norm: Norm, x: torch.Tensor, act: bool):
-    """conv -> BN, then ReLU if `act`, on NCHW `x`. The fused path needs `x`
-    in channels_last memory (its NHWC permute is then contiguous) and
-    returns channels_last."""
-    if _fusable(conv, x):
+    """conv -> BN, then ReLU if `act`, on NCHW `x`. At eval the fused path
+    needs `x` in channels_last memory (its NHWC permute is then contiguous)
+    and returns channels_last; in train mode every conv is `F.conv2d`."""
+    if not norm.training and _fusable(conv, x):
         w, scale, bias = fold_bn(conv, norm)
         y = fused_conv3x3_bn_relu(x.permute(0, 2, 3, 1), w, scale, bias, relu=act)
         return y.permute(0, 3, 1, 2)
@@ -96,14 +100,14 @@ class ConvStack(nn.Sequential):
 def _eval_only(module: nn.Module):
     if module.training:
         raise NotImplementedError(
-            f"train-mode {type(module).__name__} is not ported yet (training slice); "
-            "call .eval()")
+            f"train-mode {type(module).__name__} is not ported yet (the comparison "
+            "protocol's training slice, next); call .eval()")
 
 
 class Dropout2d(nn.Module):
     """Channel dropout (`blocks.py:30-39`): the identity at eval. Train mode
-    waits for the training slice, which draws its mask from a
-    torch.Generator; until then it raises."""
+    waits for the comparison protocol's training slice, which draws its mask
+    from a torch.Generator; until then it raises."""
 
     def __init__(self, rate: float):
         super().__init__()

@@ -82,13 +82,17 @@ class ConvTranspose(nn.Module):
 
 
 class Norm(nn.BatchNorm2d):
-    """Eval-mode BatchNorm with the JAX package's rounding
+    """BatchNorm with the JAX package's formulation and rounding
     (`primitives.py:149-244`): the per-channel scale and shift are formed in
-    float32 from the float32 parameters and running statistics, then
-    applied in the activation's dtype as `x * inv + shift`.
+    float32, then applied in the activation's dtype as `x * inv + shift`.
 
-    Train-mode statistics belong to the training slice; calling this in
-    train mode raises rather than normalizing with the wrong statistics."""
+    At eval they come from the float32 parameters and running statistics.
+    In train mode the batch statistics are taken in float32 over (N, H, W)
+    as `mean` and `var = max(E[x^2] - mean^2, 0)`, the gradient flowing
+    through both as JAX's autodiff takes it, and the running statistics move
+    by torch's rule, momentum 0.1 with the unbiased variance (n / (n - 1)).
+    This is not `F.batch_norm`, whose two-pass variance and fused backward
+    round differently."""
 
     def folded(self):
         """(inv, shift) in float32: y = x * inv + shift."""
@@ -96,10 +100,20 @@ class Norm(nn.BatchNorm2d):
         return inv, self.bias - self.running_mean * inv
 
     def forward(self, x):
-        if self.training:
-            raise NotImplementedError(
-                "train-mode BatchNorm is not ported yet; call .eval()")
-        inv, shift = self.folded()
+        if not self.training:
+            inv, shift = self.folded()
+        else:
+            xf = x.float()
+            mean = xf.mean((0, 2, 3))
+            var = ((xf * xf).mean((0, 2, 3)) - mean * mean).clamp_min(0.0)
+            with torch.no_grad():
+                n = x.numel() // x.shape[1]
+                m = 1.0 - self.momentum  # the JAX package's 0.9: new = m * old + (1 - m) * batch
+                self.running_mean.copy_(m * self.running_mean + (1 - m) * mean)
+                self.running_var.copy_(m * self.running_var + (1 - m) * var * (n / max(n - 1, 1)))
+                self.num_batches_tracked.add_(1)
+            inv = self.weight * torch.rsqrt(var + self.eps)
+            shift = self.bias - mean * inv
         return x * inv.to(x.dtype)[:, None, None] + shift.to(x.dtype)[:, None, None]
 
 

@@ -15,9 +15,15 @@ def _bce(logits, targets):
 
 def _cross_entropy(logits, targets):
     """Per-pixel softmax cross-entropy over dim 1: logsumexp minus the
-    target class's logit."""
+    target class's logit. The logit is picked by a product with the one-hot
+    targets, which equals the gather for finite logits (x * 1 + 0), because
+    a gather's backward is a scatter-add, which has no deterministic CUDA
+    version: the one-hot product keeps a train step bit-reproducible under
+    `torch.use_deterministic_algorithms(True)`."""
     l = logits.float()
-    return torch.logsumexp(l, dim=1) - l.gather(1, targets.long()[:, None]).squeeze(1)
+    classes = torch.arange(l.shape[1], device=l.device)[:, None, None]
+    onehot = (targets.long()[:, None] == classes).to(l.dtype)
+    return torch.logsumexp(l, dim=1) - (l * onehot).sum(1)
 
 
 def bce_loss(logits, targets):

@@ -350,3 +350,99 @@ def test_segnet_on_card_launches_the_unpool_kernels(dev, dtype, fused_convs):
     if dtype == torch.float32:
         tol = 1e-3 * max(1.0, float(ref.std()))
         assert float(((got - ref).abs() <= tol).float().mean()) >= 0.999
+
+
+def test_f32_train_steps_on_card_match_cpu(dev):
+    """`chip_smoke.train_card_vs_cpu`: two f32 Adam steps of the full-width
+    UNet at (2, 64, 64) a batch, wd 0.1, on the card (TF32 off,
+    deterministic) against the CPU path, at the JAX package's bounds: loss
+    1e-5 relative, parameters atol 5e-5 / rtol 1e-4, BN statistics 2e-5 /
+    2e-4. Its docstring says why the BN biases are shifted."""
+    from chip_smoke import train_card_vs_cpu
+    from coastline_torch.models.unet import UNet
+
+    assert train_card_vs_cpu(dev, UNet().state_dict())["ok"]
+
+
+def test_bf16_train_steps_on_card_match_cpu(dev):
+    """The same two steps in bf16, which rounds at other places on the card
+    than on the CPU and so flips the sign-like first Adam steps of weights
+    with small gradients: the loss within 2e-3 relative and 98% of the
+    values within the f32 bounds."""
+    from chip_smoke import shift_bn
+    from coastline_torch.models.unet import UNet
+    from coastline_torch.train.loop import TrainConfig, create_train_state, make_train_epoch
+
+    rng = np.random.default_rng(3)
+    images = rng.integers(0, 256, (4, 64, 64, 3), dtype=np.uint8)
+    masks = (rng.random((4, 64, 64)) > 0.5).astype(np.uint8)
+    sd = shift_bn(UNet().state_dict())
+    cfg = TrainConfig(lr=1e-4, weight_decay=0.1, loss="ce", batch_size=2)
+    runs = []
+    for d in (torch.device("cpu"), dev):
+        model = UNet(dtype=torch.bfloat16)
+        model.load_state_dict(sd)
+        state = create_train_state(model, cfg, device=d)
+        state, loss = make_train_epoch(model, cfg, device=d)(
+            state, images, masks, np.array([[0, 1], [2, 3]]), np.ones((2, 2), np.float32))
+        runs.append((loss, {k: v.cpu() for k, v in model.state_dict().items()}))
+    (l_cpu, ref), (l_dev, got) = runs
+    assert state.step == 2 and abs(l_dev - l_cpu) <= 2e-3 * abs(l_cpu)
+    within, total = 0, 0
+    for k, r in ref.items():
+        if k.endswith("num_batches_tracked"):
+            assert int(got[k]) == 2
+            continue
+        atol, rtol = (2e-5, 2e-4) if ".running_" in k else (5e-5, 1e-4)
+        ok = (got[k] - r).abs() <= atol + rtol * r.abs()
+        within, total = within + int(ok.sum()), total + ok.numel()
+    assert within >= 0.98 * total
+
+
+def test_train_mode_takes_no_fused_conv(dev):
+    """A bf16 UNet in train mode runs every conv through cuDNN (forward and
+    backward); back in eval mode it launches the fused conv twice."""
+    from coastline_torch.models.unet import UNet
+
+    model = UNet(dtype=torch.bfloat16).to(dev)
+    x = torch.randn(2, 3, 32, 32, device=dev)
+    before = fused_conv3x3_bn_relu.launches
+    model.train()(x).sum().backward()
+    torch.cuda.synchronize()
+    assert fused_conv3x3_bn_relu.launches == before
+    assert all(p.grad is not None for p in model.parameters())
+    with torch.inference_mode():
+        model.eval()(x)
+    assert fused_conv3x3_bn_relu.launches == before + 2
+
+
+def test_checkpoint_round_trip_on_card(dev, tmp_path):
+    """A train state on the card saved and restored into a fresh one: the
+    parameters, BN statistics, Adam moments, plateau, step and the device
+    generator come back bit for bit, on the card."""
+    from coastline_torch.data.augment import make_augment_fn
+    from coastline_torch.models.unet import UNet
+    from coastline_torch.train.checkpoint import CheckpointManager
+    from coastline_torch.train.loop import TrainConfig, create_train_state, make_train_epoch
+
+    rng = np.random.default_rng(0)
+    images = rng.integers(0, 256, (2, 32, 32, 3), dtype=np.uint8)
+    masks = (rng.random((2, 32, 32)) > 0.5).astype(np.uint8)
+    cfg = TrainConfig(lr=1e-3, weight_decay=0.0, loss="ce", batch_size=2)
+    model = UNet(dtype=torch.bfloat16)
+    state = create_train_state(model, cfg, device=dev)
+    state, _ = make_train_epoch(model, cfg, make_augment_fn(), device=dev)(
+        state, images, masks, np.array([[0, 1]]), np.ones((1, 2), np.float32))
+    ckpt = CheckpointManager(str(tmp_path))
+    ckpt.save(1, state)
+    fresh = create_train_state(UNet(dtype=torch.bfloat16, seed=5), cfg, device=dev)
+    back = ckpt.restore(fresh, step=1)
+    a, b = state.model.state_dict(), back.model.state_dict()
+    assert all(torch.equal(a[k], b[k]) and b[k].device == a[k].device for k in a)
+    oa, ob = state.optimizer.state_dict()["state"], back.optimizer.state_dict()["state"]
+    assert all(torch.equal(oa[i][m].cpu(), ob[i][m].cpu()) for i in oa
+               for m in ("step", "exp_avg", "exp_avg_sq"))
+    assert ob[0]["exp_avg"].device.type == "cuda"
+    assert back.plateau == state.plateau and back.step == state.step == 1
+    assert torch.equal(back.generator.get_state(), state.generator.get_state())
+    assert back.generator.device.type == "cuda"

@@ -40,7 +40,12 @@ def test_port_and_chip_smoke_import_no_jax_and_no_coastline():
               "coastline_torch.models.robust_unet", "coastline_torch.models.registry",
               "coastline_torch.ops.initializers", "coastline_torch.train.losses",
               "coastline_torch.train.metrics", "coastline_torch.train.loop",
-              "coastline_torch.kernels.unpool", "coastline_torch.models.segnet"):
+              "coastline_torch.kernels.unpool", "coastline_torch.models.segnet",
+              "coastline_torch.train.lr", "coastline_torch.train.checkpoint",
+              "coastline_torch.train.trainer", "coastline_torch.data.augment",
+              "coastline_torch.data.rasterize", "coastline_torch.data.pipeline",
+              "coastline_torch.data.synthetic", "coastline_torch.report.trainer_viz",
+              "coastline_torch.cli.train"):
         assert m in report["modules"]
 
 
@@ -49,7 +54,12 @@ def _entry_points():
     from coastline_torch.infer.morphology import coastline_band, dilate
     from coastline_torch.models.robust_unet import RobustUNet
     from coastline_torch.models.segnet import SegNet
-    from coastline_torch.train.loop import TrainConfig, make_eval_epoch
+    from coastline_torch.cli.train import main as train_cli
+    from coastline_torch.data.pipeline import make_dataset
+    from coastline_torch.models.unet import UNet
+    from coastline_torch.train.loop import (TrainConfig, create_train_state, make_eval_epoch,
+                                            make_train_epoch)
+    from coastline_torch.train.trainer import WaterSegmentationTrainer
 
     mask = np.zeros((8, 8), np.uint8)
     return {
@@ -58,11 +68,18 @@ def _entry_points():
         "dilate": lambda: dilate(mask),
         "make_eval_epoch": lambda: make_eval_epoch(RobustUNet(base=16), TrainConfig()),
         "segnet_eval_epoch": lambda: make_eval_epoch(SegNet(), TrainConfig()),
+        "make_train_epoch": lambda: make_train_epoch(UNet(), TrainConfig(loss="ce")),
+        "create_train_state": lambda: create_train_state(UNet(), TrainConfig()),
+        "trainer": lambda: WaterSegmentationTrainer(),
+        "train_cli": lambda: train_cli(["--synthetic", "2", "--epochs", "1"]),
+        "make_dataset": lambda: make_dataset(np.zeros((1, 8, 8, 3), np.uint8),
+                                             np.zeros((1, 8, 8), np.uint8)),
     }
 
 
 @pytest.mark.parametrize("name", ["extractor", "coastline_band", "dilate", "make_eval_epoch",
-                                  "segnet_eval_epoch"])
+                                  "segnet_eval_epoch", "make_train_epoch", "create_train_state",
+                                  "trainer", "train_cli", "make_dataset"])
 def test_entry_points_raise_without_a_card(name, monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="no CUDA device"):

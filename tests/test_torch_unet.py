@@ -248,8 +248,12 @@ def test_norm_eval_matches_jax(dtype):
 
 
 def test_norm_train_mode_raises():
-    with pytest.raises(NotImplementedError):
-        Norm(4).train()(torch.zeros(1, 4, 2, 2))
+    """Train mode no longer raises: it normalizes with the batch statistics
+    and moves the running ones (held against JAX in test_torch_train.py)."""
+    norm = Norm(4).train()
+    y = norm(torch.arange(16.0).reshape(1, 4, 2, 2))
+    assert torch.allclose(y.mean((0, 2, 3)), torch.zeros(4), atol=1e-6)
+    assert int(norm.num_batches_tracked) == 1 and float(norm.running_mean[0]) == pytest.approx(0.15)
 
 
 def test_max_pool_matches_jax():
