@@ -55,7 +55,21 @@ Needs one NVIDIA H100 and the CUDA toolkit; builds the kernels from
      epoch resume against 3 straight epochs under
      `torch.use_deterministic_algorithms(True)`, step times in bf16 and f32,
      epoch rates, peak memory and a profile of one bf16 train step;
-  9. a `kernels` JSON line, the card line and the last line:
+  9. the comparison protocol (`protocol_path`): `cli/bench_all.main` trains
+     and evaluates the full-width Robust U-Net and SegNet (random init from
+     their constructors' seeds) for 2 bf16 epochs over 16 synthetic 512^2
+     tiles at batch 2, validating on 4, and times them at batch 2 and 64;
+     the parameter counts must equal `baselines/reference_param_counts.json`,
+     the train loss must fall, every bf16 eval forward must launch 9/9/9
+     CBAM kernels and 2 fused convs (Robust U-Net) or 4/4 pool/unpool and 2
+     fused convs (SegNet), and no train step any kernel. Then two f32 Adam
+     steps of each model at (2, 64, 64) on the card against the CPU path
+     (every parameter with a gradient on the card), batch-8 bf16 train
+     steps at 512^2 (SegNet, and the Robust U-Net under each `remat`
+     flavor) with peak memory and profiles, the `remat` flavors bit-equal
+     after one deterministic step with dropout on, and Dropout2d's mask
+     statistics on the card;
+  10. a `kernels` JSON line, the card line and the last line:
      {"ok": true, "device": {...}}.
 
 Float32 convolutions run with cuDNN's TF32 off, so every float32 number
@@ -85,14 +99,15 @@ from coastline_torch.kernels.morphology import dilate_disk, dilate_disk_plain, s
 from coastline_torch.kernels.pools import fused_avg_max_pool
 from coastline_torch.models import segnet as segnet_module
 from coastline_torch.models.registry import create_model
-from coastline_torch.ops.blocks import ResidualBlock
+from coastline_torch.ops.blocks import Dropout2d, ResidualBlock
 from coastline_torch.ops.primitives import Conv, ConvTranspose
 from coastline_torch.data.augment import make_augment_fn
 from coastline_torch.data.pipeline import DeviceDataset
 from coastline_torch.models.unet import UNet
 from coastline_torch.train import trainer as trainer_module
 from coastline_torch.train.checkpoint import CheckpointManager
-from coastline_torch.train.loop import (TrainConfig, batch_indices, create_train_state,
+from coastline_torch.cli import bench_all
+from coastline_torch.train.loop import (Evaluator, TrainConfig, batch_indices, create_train_state,
                                         make_eval_epoch, make_train_epoch, normalize_images)
 from coastline_torch.train.trainer import TrainerConfig, WaterSegmentationTrainer
 from coastline_torch.utils.torch_import import (random_robust_unet_variables,
@@ -815,8 +830,8 @@ def segnet_code_flips(sd, dev):
     for name, dt in (("f32", torch.float32), ("bf16", torch.bfloat16)):
         codes = []
 
-        def spy(t):
-            vals, c = pool(t)
+        def spy(t, **kw):
+            vals, c = pool(t, **kw)
             codes.append(c.cpu())
             return vals, c
 
@@ -961,14 +976,18 @@ def shift_bn(sd, beta=6.0):
             k[:-len("bias")] + "running_mean" in sd else v for k, v in sd.items()}
 
 
-def train_card_vs_cpu(dev, sd, size=64):
+def train_card_vs_cpu(dev, sd, size=64, model_fn=UNet, loss="ce", label="unet", beta=6.0,
+                      seed=3):
     """One `make_train_epoch` of 2 Adam steps at (2, size, size) a batch,
     f32, wd 0.1, lr 1e-4, no augmentation, on the card and on the CPU path
-    from the same weights and batches (cuDNN TF32 off). The JAX package's
+    from the same weights and batches (cuDNN TF32 off), for the model
+    `model_fn()` makes (its dropout off) with `loss`. The JAX package's
     bounds for f32 conv-gradient noise through Adam
     (`tests/test_train_parity.py:89-108,186-189`): the loss to 1e-5
     relative, every parameter to atol 5e-5 / rtol 1e-4, every BN statistic
-    to atol 2e-5 / rtol 2e-4.
+    to atol 2e-5 / rtol 2e-4. Every parameter must hold a gradient on the
+    card after the last backward (a kernel without a backward in the path
+    would leave the ones below it at None).
 
     The weights are `sd` with its BN biases at 6 (`shift_bn`). Adam's first
     steps are about lr * sign(g), so a weight whose gradient the two paths
@@ -980,24 +999,27 @@ def train_card_vs_cpu(dev, sd, size=64):
     init at (2, 32, 32); shifted, that one put 1 outside (a rounding-level
     sign flip) and this check none, so the card also runs in deterministic
     mode, one sum order from run to run."""
-    sd = shift_bn(sd)
-    rng = np.random.default_rng(3)
+    sd = shift_bn(sd, beta)
+    rng = np.random.default_rng(seed)
     images = rng.integers(0, 256, (4, size, size, 3), dtype=np.uint8)
     masks = (rng.random((4, size, size)) > 0.5).astype(np.uint8)
     idx, valid = np.array([[0, 1], [2, 3]], np.int32), np.ones((2, 2), np.float32)
-    cfg = TrainConfig(lr=1e-4, weight_decay=0.1, loss="ce", batch_size=2)
+    cfg = TrainConfig(lr=1e-4, weight_decay=0.1, loss=loss, batch_size=2)
     runs = {}
     for d in (torch.device("cpu"), dev):
-        model = UNet()
+        model = without_dropout(model_fn())
         model.load_state_dict(sd, strict=True)
         state = create_train_state(model, cfg, device=d)
         with deterministic() if d.type == "cuda" else contextlib.nullcontext():
             state, loss = make_train_epoch(model, cfg, device=d)(state, images, masks, idx, valid)
-        runs[d.type] = (loss, {k: v.detach().cpu() for k, v in model.state_dict().items()})
-    (l_cpu, ref), (l_dev, got) = runs["cpu"], runs[dev.type]
-    out = dict(shape=[2, size, size, 3], steps=2, loss_cpu=l_cpu, loss_card=l_dev,
+        runs[d.type] = (loss, {k: v.detach().cpu() for k, v in model.state_dict().items()},
+                        [n for n, p in model.named_parameters() if p.grad is None])
+    (l_cpu, ref, _), (l_dev, got, no_grad) = runs["cpu"], runs[dev.type]
+    out = dict(shape=[2, size, size, 3], steps=2, bn_bias=beta, image_seed=seed,
+               loss_cpu=l_cpu, loss_card=l_dev,
                loss_rel_err=abs(l_dev - l_cpu) / abs(l_cpu), tensors_out_of_bound={},
-               elements_out_of_bound=0, max_abs_err_params=0.0, max_abs_err_bn_stats=0.0)
+               elements_out_of_bound=0, max_abs_err_params=0.0, max_abs_err_bn_stats=0.0,
+               params_without_grad_on_card=no_grad)
     for k, r in ref.items():
         if k.endswith("num_batches_tracked"):
             continue
@@ -1010,9 +1032,18 @@ def train_card_vs_cpu(dev, sd, size=64):
         if bad:
             out["tensors_out_of_bound"][k] = bad
             out["elements_out_of_bound"] += bad
-    out["ok"] = out["loss_rel_err"] <= 1e-5 and out["elements_out_of_bound"] == 0
-    log("unet_train_card_vs_cpu_f32", json.dumps(out))
+    out["ok"] = (out["loss_rel_err"] <= 1e-5 and out["elements_out_of_bound"] == 0
+                 and not no_grad)
+    log(f"{label}_train_card_vs_cpu_f32", json.dumps(out))
     return out
+
+
+def without_dropout(model):
+    """`model` with every Dropout2d's rate at 0 (the Robust U-Net's blocks)."""
+    for m in model.modules():
+        if isinstance(m, Dropout2d):
+            m.rate = 0.0
+    return model
 
 
 @contextlib.contextmanager
@@ -1165,6 +1196,298 @@ def train_path(dev, size=TRAIN_SIZE, batch=TRAIN_BATCH, n_train=TRAIN_TILES, n_v
     return result
 
 
+REPO = os.path.dirname(os.path.abspath(__file__))
+PROTOCOL_DIR = os.path.join(REPO, "build", "protocol_path")  # listed in .gitignore
+PROTOCOL_ARGS = ["--synthetic", "20", "--models", "Robust UNet,SegNet", "--epochs", "2",
+                 "--image-size", "512", "--dtype", "bfloat16"]
+ALL_COUNTERS = {"fused_conv3x3_bn_relu": fused_conv3x3_bn_relu, "dilate_disk": dilate_disk,
+                "avg_max_pool": cbam.avg_max_pool, "fused_avg_max_pool": fused_avg_max_pool,
+                "gated_spatial_stats": cbam.gated_spatial_stats, "cbam_tail": cbam.cbam_tail_apply,
+                "max_pool_with_indices": unpool.max_pool_with_indices,
+                "max_unpool": unpool.max_unpool}
+# each kernel's launches a bf16 eval forward of the protocol's models; every other kernel 0
+PROTOCOL_WANT = {"RobustUNet": {"avg_max_pool": 9, "gated_spatial_stats": 9, "cbam_tail": 9,
+                                "fused_conv3x3_bn_relu": 2},
+                 "SegNet": {"max_pool_with_indices": 4, "max_unpool": 4,
+                            "fused_conv3x3_bn_relu": 2}}
+PARAM_COUNT_KEYS = {"Robust UNet": "RobustUNet", "SegNet": "SegNet"}
+
+
+def launch_counts() -> dict:
+    return {k: fn.launches for k, fn in ALL_COUNTERS.items()}
+
+
+def launches_since(before: dict) -> dict:
+    now = launch_counts()
+    return {k: now[k] - before[k] for k in now}
+
+
+class CountingEvaluator(Evaluator):
+    """The protocol's `Evaluator` with the kernel launches of every
+    eval-mode forward of its model (forward hooks) and of every train epoch
+    (train steps: gather, forward, loss, backward, Adam) recorded, and each
+    train epoch timed on the host clock, ending in a synchronize."""
+
+    made = []
+
+    def __init__(self, model, config, augment_fn=None, device="cuda"):
+        super().__init__(model, config, augment_fn, device)
+        self.arch = type(model).__name__
+        self.eval_forwards, self.train_epochs, self._before = [], [], None
+        model.register_forward_pre_hook(self._pre)
+        model.register_forward_hook(self._post)
+        CountingEvaluator.made.append(self)
+
+    def _pre(self, module, args):
+        if not module.training:
+            self._before = launch_counts()
+
+    def _post(self, module, args, out):
+        if not module.training:
+            self.eval_forwards.append(launches_since(self._before))
+
+    def _run_train_epoch(self, state, ds, idx, valid):
+        torch.cuda.synchronize()
+        before, t0 = launch_counts(), time.perf_counter()
+        out = super()._run_train_epoch(state, ds, idx, valid)
+        torch.cuda.synchronize()
+        self.train_epochs.append(dict(s=time.perf_counter() - t0, steps=len(idx),
+                                      launches=launches_since(before)))
+        return out
+
+
+def protocol_cli(dev):
+    """(a) and (b): `cli/bench_all.main` on 20 synthetic 512^2 tiles (16
+    train, 4 val), both models at full width, 2 epochs, bf16, batch 2,
+    throughput batch 64, with every launch counter at 0 just before."""
+    os.makedirs(PROTOCOL_DIR, exist_ok=True)
+    for fn in ALL_COUNTERS.values():
+        fn.launches = 0
+    CountingEvaluator.made.clear()
+    bench_all.Evaluator = CountingEvaluator
+    try:
+        t0 = time.perf_counter()
+        rc = bench_all.main(PROTOCOL_ARGS + ["--out-dir", PROTOCOL_DIR, "--device", str(dev)])
+        run_s = time.perf_counter() - t0
+    finally:
+        bench_all.Evaluator = Evaluator
+    launches = launch_counts()
+    failures = [] if rc == 0 else [f"bench_all exited {rc}"]
+    with open(os.path.join(PROTOCOL_DIR, "benchmark_results.json")) as f:
+        bench = json.load(f)
+    with open(os.path.join(REPO, "baselines", "reference_param_counts.json")) as f:
+        reference_counts = json.load(f)
+    result = dict(args=PROTOCOL_ARGS, rc=rc, run_s=run_s, launches=launches, models={})
+    accounted = dict.fromkeys(launches, 0)
+    for ev in CountingEvaluator.made:
+        name = {"RobustUNet": "Robust UNet", "SegNet": "SegNet"}[ev.arch]
+        want = dict.fromkeys(launches, 0) | PROTOCOL_WANT[ev.arch]
+        hist, res = bench["histories"][name], bench["results"][name]
+        n_params, n_ref = bench["param_counts"][name], reference_counts[PARAM_COUNT_KEYS[name]]
+        bad_forwards = [f for f in ev.eval_forwards if f != want]
+        train_launches = {k: sum(e["launches"][k] for e in ev.train_epochs) for k in launches}
+        for k in launches:
+            accounted[k] += train_launches[k] + sum(f[k] for f in ev.eval_forwards)
+        steps = sum(e["steps"] for e in ev.train_epochs)
+        warm = ev.train_epochs[1:]
+        result["models"][name] = dict(
+            params=n_params, reference_params=n_ref, train_loss=hist["train_loss"],
+            val_loss=hist["val_loss"], val_iou=hist["val_iou"], results=res,
+            eval_forwards=len(ev.eval_forwards), launches_per_eval_forward=want,
+            eval_forwards_off_count=len(bad_forwards), train_steps=steps,
+            train_epoch_launches=train_launches, epoch_s=[e["s"] for e in ev.train_epochs],
+            train_img_per_s_warm=(sum(e["steps"] for e in warm) * ev.config.batch_size
+                                  / sum(e["s"] for e in warm) if warm else None))
+        log(f"protocol_{ev.arch.lower()}", json.dumps(result["models"][name]))
+        if n_params != n_ref:
+            failures.append(f"{name} has {n_params} parameters, the reference {n_ref}")
+        if not all(np.isfinite(hist["train_loss"] + hist["val_loss"])):
+            failures.append(f"{name}: non-finite losses {hist}")
+        if not hist["train_loss"][-1] < hist["train_loss"][0]:
+            failures.append(f"{name}: train loss did not fall: {hist['train_loss']}")
+        if bad_forwards or not ev.eval_forwards:
+            failures.append(f"{name}: {len(bad_forwards)} of {len(ev.eval_forwards)} eval "
+                            f"forwards launched other than {want}: {bad_forwards[:2]}")
+        if any(train_launches.values()) or steps == 0:
+            failures.append(f"{name}: kernels launched in {steps} train steps: {train_launches}")
+    if set(result["models"]) != set(PARAM_COUNT_KEYS) or set(bench["results"]) != set(PARAM_COUNT_KEYS):
+        failures.append(f"benchmark_results.json holds {sorted(bench['results'])}")
+    if accounted != launches:
+        failures.append(f"launches outside the counted forwards and epochs: {launches} "
+                        f"vs {accounted}")
+    result["failures"] = failures
+    return result
+
+
+def protocol_step_times(dev, sds, images, masks, batch=8):
+    """(d) One protocol train step (gather, forward, BCE, backward, Adam with
+    wd 1e-4) at batch 8, 512^2, bf16, for SegNet and the Robust U-Net under
+    each `remat` flavor: CUDA events over back-to-back steps, peak memory,
+    the kernel launches in them (none may run), and a profile of one step
+    by kernel class, whose idle share shows how much of a flavor's cost is
+    the host's (the "conv" policy dispatches every op through Python)."""
+    idx, valid = batch_indices(batch, batch, shuffle=False, rng=np.random.default_rng(0))
+    cfg = TrainConfig(batch_size=batch)
+    out = {}
+    for name, remat in (("SegNet", None), ("Robust UNet", False), ("Robust UNet", True),
+                        ("Robust UNet", "conv")):
+        label = name.lower().replace(" ", "_") + ("" if remat is None else f"_remat_{remat}")
+        model = create_model(name, dtype=torch.bfloat16,
+                             **({} if remat is None else {"remat": remat}))
+        model.load_state_dict(sds[name], strict=True)
+        state = create_train_state(model, cfg, device=dev)
+        epoch = make_train_epoch(model, cfg, device=dev)
+
+        def step():
+            return epoch(state, images, masks, idx, valid, per_step=True)
+
+        step()
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        before = launch_counts()
+        ms = cuda_ms(step, 10, warmup=1)
+        entry = dict(step_b8_bf16_ms=ms, train_img_per_s=batch / ms * 1e3,
+                     peak_memory_gb=torch.cuda.max_memory_allocated() / 2**30,
+                     kernel_launches=sum(launches_since(before).values()))
+        entry["profile"] = profile_forward(step, f"{label}_train_profile_step_b8_bf16",
+                                           classes=_TRAIN_CLASSES)
+        out[label] = entry
+        log(f"{label}_train_step", json.dumps({k: v for k, v in entry.items() if k != "profile"}))
+        del model, state, epoch
+        torch.cuda.empty_cache()
+    return out
+
+
+def remat_bit_equal(dev, sd, images, masks, batch=8):
+    """(d) One bf16 step of the full-width Robust U-Net at batch 8, 512^2,
+    dropout on (the default rates), under `torch.use_deterministic_algorithms`
+    for each `remat` flavor from the same weights and generator seed: the
+    parameters, BN statistics and generator after it must equal
+    `remat=False`'s bit for bit (a recompute that drew new masks or moved BN
+    statistics again would not)."""
+    idx, valid = batch_indices(batch, batch, shuffle=False, rng=np.random.default_rng(0))
+    cfg = TrainConfig(batch_size=batch)
+    runs = {}
+    with deterministic():
+        for remat in (False, True, "conv"):
+            model = create_model("Robust UNet", dtype=torch.bfloat16, remat=remat)
+            model.load_state_dict(sd, strict=True)
+            state = create_train_state(model, cfg, device=dev)
+            make_train_epoch(model, cfg, device=dev)(state, images, masks, idx, valid)
+            runs[remat] = ({k: v.clone() for k, v in model.state_dict().items()},
+                           state.generator.get_state())
+            del model, state
+            torch.cuda.empty_cache()
+    ref, ref_gen = runs[False]
+    out = {f"remat_{r}": dict(state_dict_bit_equal=all(torch.equal(runs[r][0][k], ref[k])
+                                                       for k in ref),
+                              generator_equal=torch.equal(runs[r][1], ref_gen))
+           for r in (True, "conv")}
+    log("robust_unet_remat_bit_equal", json.dumps(out))
+    return out
+
+
+def dropout_check(dev, p=0.2, shape=(64, 512, 32, 32)):
+    """(e) Dropout2d on the card: whole (sample, channel) maps kept or
+    zeroed, the kept share within 4 sigma of 1 - p, the kept maps equal
+    x / (1 - p)."""
+    gen = torch.Generator(device=dev).manual_seed(0)
+    x = torch.rand(shape, device=dev, generator=gen) + 0.5
+    drop = Dropout2d(p).train()
+    drop.generator = gen
+    y = drop(x)
+    nonzero = (y != 0).flatten(2)
+    kept = nonzero.all(2)
+    share, sigma = float(kept.float().mean()), float(np.sqrt(p * (1 - p) / kept.numel()))
+    out = dict(shape=list(shape), rate=p, kept_share=share, sigma=sigma,
+               whole_maps=bool(torch.equal(kept, nonzero.any(2))),
+               kept_scaled=bool(torch.equal(y[kept], (x / (1 - p))[kept])))
+    out["ok"] = out["whole_maps"] and out["kept_scaled"] and abs(share - (1 - p)) <= 4 * sigma
+    log("dropout2d_on_card", json.dumps(out))
+    return out
+
+
+# The card-vs-CPU f32 check's weights and BN shift for each protocol model, at
+# image seed 3 (`card_vs_cpu_scan`, PERF.md §6): the Robust U-Net with
+# the main path's bridge weights, BN biases at 6 (5 of 6 image seeds inside
+# every bound; its kaiming fan_out constructor init 2 of 18 seed and shift
+# pairs); SegNet with its constructor's torch-default init, BN biases at 3
+# (4 of 6; at 6, BN statistics below the last unpool fell outside at every
+# seed).
+CARD_VS_CPU = {"Robust UNet": ("bridge", 6.0), "SegNet": ("ctor", 3.0)}
+
+
+def card_vs_cpu_scan(dev=None, seeds=range(6), out_path=None):
+    """`train_card_vs_cpu` for each protocol model from its constructor's
+    init ("ctor") and from the bridge's random weights ("bridge"), with BN
+    biases at 2, 3 and 6 and each image seed: how often two f32 Adam steps
+    on the card stay inside the JAX package's bounds; the rows go to
+    `out_path` (default `build/card_vs_cpu_scan.json`). Not run by `main`;
+    on the card: `python -c "import chip_smoke; chip_smoke.card_vs_cpu_scan()"`."""
+    os.environ.setdefault("CUBLAS_WORKSPACE_CONFIG", ":4096:8")  # before cuBLAS starts
+    dev = dev or torch.device("cuda")
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    inits = {"Robust UNet": robust_unet_state_dict(random_robust_unet_variables(seed=0)),
+             "SegNet": segnet_state_dict(random_segnet_variables(seed=0))}
+    rows = []
+    for name, bridge in inits.items():
+        for init, sd in (("ctor", create_model(name).state_dict()), ("bridge", bridge)):
+            for beta in (2.0, 3.0, 6.0):
+                for seed in seeds:
+                    out = train_card_vs_cpu(dev, sd, model_fn=lambda n=name: create_model(n),
+                                            loss="bce", label=name, beta=beta, seed=seed)
+                    rows.append(dict(model=name, init=init, beta=beta, seed=seed,
+                                     out_of_bound=out["elements_out_of_bound"],
+                                     tensors=out["tensors_out_of_bound"],
+                                     loss_rel_err=out["loss_rel_err"], ok=out["ok"]))
+    out_path = out_path or os.path.join(REPO, "build", "card_vs_cpu_scan.json")
+    os.makedirs(os.path.dirname(out_path) or ".", exist_ok=True)
+    with open(out_path, "w") as f:
+        json.dump(rows, f, indent=1)
+    return rows
+
+
+def protocol_path(dev, size=512, batch=8, check_size=64, dropout_shape=(64, 512, 32, 32)):
+    """The comparison protocol at full width: (a) `cli/bench_all.main` on
+    the Robust U-Net and SegNet, (b) their kernel launches, (c) two f32 Adam
+    steps of each at (2, check_size, check_size) on the card against the CPU
+    path, (d) batch-8 bf16 train steps at size^2 with `remat` and its
+    bit-equality, (e) Dropout2d on the card."""
+    result = protocol_cli(dev)
+    failures = result.pop("failures")
+    sds = {"Robust UNet": robust_unet_state_dict(random_robust_unet_variables(seed=0)),
+           "SegNet": segnet_state_dict(random_segnet_variables(seed=0))}
+    result["card_vs_cpu_f32"] = {}
+    for name, (init, beta) in CARD_VS_CPU.items():
+        sd = sds[name] if init == "bridge" else create_model(name).state_dict()
+        check = train_card_vs_cpu(dev, sd, size=check_size, model_fn=lambda n=name: create_model(n),
+                                  loss="bce", label=name.lower().replace(" ", "_"), beta=beta)
+        result["card_vs_cpu_f32"][name] = check
+        if not check["ok"]:
+            failures.append(f"{name}: f32 train steps on the card disagree with the CPU path "
+                            f"or leave parameters without a gradient")
+    images, masks, route = coast_tiles(batch, size, seed=3)
+    images = torch.from_numpy(images).to(dev)
+    masks = torch.from_numpy(masks).to(dev)
+    result["train_steps"] = protocol_step_times(dev, sds, images, masks, batch=batch)
+    if any(e["kernel_launches"] for e in result["train_steps"].values()):
+        failures.append("a protocol train step launched a kernel")
+    result["remat"] = remat_bit_equal(dev, sds["Robust UNet"], images, masks, batch=batch)
+    if not all(all(v.values()) for v in result["remat"].values()):
+        failures.append(f"remat flavors differ from remat=False: {result['remat']}")
+    result["dropout"] = dropout_check(dev, shape=dropout_shape)
+    if not result["dropout"]["ok"]:
+        failures.append(f"Dropout2d on the card: {result['dropout']}")
+    log("protocol_path", json.dumps(dict(
+        run_s=result["run_s"], launches=result["launches"],
+        train_steps={k: {m: v for m, v in e.items() if m != "profile"}
+                     for k, e in result["train_steps"].items()})))
+    if failures:
+        raise AssertionError("protocol path: " + "; ".join(failures))
+    return result
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--out", help="also write every result to this JSON file")
@@ -1202,15 +1525,18 @@ def main(argv=None) -> int:
     robust = robust_unet_path(dev)
     segnet = segnet_path(dev)
     train = train_path(dev)
+    protocol = protocol_path(dev)
 
     def path_launches(path, name):
         return sum(e["launches"][name] for e in path["epochs"].values())
 
     main_dil = dil[0]
+    on_protocol = protocol["launches"]
     conv_paths = {"serving": serving["launches"]["fused_conv3x3_bn_relu"],
                   "robust_unet_eval": path_launches(robust, "fused_conv3x3_bn_relu"),
                   "segnet_eval": path_launches(segnet, "fused_conv3x3_bn_relu"),
-                  "unet_train_validate": train["fused_conv_launches"]["validate"]}
+                  "unet_train_validate": train["fused_conv_launches"]["validate"],
+                  "protocol": on_protocol["fused_conv3x3_bn_relu"]}
     kernels = [
         dict(name="fused_conv3x3_bn_relu", route="cuda",
              source="coastline_torch/csrc/fused_conv3x3_bn_relu.cu",
@@ -1223,7 +1549,9 @@ def main(argv=None) -> int:
              tflops=conv["tflops"], shape=conv["shape"]),
         dict(name="dilate_disk", route="cuda", source="coastline_torch/csrc/dilate_disk.cu",
              replaces="coastline/pallas/morphology.py:262",
-             launches=serving["launches"]["dilate_disk"],
+             launches=serving["launches"]["dilate_disk"] + on_protocol["dilate_disk"],
+             launches_by_path={"serving": serving["launches"]["dilate_disk"],
+                               "protocol": on_protocol["dilate_disk"]},
              max_abs_err=max(c["max_abs_err"] for c in dil), ms=main_dil["ms"],
              plain_ms=main_dil["plain_ms"], bound_ms=main_dil["bound_ms"],
              bound_by=main_dil["bound_by"], library_ms=main_dil["library_ms"],
@@ -1237,8 +1565,11 @@ def main(argv=None) -> int:
             ("gated_spatial_stats", "gated_spatial_stats.cu", "coastline/pallas/cbam.py:213"),
             ("cbam_tail", "cbam_tail.cu", "coastline/pallas/cbam.py:328")):
         t = cbam_times[name]
+        by_path = {"robust_unet_eval": path_launches(robust, name), "protocol": on_protocol[name]}
+        if name == "avg_max_pool":  # fused_avg_max_pool launches the same kernel
+            by_path["protocol_fused_avg_max_pool"] = on_protocol["fused_avg_max_pool"]
         entry = dict(name=name, route="cuda", source=f"coastline_torch/csrc/{source}",
-                     replaces=replaces, launches=path_launches(robust, name),
+                     replaces=replaces, launches=sum(by_path.values()), launches_by_path=by_path,
                      max_abs_err=t["max_abs_err"], ms=t["ms"], plain_ms=t["plain_ms"],
                      bound_ms=t["bound_ms"], bound_by=t["bound_by"],
                      library_ms=t["library_ms"], shape=t["shape"], library=t["library"])
@@ -1248,8 +1579,10 @@ def main(argv=None) -> int:
     for name, replaces in (("max_pool_with_indices", "coastline/pallas/unpool.py:67"),
                            ("max_unpool", "coastline/pallas/unpool.py:94")):
         t = unpool_times[name]
+        by_path = {"segnet_eval": path_launches(segnet, name), "protocol": on_protocol[name]}
         kernels.append(dict(name=name, route="cuda", source="coastline_torch/csrc/unpool.cu",
-                            replaces=replaces, launches=path_launches(segnet, name),
+                            replaces=replaces, launches=sum(by_path.values()),
+                            launches_by_path=by_path,
                             max_abs_err=t["max_abs_err"], ms=t["ms"], plain_ms=t["plain_ms"],
                             bound_ms=t["bound_ms"], bound_by=t["bound_by"],
                             library_ms=t["library_ms"], shape=t["shape"], library=t["library"]))
@@ -1259,7 +1592,7 @@ def main(argv=None) -> int:
             json.dump(dict(card=card, build_s=build_s, kernels=kernels, logits=logits,
                            serving=serving, cbam_cases=cbam_cases, residual_block=block,
                            robust_unet=robust, unpool_cases=unpool_cases, segnet=segnet,
-                           unet_train=train),
+                           unet_train=train, protocol=protocol),
                       f, indent=1)
     log(json.dumps({"kernels": kernels}))
     log(card)

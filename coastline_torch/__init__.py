@@ -1,5 +1,6 @@
 """PyTorch/CUDA port of coastline: the serving path, the Robust U-Net's and
-SegNet's evaluation epochs and the production trainer.
+SegNet's evaluation epochs, the production trainer and the comparison
+protocol (`cli/bench_all.py`, `train/loop.py::Evaluator`).
 
 `coastline/` (JAX) is the frozen reference; this package computes the same
 functions with PyTorch on an NVIDIA H100, and its TPU (Pallas) kernels are

@@ -122,7 +122,7 @@ def load_image_rgb(path: str, fallback_size=(512, 512)):
         raise NotImplementedError(f"{path}: the GeoTIFF intake is not ported yet")
     try:
         return Image.open(path).convert("RGB")
-    except OSError:
+    except Exception:  # any unreadable file, PIL's DecompressionBombError too, as the reference
         return Image.new("RGB", fallback_size, (128, 128, 128))
 
 
@@ -180,3 +180,20 @@ def build_dataset(image_paths: Sequence[str], label_paths: Sequence[str],
     pairs = [load_pair(i, l, image_size) for i, l in zip(image_paths, label_paths)]
     return make_dataset(np.stack([p[0] for p in pairs]), np.stack([p[1] for p in pairs]),
                         list(image_paths) if with_paths else None, device=device)
+
+
+def prepare_datasets(images_dir: str, labels_dir: str, image_size: Tuple[int, int] = (512, 512),
+                     split: str = "sequential", device="cuda"):
+    """The comparison protocol's `prepare_dataset` (`Main_Final.py:671-711`;
+    `coastline/data/pipeline.py:238-259`): pair the files, split them 80/20
+    (`sequential_split`, or `seeded_split` for any other `split`), and build
+    the train and val datasets. None when no pair is found."""
+    image_files, label_files = pair_files(images_dir, labels_dir)
+    if not image_files:
+        return None
+    pairs = list(zip(image_files, label_files))
+    train_pairs, val_pairs = (sequential_split(pairs) if split == "sequential"
+                              else seeded_split(pairs))
+    return tuple(build_dataset([p[0] for p in part], [p[1] for p in part], image_size,
+                               device=device)
+                 for part in (train_pairs, val_pairs))

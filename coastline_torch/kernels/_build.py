@@ -18,6 +18,8 @@ import threading
 from pathlib import Path
 from typing import Dict
 
+import torch
+
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "coastline_torch"
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
@@ -80,6 +82,18 @@ def library(name: str) -> ctypes.CDLL:
                 build_all()
             lib = _libs[name] = ctypes.CDLL(str(target))
         return lib
+
+
+def refuse_grad(name: str, *tensors):
+    """Raise if autograd would record a call of kernel `name` on `tensors`:
+    the CUDA kernels have no backward, and a result written through ctypes
+    carries no graph, so the gradients above it would be lost without a
+    word. Call the kernels under `torch.no_grad()`/`torch.inference_mode()`;
+    training takes the plain versions."""
+    if torch.is_grad_enabled() and any(t.requires_grad for t in tensors):
+        raise RuntimeError(
+            f"the CUDA kernel {name} has no backward: call it under torch.no_grad() or "
+            "torch.inference_mode() (train mode takes its plain version)")
 
 
 def check(status: int, what: str):

@@ -108,9 +108,10 @@ def _check(name, t, ndim, dtype=None):
         raise ValueError(f"{name} is empty: {tuple(t.shape)}")
 
 
-def _on_card(*tensors, params=()) -> bool:
+def _on_card(name, *tensors, params=()) -> bool:
     """False for CPU tensors (run the plain version); True for CUDA tensors
-    that the kernel can read; raises otherwise. `params` (weights, copied
+    that kernel `name` can read; raises otherwise, and for a CUDA call that
+    autograd would record (`_build.refuse_grad`). `params` (weights, copied
     into the kernel's layout by the wrapper) need only the device."""
     dev = tensors[0].device
     if any(t.device != dev for t in (*tensors, *params)):
@@ -119,6 +120,7 @@ def _on_card(*tensors, params=()) -> bool:
         return False
     if dev.type != "cuda":
         raise ValueError(f"unsupported device {dev}")
+    _build.refuse_grad(name, *tensors, *params)
     for t in tensors:
         if not t.is_contiguous():
             raise ValueError(
@@ -178,7 +180,7 @@ def run_avg_max_pool(x, wrapper):
     the plain version for a CPU tensor, else launches the pool kernel and
     adds one to `wrapper.launches`."""
     _check("x", x, 4)
-    if not _on_card(x):
+    if not _on_card(wrapper.__name__, x):
         return avg_max_pool_plain(x)
     b, h, w, c = x.shape
     vec = _vec(c, x)
@@ -210,7 +212,7 @@ def gated_spatial_stats(x, gate):
     b, h, w, c = x.shape
     if tuple(gate.shape) != (b, c):
         raise ValueError(f"gate must be {(b, c)}, got {tuple(gate.shape)}")
-    if not _on_card(x, gate):
+    if not _on_card("gated_spatial_stats", x, gate):
         return gated_spatial_stats_plain(x, gate)
     out = torch.empty((b, 2, h, w), dtype=x.dtype, device=x.device)
     with torch.cuda.device(x.device):
@@ -237,7 +239,7 @@ def cbam_tail_apply(y, shortcut, gate, stats, w):
         raise ValueError(f"shapes do not fit: y {tuple(y.shape)}, shortcut "
                          f"{tuple(shortcut.shape)}, gate {tuple(gate.shape)}, stats "
                          f"{tuple(stats.shape)}, w {tuple(w.shape)}")
-    if not _on_card(y, shortcut, gate, stats, params=(w,)):
+    if not _on_card("cbam_tail", y, shortcut, gate, stats, params=(w,)):
         return cbam_tail_apply_plain(y, shortcut, gate, stats, w)
     taps = w.to(dt).float().permute(2, 3, 0, 1).contiguous()  # (2, 7, 7) [in][ky][kx]
     out = torch.empty_like(y)

@@ -83,6 +83,7 @@ def fused_conv3x3_bn_relu(x, w, scale, bias, relu: bool = True):
     for t in (w, scale, bias):
         if t.device != x.device:
             raise ValueError("x, w, scale and bias must be on one device")
+    _build.refuse_grad("fused_conv3x3_bn_relu", x, w, scale, bias)
     wmat = pack_weights(w)
     scale = scale.to(torch.float32).contiguous()
     bias = bias.to(torch.float32).contiguous()

@@ -114,6 +114,7 @@ def dilate_disk(mask: torch.Tensor, kernel: np.ndarray) -> torch.Tensor:
         raise ValueError(f"unsupported device {mask.device}")
     if not mask.is_contiguous():
         raise ValueError("mask must be contiguous")
+    _build.refuse_grad("dilate_disk", mask)
     se = np.ascontiguousarray(np.asarray(kernel) != 0, np.uint8)
     desc, (top, bot, left, right) = _descriptor(se.tobytes(), se.shape, str(mask.device))
     n, h, w = (1, *mask.shape) if mask.ndim == 2 else mask.shape

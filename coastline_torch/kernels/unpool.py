@@ -90,7 +90,7 @@ def max_pool_with_indices(x):
     C) in x.dtype, int32 codes), both contiguous NHWC."""
     _check("x", x, 4)
     _check_even(x)
-    if not _on_card(x):
+    if not _on_card("max_pool_with_indices", x):
         return max_pool_with_indices_plain(x)
     b, h, w, c = x.shape
     vals = torch.empty((b, h // 2, w // 2, c), dtype=x.dtype, device=x.device)
@@ -111,7 +111,7 @@ def max_unpool(vals, codes):
     _check("codes", codes, 4, torch.int32)
     if codes.shape != vals.shape:
         raise ValueError(f"codes {tuple(codes.shape)} must match vals {tuple(vals.shape)}")
-    if not _on_card(vals, codes):
+    if not _on_card("max_unpool", vals, codes):
         return max_unpool_plain(vals, codes)
     b, h, w, c = vals.shape
     out = torch.empty((b, 2 * h, 2 * w, c), dtype=vals.dtype, device=vals.device)

@@ -21,10 +21,16 @@ def canonical_name(name: str) -> str:
     return _ALIASES.get(name.lower(), name)
 
 
-def create_model(name: str, **kwargs):
-    """Build a ported model by name or alias; `kwargs` go to its constructor
-    (`n_classes`, `dtype`, and `base` for the Robust U-Net)."""
+def model_class(name: str):
+    """The class of a ported model by name or alias; a KeyError that lists
+    the ported models for any other name (the rest of the JAX zoo too)."""
     canonical = canonical_name(name)
     if canonical not in _REGISTRY:
-        raise KeyError(f"unknown model {name!r}; available: {available_models()}")
-    return _REGISTRY[canonical](**kwargs)
+        raise KeyError(f"unknown model {name!r} (not ported); available: {available_models()}")
+    return _REGISTRY[canonical]
+
+
+def create_model(name: str, **kwargs):
+    """Build a ported model by name or alias; `kwargs` go to its constructor
+    (`n_classes`, `dtype`, and `base` and `remat` for the Robust U-Net)."""
+    return model_class(name)(**kwargs)

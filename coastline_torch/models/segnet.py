@@ -13,7 +13,10 @@ parameters stay float32 and are cast at use, and the logits come back as
 float32. Activations stay channels_last, so the pool and unpool kernels
 (`kernels/unpool.py`, 4 launches each a forward) and, in bf16, the fused conv
 (`enc1` conv 2 and `dec1` conv 0) read their NHWC views without a copy. H and
-W must be multiples of 16. Eval only until the training slice.
+W must be multiples of 16. In train mode no kernel runs: the convs take
+cuDNN and train-mode BN, the pool and unpool their differentiable plain
+formulations (`ops/primitives.py`), as the JAX SegNet differentiates its
+XLA pool and unpool.
 """
 
 import torch
@@ -43,9 +46,9 @@ class SegNet(nn.Module):
         x = x.to(self.dtype).contiguous(memory_format=torch.channels_last)
         codes = []
         for enc in (self.enc1, self.enc2, self.enc3, self.enc4):
-            x, c = max_pool_with_indices(enc(x))
+            x, c = max_pool_with_indices(enc(x), train=self.training)
             codes.append(c)
         for dec in (self.dec4, self.dec3, self.dec2, self.dec1):
-            x = dec(max_unpool(x, codes.pop()))
+            x = dec(max_unpool(x, codes.pop(), train=self.training))
         logits = x.float()
         return logits if return_logits else torch.sigmoid(logits)

@@ -16,11 +16,13 @@ The Robust U-Net's blocks (`ops/blocks.py:30-245`): Dropout2d,
 ChannelAttention, SpatialAttention, AttentionGate, ResidualBlock and
 DilatedBlock, with the reference's state_dict names and the Robust U-Net's
 init: every conv kaiming-normal fan_out, the channel MLP flax `he_normal`.
-They are eval-only until the comparison protocol's training slice (the
-next one): train mode raises. At eval a
-ResidualBlock ends in
-`kernels.cbam.fused_cbam_tail` (three CUDA kernels on the card) for every
-shape; `ResidualBlock.module_tail` keeps the module composition it equals.
+At eval a ResidualBlock ends in `kernels.cbam.fused_cbam_tail` (three CUDA
+kernels on the card) for every shape; in train mode it takes
+`ResidualBlock.module_tail`, the module composition the fused tail equals,
+with `mean`/`amax` pooling in ChannelAttention: the CBAM kernels have no
+backward, and the JAX package's train mode takes its module path too
+(`coastline/ops/blocks.py:105-111,219-221`). Dropout2d draws its masks from
+the generator `set_dropout_generator` hands it (the train state's).
 """
 
 from typing import Optional
@@ -97,26 +99,31 @@ class ConvStack(nn.Sequential):
         return x if len(self) == 3 * self.n_convs else self[-1](x)
 
 
-def _eval_only(module: nn.Module):
-    if module.training:
-        raise NotImplementedError(
-            f"train-mode {type(module).__name__} is not ported yet (the comparison "
-            "protocol's training slice, next); call .eval()")
-
-
 class Dropout2d(nn.Module):
-    """Channel dropout (`blocks.py:30-39`): the identity at eval. Train mode
-    waits for the comparison protocol's training slice, which draws its mask
-    from a torch.Generator; until then it raises."""
+    """Channel dropout (`blocks.py:30-39`): the identity at eval; in train
+    mode one Bernoulli keep-mask per (sample, channel), drawn from
+    `self.generator` (the torch default generator while it is None), and
+    `where(keep, x / (1 - rate), 0)` as flax's Dropout computes it. The
+    masks are not the JAX package's: the random streams differ by design."""
 
     def __init__(self, rate: float):
         super().__init__()
         self.rate = rate
+        self.generator: Optional[torch.Generator] = None
 
     def forward(self, x):
-        if self.rate > 0.0:
-            _eval_only(self)
-        return x
+        if not self.training or self.rate == 0.0:
+            return x
+        keep = torch.rand(x.shape[:2], generator=self.generator, device=x.device) >= self.rate
+        return torch.where(keep[:, :, None, None], x / (1.0 - self.rate), 0.0)
+
+
+def set_dropout_generator(model: nn.Module, generator: Optional[torch.Generator]):
+    """Every Dropout2d of `model` draws from `generator` from now on (the
+    train epoch hands it the train state's, after the augmentation's draws)."""
+    for m in model.modules():
+        if isinstance(m, Dropout2d):
+            m.generator = generator
 
 
 class ChannelAttention(nn.Module):
@@ -124,7 +131,8 @@ class ChannelAttention(nn.Module):
     mlp(max)) over the global average- and max-pooled channels, mlp = two
     bias-free 1x1 convs (`fc.0`, `fc.2`, ratio 16) with a ReLU between,
     drawn from flax's `he_normal` as in the JAX package. At eval the pooling
-    is `kernels.pools.fused_avg_max_pool`."""
+    is `kernels.pools.fused_avg_max_pool`; in train mode `mean` (summed in
+    float32) and `amax`, which autograd differentiates."""
 
     def __init__(self, channels: int, generator=None):
         super().__init__()
@@ -140,8 +148,11 @@ class ChannelAttention(nn.Module):
         return self.fc[0].weight[:, :, 0, 0].t(), self.fc[2].weight[:, :, 0, 0].t()
 
     def forward(self, x):
-        _eval_only(self)
-        avg, mx = fused_avg_max_pool(x.permute(0, 2, 3, 1))
+        if self.training:
+            avg = x.mean((2, 3), dtype=torch.float32).to(x.dtype)
+            mx = x.amax((2, 3))
+        else:
+            avg, mx = fused_avg_max_pool(x.permute(0, 2, 3, 1))
         return x * channel_gate(avg, mx, *self.dense_kernels())[:, :, None, None]
 
 
@@ -190,7 +201,8 @@ class ResidualBlock(nn.Module):
     conv3x3-BN-ReLU-Dropout2d-conv3x3-BN (convs without bias) -> channel
     gate -> spatial gate -> + shortcut -> ReLU. The shortcut is a bias-free
     1x1 conv + BN (`shortcut.0`/`.1`) when the widths differ, else the
-    identity. At eval the tail after bn2 is `fused_cbam_tail`."""
+    identity. At eval the tail after bn2 is `fused_cbam_tail`, in train
+    mode `module_tail`."""
 
     def __init__(self, in_ch: int, out_ch: int, dropout_rate: float = 0.1, generator=None):
         super().__init__()
@@ -217,7 +229,6 @@ class ResidualBlock(nn.Module):
     def fused_tail(self, y, shortcut):
         """The eval tail through `fused_cbam_tail` on the NHWC views;
         returns channels_last NCHW."""
-        _eval_only(self)
         out = fused_cbam_tail(y.permute(0, 2, 3, 1), shortcut.permute(0, 2, 3, 1),
                               *self.ca.dense_kernels(), self.sa.hwio())
         return out.permute(0, 3, 1, 2)
@@ -227,7 +238,8 @@ class ResidualBlock(nn.Module):
         return torch.relu(self.sa(self.ca(y)) + shortcut)
 
     def forward(self, x):
-        return self.fused_tail(*self.body(x))
+        tail = self.module_tail if self.training else self.fused_tail
+        return tail(*self.body(x))
 
 
 class DilatedBlock(nn.Module):

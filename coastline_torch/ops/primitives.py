@@ -92,7 +92,10 @@ class Norm(nn.BatchNorm2d):
     through both as JAX's autodiff takes it, and the running statistics move
     by torch's rule, momentum 0.1 with the unbiased variance (n / (n - 1)).
     This is not `F.batch_norm`, whose two-pass variance and fused backward
-    round differently."""
+    round differently. `update_stats = False` leaves the running statistics
+    as they are (a checkpointed block's recompute, `models/robust_unet.py`)."""
+
+    update_stats = True
 
     def folded(self):
         """(inv, shift) in float32: y = x * inv + shift."""
@@ -106,12 +109,14 @@ class Norm(nn.BatchNorm2d):
             xf = x.float()
             mean = xf.mean((0, 2, 3))
             var = ((xf * xf).mean((0, 2, 3)) - mean * mean).clamp_min(0.0)
-            with torch.no_grad():
-                n = x.numel() // x.shape[1]
-                m = 1.0 - self.momentum  # the JAX package's 0.9: new = m * old + (1 - m) * batch
-                self.running_mean.copy_(m * self.running_mean + (1 - m) * mean)
-                self.running_var.copy_(m * self.running_var + (1 - m) * var * (n / max(n - 1, 1)))
-                self.num_batches_tracked.add_(1)
+            if self.update_stats:
+                with torch.no_grad():
+                    n = x.numel() // x.shape[1]
+                    m = 1.0 - self.momentum  # the JAX package's 0.9: new = m * old + (1 - m) * batch
+                    self.running_mean.copy_(m * self.running_mean + (1 - m) * mean)
+                    self.running_var.copy_(m * self.running_var
+                                           + (1 - m) * var * (n / max(n - 1, 1)))
+                    self.num_batches_tracked.add_(1)
             inv = self.weight * torch.rsqrt(var + self.eps)
             shift = self.bias - mean * inv
         return x * inv.to(x.dtype)[:, None, None] + shift.to(x.dtype)[:, None, None]
@@ -122,21 +127,35 @@ def max_pool(x):
     return F.max_pool2d(x, 2)
 
 
-def max_pool_with_indices(x):
+def max_pool_with_indices(x, train: bool = False):
     """SegNet's 2x2/stride-2 max pool with window codes (`primitives.py:340-356`)
     on NCHW `x` in channels_last memory: (values, int32 codes 0..3), both
-    NCHW views of NHWC tensors. On CUDA it launches
-    `kernels.unpool.max_pool_with_indices` on the NHWC view of `x`."""
-    vals, codes = unpool.max_pool_with_indices(x.permute(0, 2, 3, 1))
+    NCHW views of NHWC tensors.
+
+    At eval, on CUDA, it launches `kernels.unpool.max_pool_with_indices` on
+    the NHWC view of `x`. With `train=True` it takes a differentiable
+    formulation on any device: the values are `amax` over each window,
+    whose gradient splits evenly among equal maxima as `jax.grad` of the
+    JAX package's `xw.max` does (the kernel has no backward), and the codes
+    are the plain version's, outside the graph."""
+    xn = x.permute(0, 2, 3, 1)
+    if not train:
+        vals, codes = unpool.max_pool_with_indices(xn)
+    else:
+        b, h, w, c = xn.shape
+        vals = xn.reshape(b, h // 2, 2, w // 2, 2, c).amax((2, 4))
+        codes = unpool.max_pool_with_indices_plain(xn.detach())[1]
     return vals.permute(0, 3, 1, 2), codes.permute(0, 3, 1, 2)
 
 
-def max_unpool(vals, codes, output_size: Optional[Tuple[int, int]] = None):
+def max_unpool(vals, codes, output_size: Optional[Tuple[int, int]] = None, train: bool = False):
     """Inverse of `max_pool_with_indices` (`primitives.py:359-375`): each value
     at its window position, zeros (carrying the value's sign) elsewhere, NCHW
     in channels_last memory. `output_size` (H, W) crops, then zero-pads, the
-    (2h, 2w) result."""
-    y = unpool.max_unpool(vals.permute(0, 2, 3, 1), codes.permute(0, 2, 3, 1)).permute(0, 3, 1, 2)
+    (2h, 2w) result. At eval, on CUDA, it launches `kernels.unpool.max_unpool`;
+    with `train=True` it runs the plain version, which autograd differentiates."""
+    unpool_fn = unpool.max_unpool_plain if train else unpool.max_unpool
+    y = unpool_fn(vals.permute(0, 2, 3, 1), codes.permute(0, 2, 3, 1)).permute(0, 3, 1, 2)
     if output_size is not None and tuple(y.shape[2:]) != tuple(output_size):
         oh, ow = output_size
         y = y[:, :, :oh, :ow]

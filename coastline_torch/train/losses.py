@@ -2,7 +2,10 @@
 
 Logits are NCHW with the class axis at dim 1, as the port's models return
 them; the JAX package keeps classes last. Both losses work in float32.
+`LOSS_REGISTRY` names them beside the HSV-guided BCE (`train/hsv.py`).
 """
+
+from typing import Callable, Dict
 
 import torch
 
@@ -48,3 +51,16 @@ def per_image_bce(logits, targets):
 def per_image_cross_entropy(logits, targets):
     """(N, K, H, W) logits, (N, H, W) classes -> (N,) mean cross-entropy."""
     return _cross_entropy(logits, targets).flatten(1).mean(1)
+
+
+def _hsv_guided_bce(*args, **kwargs):
+    from coastline_torch.train.hsv import hsv_guided_bce  # hsv imports this module
+
+    return hsv_guided_bce(*args, **kwargs)
+
+
+LOSS_REGISTRY: Dict[str, Callable] = {  # `coastline/train/losses.py:58`, the ported losses
+    "bce": bce_loss,
+    "ce": cross_entropy_loss,
+    "hsv_bce": _hsv_guided_bce,
+}

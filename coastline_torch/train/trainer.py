@@ -79,7 +79,7 @@ def quality_gate_pairs(image_paths, label_paths, min_px: int = 50, verbose=True)
                 shapes = json.load(f).get("shapes", [])
             if not any(str(s.get("label", "")).lower() in WATER_LABELS for s in shapes):
                 continue
-        except (OSError, ValueError, AttributeError, TypeError):  # unreadable image or label
+        except Exception:  # any unreadable image or label (PIL's DecompressionBombError too)
             continue
         kept_i.append(ip)
         kept_l.append(lp)

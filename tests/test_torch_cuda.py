@@ -446,3 +446,80 @@ def test_checkpoint_round_trip_on_card(dev, tmp_path):
     assert back.plateau == state.plateau and back.step == state.step == 1
     assert torch.equal(back.generator.get_state(), state.generator.get_state())
     assert back.generator.device.type == "cuda"
+
+
+def test_segnet_train_gradients_on_card_match_cpu(dev):
+    """`chip_smoke.train_card_vs_cpu` for the full-width SegNet with BCE, as
+    `chip_smoke.protocol_path` runs it (`CARD_VS_CPU`): every parameter
+    holds a gradient on the card (train mode takes the differentiable pool
+    and unpool, not the kernels), and two f32 Adam steps at (2, 64, 64)
+    equal the CPU path's within the JAX package's bounds (BN biases shifted
+    off the ReLU's kink, deterministic mode)."""
+    from chip_smoke import CARD_VS_CPU, train_card_vs_cpu
+    from coastline_torch.models.segnet import SegNet
+
+    init, beta = CARD_VS_CPU["SegNet"]
+    assert init == "ctor"
+    out = train_card_vs_cpu(dev, SegNet().state_dict(), model_fn=SegNet, loss="bce",
+                            label="segnet", beta=beta)
+    assert out["params_without_grad_on_card"] == [] and out["ok"]
+
+
+@pytest.mark.parametrize("name", ["SegNet", "Robust UNet"])
+def test_train_mode_launches_no_kernel(dev, name):
+    """A bf16 train-mode forward and backward launches none of the seven
+    kernels and leaves a gradient on every parameter; back at eval, under
+    inference_mode, the model launches its kernels again."""
+    from chip_smoke import launch_counts, launches_since
+    from coastline_torch.models.registry import create_model
+
+    kw = {"base": 16} if name == "Robust UNet" else {}
+    model = create_model(name, dtype=torch.bfloat16, **kw).to(dev)
+    x = torch.randn(2, 3, 32, 32, device=dev)
+    before = launch_counts()
+    model.train()(x, return_logits=True).float().square().mean().backward()
+    torch.cuda.synchronize()
+    assert not any(launches_since(before).values())
+    assert all(p.grad is not None for p in model.parameters())
+    with torch.inference_mode():
+        model.eval()(x)
+    assert sum(launches_since(before).values()) > 0
+
+
+def test_kernel_wrappers_refuse_autograd(dev):
+    """Each wrapper raises on a CUDA input that requires grad while grad
+    mode is on (the kernels have no backward), and launches under no_grad."""
+    from coastline_torch.infer.morphology import elliptical_kernel
+    from coastline_torch.kernels import unpool
+
+    x = torch.randn(2, 8, 8, 64, device=dev)
+    xb = x.to(torch.bfloat16)
+    gate = torch.rand(2, 64, device=dev)
+    stats = torch.randn(2, 2, 8, 8, device=dev)
+    w7 = torch.randn(7, 7, 2, 1, device=dev)
+    w3 = torch.randn(3, 3, 64, 64, device=dev)
+    ones = torch.ones(64, device=dev)
+    codes = torch.zeros(2, 4, 4, 64, dtype=torch.int32, device=dev)
+    small = x[:, :4, :4].contiguous()
+    calls = {  # name: (input that will require grad, call)
+        "avg_max_pool": (x, cbam.avg_max_pool),
+        "fused_avg_max_pool": (x, fused_avg_max_pool),
+        "gated_spatial_stats": (x, lambda t: cbam.gated_spatial_stats(t, gate)),
+        "cbam_tail": (x, lambda t: cbam.cbam_tail_apply(t, x, gate, stats, w7)),
+        "max_pool_with_indices": (x, unpool.max_pool_with_indices),
+        "max_unpool": (small, lambda t: unpool.max_unpool(t, codes)),
+        "fused_conv3x3_bn_relu": (xb, lambda t: fused_conv3x3_bn_relu(t, w3, ones, ones)),
+        "dilate_disk": (x[..., 0].contiguous(), lambda t: dilate_disk(t, elliptical_kernel(3))),
+    }
+    for name, (src, call) in calls.items():
+        leaf = src.clone().requires_grad_()
+        with pytest.raises(RuntimeError, match=f"{name} has no backward"):
+            call(leaf)
+        with torch.no_grad():
+            call(leaf)
+
+
+def test_dropout2d_on_card(dev):
+    from chip_smoke import dropout_check
+
+    assert dropout_check(dev)["ok"]

@@ -144,7 +144,23 @@ def test_eval_epoch_ce_matches_jax_unet():
 
 
 def test_eval_epoch_rejects_losses_of_the_training_slice():
-    with pytest.raises(NotImplementedError, match="hsv_bce"):
-        make_eval_epoch(RobustUNet(base=16), TrainConfig(loss="hsv_bce"), device="cpu")
+    """Every loss of the JAX loop is ported (`hsv_bce` with the comparison
+    protocol's training); any other name is refused."""
+    make_eval_epoch(RobustUNet(base=16), TrainConfig(loss="hsv_bce"), device="cpu")
     with pytest.raises(ValueError, match="unknown loss"):
         make_eval_epoch(RobustUNet(base=16), TrainConfig(loss="dice"), device="cpu")
+
+
+def test_eval_epoch_hsv_bce_matches_jax_robust_unet():
+    """`hsv_bce` in the eval epoch: each image's BCE plus 0.1 x its HSV
+    consistency against `x_u8 / 255` (`coastline/train/loop.py:248-249`)."""
+    variables = random_robust_unet_variables(seed=3, base=16)
+    model = RobustUNet(base=16)
+    model.load_state_dict(robust_unet_state_dict(variables), strict=True)
+    got = _run_both(JaxRobustUNet(base=16), variables, model, TrainConfig(loss="hsv_bce"))
+    images, masks = _dataset()
+    idx, valid = batch_indices(len(images), 2, shuffle=False, rng=np.random.default_rng(0))
+    bce_loss, bce = make_eval_epoch(model, TrainConfig(), device="cpu")(images, masks, idx, valid)
+    hsv_loss, hsv = make_eval_epoch(model, TrainConfig(loss="hsv_bce"), device="cpu")(
+        images, masks, idx, valid)
+    assert hsv_loss > bce_loss and hsv == bce == got  # the term moves the loss, not the metrics

@@ -45,7 +45,11 @@ def test_port_and_chip_smoke_import_no_jax_and_no_coastline():
               "coastline_torch.train.trainer", "coastline_torch.data.augment",
               "coastline_torch.data.rasterize", "coastline_torch.data.pipeline",
               "coastline_torch.data.synthetic", "coastline_torch.report.trainer_viz",
-              "coastline_torch.cli.train"):
+              "coastline_torch.cli.train", "coastline_torch.cli.bench_all",
+              "coastline_torch.train.hsv", "coastline_torch.utils.metrics_log",
+              "coastline_torch.utils.tables", "coastline_torch.utils.profiling",
+              "coastline_torch.report.curves", "coastline_torch.report.comparison",
+              "coastline_torch.report.error_maps"):
         assert m in report["modules"]
 
 
@@ -60,6 +64,8 @@ def _entry_points():
     from coastline_torch.train.loop import (TrainConfig, create_train_state, make_eval_epoch,
                                             make_train_epoch)
     from coastline_torch.train.trainer import WaterSegmentationTrainer
+    from coastline_torch.cli.bench_all import main as bench_all_cli
+    from coastline_torch.train.loop import Evaluator
 
     mask = np.zeros((8, 8), np.uint8)
     return {
@@ -74,12 +80,15 @@ def _entry_points():
         "train_cli": lambda: train_cli(["--synthetic", "2", "--epochs", "1"]),
         "make_dataset": lambda: make_dataset(np.zeros((1, 8, 8, 3), np.uint8),
                                              np.zeros((1, 8, 8), np.uint8)),
+        "evaluator": lambda: Evaluator(SegNet(), TrainConfig()),
+        "bench_all_cli": lambda: bench_all_cli(["--synthetic", "2", "--models", "SegNet"]),
     }
 
 
 @pytest.mark.parametrize("name", ["extractor", "coastline_band", "dilate", "make_eval_epoch",
                                   "segnet_eval_epoch", "make_train_epoch", "create_train_state",
-                                  "trainer", "train_cli", "make_dataset"])
+                                  "trainer", "train_cli", "make_dataset", "evaluator",
+                                  "bench_all_cli"])
 def test_entry_points_raise_without_a_card(name, monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="no CUDA device"):

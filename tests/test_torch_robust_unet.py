@@ -26,6 +26,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+from torch import nn
 
 from coastline.models.robust_unet import RobustUNet as JaxRobustUNet
 from coastline.ops.blocks import AttentionGate as JaxAttentionGate
@@ -198,13 +199,65 @@ def test_dilated_block_f32_matches_jax(small_variables):
     np.testing.assert_allclose(_nhwc(got), ref, **F32)
 
 
-def test_blocks_are_eval_only():
-    block = ResidualBlock(16, 16)
-    with pytest.raises(NotImplementedError):
-        block.train()(torch.zeros(1, 16, 4, 4))
-    with pytest.raises(NotImplementedError, match="training slice"):
-        blocks.Dropout2d(0.1).train()(torch.zeros(1, 8, 4, 4))
-    assert blocks.Dropout2d(0.0).train()(torch.ones(1)) == 1
+def test_blocks_are_eval_only(small_variables):
+    """The blocks' train mode: `ResidualBlock.train()` (module tail,
+    mean/amax channel pooling, batch-statistics BN) against the JAX block
+    with dropout off, on its output, the updated BN statistics and the
+    input and parameter gradients (float32 bounds; the gradients within
+    1e-4 of each tensor's largest); then `Dropout2d`'s masks."""
+    v = {c: small_variables[c]["ResidualBlock_8"] for c in ("params", "batch_stats")}
+    rng = np.random.default_rng(7)
+    x = rng.normal(size=(2, 16, 16, 32)).astype(np.float32)
+    r = rng.normal(size=(2, 16, 16, 16)).astype(np.float32)
+
+    def loss(params, x):
+        y, upd = JaxResidualBlock(16, 0.0, conv_init="kaiming_out").apply(
+            {"params": params, "batch_stats": v["batch_stats"]}, x, train=True,
+            mutable=["batch_stats"])
+        return (y * r).sum(), (y, upd["batch_stats"])
+
+    (_, (ref_y, ref_stats)), (ref_gp, ref_gx) = jax.value_and_grad(
+        loss, argnums=(0, 1), has_aux=True)(v["params"], jnp.asarray(x))
+    block = ResidualBlock(32, 16, dropout_rate=0.0)
+    block.load_state_dict(_block_state(small_variables, "dec1"), strict=True)
+    xt = _nchw(x).contiguous(memory_format=torch.channels_last).requires_grad_()
+    y = block.train()(xt)
+    (y * _nchw(r)).sum().backward()
+    np.testing.assert_allclose(_nhwc(y.detach()), np.asarray(ref_y), **F32)
+    want_stats = jax_export_reference_robust_unet(
+        {"params": small_variables["params"],
+         "batch_stats": {**small_variables["batch_stats"], "ResidualBlock_8": ref_stats}})
+    for k, t in block.state_dict().items():
+        if ".running_" in k:
+            np.testing.assert_allclose(t.numpy(), want_stats[f"dec1.{k}"], atol=2e-5, rtol=2e-4,
+                                       err_msg=k)
+    gx = np.asarray(ref_gx)
+    np.testing.assert_allclose(_nhwc(xt.grad), gx, atol=1e-4 * np.abs(gx).max(), rtol=0)
+    want_grads = jax_export_reference_robust_unet(
+        {"params": {**small_variables["params"], "ResidualBlock_8": jax.device_get(ref_gp)},
+         "batch_stats": small_variables["batch_stats"]})
+    for k, p in block.named_parameters():
+        g = want_grads[f"dec1.{k}"]
+        np.testing.assert_allclose(p.grad.numpy(), g, atol=1e-4 * np.abs(g).max(), rtol=0,
+                                   err_msg=k)
+
+    # Dropout2d: whole (sample, channel) maps kept with probability 1 - p and
+    # scaled by 1 / (1 - p), drawn from the generator it is handed
+    p, shape = 0.3, (64, 256, 3, 5)
+    x = torch.rand(shape, generator=torch.Generator().manual_seed(1)) + 0.5
+    drop = blocks.Dropout2d(p)
+    gen = torch.Generator().manual_seed(2)
+    blocks.set_dropout_generator(nn.Sequential(drop), gen)
+    y = drop.train()(x)
+    kept = y.flatten(2).ne(0).all(2)
+    assert torch.equal(kept, y.flatten(2).ne(0).any(2))  # a map is kept or dropped whole
+    n = kept.numel()
+    assert abs(float(kept.float().mean()) - (1 - p)) <= 4 * np.sqrt(p * (1 - p) / n)
+    assert torch.equal(y[kept], (x / (1 - p))[kept])
+    gen.manual_seed(2)
+    assert torch.equal(drop(x), y)  # the masks are a function of the generator
+    assert torch.equal(drop.eval()(x), x)
+    assert torch.equal(blocks.Dropout2d(0.0).train()(x), x)
 
 
 def test_registry_names_aliases_and_unknown():

@@ -105,9 +105,9 @@ def test_f32_logits_match_jax(variables, model_f32, monkeypatch, shape):
                                    capture_intermediates=True)
     pooled = []
 
-    def spy(t):
+    def spy(t, **kw):
         pooled.append(_nhwc(t))
-        return segnet_pool(t)
+        return segnet_pool(t, **kw)
 
     segnet_pool = segnet_module.max_pool_with_indices
     monkeypatch.setattr(segnet_module, "max_pool_with_indices", spy)

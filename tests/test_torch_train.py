@@ -283,6 +283,33 @@ def test_file_pipeline_matches_jax(tmp_path):
         pipeline.load_image_rgb(str(tif))
 
 
+def test_loaders_catch_what_the_jax_package_catches(tmp_path, monkeypatch):
+    """PIL's DecompressionBombError (not an OSError) on a 64^2 PNG under
+    `Image.MAX_IMAGE_PIXELS = 1000` (restored afterwards): both packages
+    load the grey fallback and drop the pair from the quality gate."""
+    from PIL import Image
+
+    from coastline.train import trainer as jax_trainer
+    from coastline_torch.train import trainer
+
+    image = tmp_path / "bomb.png"
+    Image.fromarray(np.full((64, 64, 3), 30, np.uint8)).save(image)
+    label = tmp_path / "bomb.json"
+    label.write_text(json.dumps({"shapes": [{"label": "water", "points": [[0, 0], [60, 0],
+                                                                           [60, 60]]}]}))
+    monkeypatch.setattr(Image, "MAX_IMAGE_PIXELS", 1000)
+    with pytest.raises(Image.DecompressionBombError):
+        Image.open(image)
+    got = np.asarray(pipeline.load_image_rgb(str(image)))
+    np.testing.assert_array_equal(got, np.asarray(jax_pipeline.load_image_rgb(str(image))))
+    assert got.shape == (512, 512, 3) and np.all(got == 128)
+    args = ([str(image)], [str(label)])
+    assert (trainer.quality_gate_pairs(*args, verbose=False) ==
+            jax_trainer.quality_gate_pairs(*args, verbose=False) == ([], []))
+    monkeypatch.undo()
+    assert trainer.quality_gate_pairs(*args, verbose=False) == ([str(image)], [str(label)])
+
+
 def test_synthetic_arrays_match_jax():
     for a, b in zip(synthetic.synthetic_dataset_arrays(3, 48, seed=5),
                     jax_synthetic.synthetic_dataset_arrays(3, 48, seed=5)):
