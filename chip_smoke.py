@@ -11,9 +11,12 @@ Needs one NVIDIA H100 and the CUDA toolkit; builds the kernels from
   3. hold each kernel against its plain PyTorch version at its paths'
      shapes and time kernel, plain version and a library yardstick with
      CUDA events: the fused conv (with and without ReLU, at the serving
-     shape and eight ragged ones), the dilation, the
-     three CBAM kernels (pool, gated stats, tail) at the five Robust U-Net
-     level shapes, (2, 4, 4, 1024) and an odd shape, and SegNet's indexed
+     shape and eight ragged ones, and at HRNet-Water's stem shape
+     (8, 256, 256, 64) with a conv bias folded into its BN), the dilation,
+     the three CBAM kernels (pool, gated stats, tail) at the five Robust
+     U-Net level shapes (the fourth, (8, 64, 64, 512), also WaterNet's
+     bottleneck, where `fused_avg_max_pool` runs), (2, 4, 4, 1024) and an
+     odd shape, and SegNet's indexed
      pool and unpool at its four levels and an odd shape, on inputs full of
      ties (ReLU zeros, equal pairs, +0/-0, NaN and inf), bit for bit, in
      bf16 and f32;
@@ -42,7 +45,15 @@ Needs one NVIDIA H100 and the CUDA toolkit; builds the kernels from
      `make_eval_epoch` in bf16 and f32 with 4 pool, 4 unpool and, in bf16,
      2 fused-conv launches a forward; losses and mean metrics within 5e-3,
      masks on 85% of pixels (`segnet_path` says why);
-  8. the production training path at full width: the 2-class UNet (random
+  8. the zoo's nine other models the same way (`zoo_path`): DeepLabV3+,
+     YOLO-SEG, PSPNet, Fast-SCNN, ENet, WaterNet, MSWNet, HRNet-Water and
+     SegFormer-Lite at full width (exact parameter counts; their seeded
+     init with BN statistics drawn from a forward, `zoo_state_dict`), f32
+     logits against the CPU path on every logit, bf16 at the UNet's limits,
+     `make_eval_epoch` in bf16 and f32 with the fused conv launched twice
+     (WaterNet) or once (HRNet-Water) a bf16 forward and nowhere else, and
+     `fused_avg_max_pool` once a WaterNet forward;
+  9. the production training path at full width: the 2-class UNet (random
      weights from a numpy seed, through the weight bridge) trained by
      `WaterSegmentationTrainer` for 3 epochs over 32 synthetic 512^2 tiles
      at batch 8 in bf16 with augmentation, validating on 8 tiles after each
@@ -55,21 +66,24 @@ Needs one NVIDIA H100 and the CUDA toolkit; builds the kernels from
      epoch resume against 3 straight epochs under
      `torch.use_deterministic_algorithms(True)`, step times in bf16 and f32,
      epoch rates, peak memory and a profile of one bf16 train step;
-  9. the comparison protocol (`protocol_path`): `cli/bench_all.main` trains
-     and evaluates the full-width Robust U-Net and SegNet (random init from
-     their constructors' seeds) for 2 bf16 epochs over 16 synthetic 512^2
-     tiles at batch 2, validating on 4, and times them at batch 2 and 64;
-     the parameter counts must equal `baselines/reference_param_counts.json`,
-     the train loss must fall, every bf16 eval forward must launch 9/9/9
-     CBAM kernels and 2 fused convs (Robust U-Net) or 4/4 pool/unpool and 2
-     fused convs (SegNet), and no train step any kernel. Then two f32 Adam
-     steps of each model at (2, 64, 64) on the card against the CPU path
-     (every parameter with a gradient on the card), batch-8 bf16 train
-     steps at 512^2 (SegNet, and the Robust U-Net under each `remat`
-     flavor) with peak memory and profiles, the `remat` flavors bit-equal
-     after one deterministic step with dropout on, and Dropout2d's mask
-     statistics on the card;
-  10. a `kernels` JSON line, the card line and the last line:
+  10. the comparison protocol (`protocol_path`): `cli/bench_all.main` with
+     no `--models` trains and evaluates the default list of eleven models
+     at full width (random init from their constructors' seeds) for 2 bf16
+     epochs over 16 synthetic 512^2 tiles at batch 2, validating on 4, and
+     times them at batch 2 and 64; the parameter counts must equal
+     `baselines/reference_param_counts.json`, every train loss must fall,
+     every bf16 eval forward must launch its model's kernels (`PROTOCOL_WANT`:
+     9/9/9 CBAM kernels and 2 fused convs in the Robust U-Net, 4/4
+     pool/unpool and 2 fused convs in SegNet, 2 fused convs and one
+     `fused_avg_max_pool` in WaterNet, 1 fused conv in HRNet-Water, none in
+     the rest), and no train step any kernel. Then two f32 Adam steps of
+     each model at (2, 64, 64) on the card against the CPU path
+     (`CARD_VS_CPU`; every parameter with a gradient on the card), batch-8
+     bf16 train steps at 512^2 (every model, the Robust U-Net under each
+     `remat` flavor) with peak memory and profiles, the `remat` flavors
+     bit-equal after one deterministic step with dropout on, and
+     Dropout2d's mask statistics on the card;
+  11. a `kernels` JSON line, the card line and the last line:
      {"ok": true, "device": {...}}.
 
 Float32 convolutions run with cuDNN's TF32 off, so every float32 number
@@ -98,9 +112,9 @@ from coastline_torch.kernels.fused_conv import (fused_conv3x3_bn_relu,
 from coastline_torch.kernels.morphology import dilate_disk, dilate_disk_plain, se_row_groups
 from coastline_torch.kernels.pools import fused_avg_max_pool
 from coastline_torch.models import segnet as segnet_module
-from coastline_torch.models.registry import create_model
-from coastline_torch.ops.blocks import Dropout2d, ResidualBlock
-from coastline_torch.ops.primitives import Conv, ConvTranspose
+from coastline_torch.models.registry import create_model, model_class
+from coastline_torch.ops.blocks import Dropout2d, ResidualBlock, fold_bn
+from coastline_torch.ops.primitives import Conv, ConvTranspose, Norm
 from coastline_torch.data.augment import make_augment_fn
 from coastline_torch.data.pipeline import DeviceDataset
 from coastline_torch.models.unet import UNet
@@ -122,11 +136,16 @@ PEAK_F32_OPS = 67e12  # non-tensor float32 rate; integer/float max runs on the s
 UNET_PARAMS = 31_043_586
 ROBUST_UNET_PARAMS = 40_872_223
 SEGNET_PARAMS = 15_278_593
+# the zoo's other nine models, the comparison protocol's baselines, in the default list's order
+ZOO_MODELS = ("DeepLabV3+", "YOLO-SEG", "PSPNet", "Fast-SCNN", "ENet", "WaterNet", "MSWNet",
+              "HRNet-Water", "SegFormer-Lite")
 CONV_SHAPE = (8, 512, 512, 64)
+HRNET_STEM_SHAPE = (8, 256, 256, 64)  # HRNet-Water's second stem conv at batch 8, 512^2
 # widths off the 64-pixel tile, one row, one column, one pixel, batch 1, a straddling tile
 RAGGED_CONV_SHAPES = [(1, 9, 65, 64), (2, 5, 127, 64), (1, 6, 130, 64), (2, 1, 70, 64),
                       (2, 33, 1, 64), (1, 1, 1, 64), (1, 512, 512, 64), (2, 67, 200, 64)]
 # the Robust U-Net's ResidualBlock outputs at batch 8, 512^2: the CBAM kernels' shapes
+# ((8, 64, 64, 512) is also WaterNet's bottleneck, where fused_avg_max_pool runs)
 LEVEL_SHAPES = [(8, 512, 512, 64), (8, 256, 256, 128), (8, 128, 128, 256),
                 (8, 64, 64, 512), (8, 32, 32, 1024)]
 CBAM_SHAPES = LEVEL_SHAPES + [(2, 4, 4, 1024), (3, 37, 53, 48)]
@@ -142,6 +161,11 @@ UNPOOL_SHAPES = [(8, 32, 32, 512), (8, 64, 64, 256), (8, 128, 128, 128), (8, 256
 
 def log(*args):
     print(*args, flush=True)
+
+
+def label(name: str) -> str:
+    """A registry name as a log label: "Robust UNet" -> robust_unet, "DeepLabV3+" -> deeplabv3p."""
+    return name.lower().replace(" ", "_").replace("-", "_").replace("+", "p")
 
 
 def cuda_ms(fn, iters: int, warmup: int = 2) -> float:
@@ -214,6 +238,27 @@ def check_fused_conv(dev, rng):
             ok = ok and bool(torch.all(err <= 2.0 ** -7 * ref.abs() + 1e-3))
             errs[f"{'x'.join(map(str, shape))}_relu_{relu}"] = float(err.max())
             del got, ref, err
+    # HRNet-Water's second stem conv: a 64 -> 64 conv with bias and its BN,
+    # folded as `conv_bn` folds them, at its shape
+    gen = torch.Generator().manual_seed(4)
+    conv, norm = Conv(64, 64, 3, padding=1, generator=gen), Norm(64)
+    with torch.no_grad():
+        norm.weight.uniform_(0.8, 1.2, generator=gen)
+        norm.bias.normal_(0.0, 0.1, generator=gen)
+        norm.running_mean.normal_(0.0, 0.1, generator=gen)
+        norm.running_var.uniform_(0.5, 1.5, generator=gen)
+        stem = tuple(t.to(dev) for t in fold_bn(conv, norm.eval()))
+    xh = x[:, :HRNET_STEM_SHAPE[1], :HRNET_STEM_SHAPE[2]].contiguous()
+    got = fused_conv3x3_bn_relu(xh, *stem).float()
+    torch.cuda.synchronize()
+    ref = fused_conv3x3_bn_relu_plain(xh, *stem).float()
+    err = (got - ref).abs()
+    ok = ok and bool(torch.all(err <= 2.0 ** -7 * ref.abs() + 1e-3))
+    errs["x".join(map(str, HRNET_STEM_SHAPE)) + "_hrnet_stem_folded_bias"] = float(err.max())
+    hrnet_ms = cuda_ms(lambda: fused_conv3x3_bn_relu(xh, *stem), 20)
+    hrnet_bound_ms, _ = bound(2 * xh.numel() * 2 + wt.numel() * 2 + 2 * c * 4,
+                              2.0 * xh.numel() * 9 * c, PEAK_BF16_FLOPS)
+    del got, ref, err
     xl = x.permute(0, 3, 1, 2)  # channels_last view
     wl = wt.permute(3, 2, 0, 1).to(torch.bfloat16).contiguous(memory_format=torch.channels_last)
     s16, b16 = scale.to(torch.bfloat16)[:, None, None], bias.to(torch.bfloat16)[:, None, None]
@@ -227,7 +272,8 @@ def check_fused_conv(dev, rng):
     result = dict(max_abs_err=max(errs.values()), max_abs_err_by_case=errs, ms=ms,
                   device_ms=dev_ms, plain_ms=plain_ms, library_ms=library_ms, bound_ms=bound_ms,
                   bound_by=bound_by, share_of_bound=bound_ms / dev_ms, shape=list(CONV_SHAPE),
-                  tflops=flops / dev_ms / 1e9,
+                  tflops=flops / dev_ms / 1e9, hrnet_stem_ms=hrnet_ms,
+                  hrnet_stem_bound_ms=hrnet_bound_ms,
                   library="channels_last F.conv2d bf16 (cuDNN) + bf16 scale/bias/ReLU")
     log("fused_conv3x3_bn_relu", json.dumps(result))
     if not ok:
@@ -635,6 +681,8 @@ _KERNEL_CLASSES = (  # (class, substrings of the CUDA kernel name), first match 
     ("concat", ("CatArray",)),
     ("max pool", ("max_pool",)),
     ("argmax / softmax", ("reduce", "softmax", "argmax")),
+    ("bilinear resize", ("upsample_bilinear",)),
+    ("depthwise conv (cuDNN)", ("conv2d_c1_k1", "depthwise")),
     ("cuDNN conv and transposed conv", ("conv", "xmma", "gemm", "cudnn", "sm90", "cutlass",
                                         "nhwc", "nchw", "dgrad", "fprop", "implicit")),
     ("cuBLAS GEMM (nvjet)", ("nvjet",)),
@@ -701,7 +749,7 @@ def logits_vs_cpu(model_name, sd, dev, limits):
         out[name] = dict(max_abs_err=float(err.max()), logit_std=std, tolerance=tol,
                          within=float((err <= tol).float().mean()),
                          mask_agree=float(((got > 0) == (ref > 0)).float().mean()))
-    log(f"{model_name.lower().replace(' ', '_')}_logits_vs_cpu", json.dumps(out))
+    log(f"{label(model_name)}_logits_vs_cpu", json.dumps(out))
     for name, (min_within, min_agree) in limits.items():
         if out[name]["within"] < min_within or out[name]["mask_agree"] < min_agree:
             raise AssertionError(f"{name} {model_name} logits disagree with the CPU path: {out}")
@@ -734,7 +782,7 @@ def eval_path(model_name, sd, dev, n_params, counters, want, limits, min_mask_ag
     `make_eval_epoch` over synthetic tiles in bf16 and f32. `want(dtype)`
     gives each counter's launches a forward; the bf16 and f32 epochs' masks
     must agree on `min_mask_agree` of the pixels, and their losses and mean
-    metrics within `max_gap`."""
+    metrics within `max_gap` (None: reported only)."""
     logits = logits_vs_cpu(model_name, sd, dev, limits)
     rng = np.random.default_rng(2)
     images = rng.integers(0, 256, (n_images, size, size, 3), dtype=np.uint8)
@@ -743,7 +791,7 @@ def eval_path(model_name, sd, dev, n_params, counters, want, limits, min_mask_ag
                       for i in range(n_images)]).astype(np.int32)
     idx, valid = batch_indices(n_images, batch, shuffle=False, rng=rng)
     x8 = torch.from_numpy(images[:batch]).to(dev)
-    label = model_name.lower().replace(" ", "_")
+    tag = label(model_name)
     result, probs = dict(logits_vs_cpu=logits, epochs={}), {}
     for name, dt in (("bf16", torch.bfloat16), ("f32", torch.float32)):
         model = create_model(model_name, dtype=dt)
@@ -773,11 +821,11 @@ def eval_path(model_name, sd, dev, n_params, counters, want, limits, min_mask_ag
         result["epochs"][name] = dict(loss=loss, metrics=agg, launches=launches, forwards=forwards,
                                       epoch_s=epoch_s, images_per_s=n_images / epoch_s,
                                       forward_b8_ms=fwd_ms)
-        log(f"{label}_eval_epoch_{name}", json.dumps(result["epochs"][name]))
+        log(f"{tag}_eval_epoch_{name}", json.dumps(result["epochs"][name]))
         if dt == torch.bfloat16:
             with torch.inference_mode():
                 result["profile"] = profile_forward(lambda: model(x, return_logits=True),
-                                                    f"profile_{label}_forward_b8_bf16")
+                                                    f"profile_{tag}_forward_b8_bf16")
             flops = conv_flops(model, x)
             result["conv_gflop_b8"] = flops / 1e9
             result["conv_bound_ms_b8"] = flops / PEAK_BF16_FLOPS * 1e3
@@ -791,15 +839,20 @@ def eval_path(model_name, sd, dev, n_params, counters, want, limits, min_mask_ag
     gaps.update((k, abs(e16["metrics"][k] - e32["metrics"][k]))
                 for k in e32["metrics"] if k.startswith("mean_"))
     result["bf16_vs_f32_gaps"] = gaps
-    log(f"{label}_path", json.dumps({k: v for k, v in result.items()
+    log(f"{tag}_path", json.dumps({k: v for k, v in result.items()
                                      if k not in ("profile", "epochs", "logits_vs_cpu")}))
     if agree < min_mask_agree:
         raise AssertionError(f"bf16 masks agree with f32 on only {agree:.4f} of pixels")
-    if max(gaps.values()) > max_gap:
+    if max_gap is not None and max(gaps.values()) > max_gap:
         raise AssertionError(f"bf16 and f32 epochs disagree: {gaps}")
     return result
 
 
+ALL_COUNTERS = {"fused_conv3x3_bn_relu": fused_conv3x3_bn_relu, "dilate_disk": dilate_disk,
+                "avg_max_pool": cbam.avg_max_pool, "fused_avg_max_pool": fused_avg_max_pool,
+                "gated_spatial_stats": cbam.gated_spatial_stats, "cbam_tail": cbam.cbam_tail_apply,
+                "max_pool_with_indices": unpool.max_pool_with_indices,
+                "max_unpool": unpool.max_unpool}
 ROBUST_COUNTERS = {"avg_max_pool": cbam.avg_max_pool, "gated_spatial_stats": cbam.gated_spatial_stats,
                    "cbam_tail": cbam.cbam_tail_apply, "fused_conv3x3_bn_relu": fused_conv3x3_bn_relu,
                    "fused_avg_max_pool": fused_avg_max_pool}
@@ -873,6 +926,43 @@ def segnet_path(dev, **kw):
         limits={"f32": (0.999, 0.995), "bf16": (0.4, 0.9)}, min_mask_agree=0.85, **kw)
     result["code_flips_vs_cpu"] = segnet_code_flips(sd, dev)
     return result
+
+
+def zoo_want(name, dt) -> dict:
+    """Each kernel's launches a forward of zoo model `name` in dtype `dt`:
+    the fused conv twice in WaterNet (`enc1`/`dec1` conv 2) and once in
+    HRNet-Water (stem conv 2), in bf16 only; `fused_avg_max_pool` once in
+    WaterNet (its bottleneck's ChannelAttention); every other kernel never."""
+    want = dict.fromkeys(ALL_COUNTERS, 0)
+    if dt == torch.bfloat16:
+        want["fused_conv3x3_bn_relu"] = {"WaterNet": 2, "HRNet-Water": 1}.get(name, 0)
+    want["fused_avg_max_pool"] = int(name == "WaterNet")
+    return want
+
+
+def zoo_path(dev, models=ZOO_MODELS, **kw):
+    """The eval path of each of the nine zoo models at full width
+    (`eval_path`: `create_model`, weights from `zoo_state_dict`, the exact
+    parameter count, then `make_eval_epoch` over 16 tiles of 512^2 at batch
+    8 in bf16 and f32, launches a forward as `zoo_want` says, a profile of
+    the bf16 forward), at the UNet's limits: float32 logits within 1e-3 x
+    max(1, std) of the CPU path on every logit, bf16 ones within 0.1 std
+    with 95% of the masks agreeing, and the bf16 and f32 epochs' masks on 95%
+    of the pixels. Their losses and mean metrics are reported, not bound:
+    the random weights' predictions make them a measure of the weights
+    (ENet's logits have a std near 15, whose bf16 rounding moves the BCE
+    by 0.2%; Fast-SCNN's masks are 1% water, whose precision a few
+    thousand pixels move; PERF.md)."""
+    with open(os.path.join(REPO, "baselines", "reference_param_counts.json")) as f:
+        counts = json.load(f)
+    out = {}
+    for name in models:
+        out[name] = eval_path(name, zoo_state_dict(name), dev, counts[PARAM_COUNT_KEYS[name]],
+                              ALL_COUNTERS, lambda dt, n=name: zoo_want(n, dt),
+                              limits={"f32": (1.0, 0.0), "bf16": (1.0, 0.95)},
+                              min_mask_agree=0.95, max_gap=None, **kw)
+        torch.cuda.empty_cache()
+    return out
 
 
 TRAIN_SIZE, TRAIN_BATCH, TRAIN_TILES, VAL_TILES, TRAIN_EPOCHS = 512, 8, 32, 8, 3
@@ -976,9 +1066,46 @@ def shift_bn(sd, beta=6.0):
             k[:-len("bias")] + "running_mean" in sd else v for k, v in sd.items()}
 
 
+def zoo_state_dict(name, seed=0, size=64, batch=2):
+    """Random weights for a zoo model at full width: its constructor's
+    seeded init, each BN's running statistics taken from one train-mode
+    forward of a seeded N(0, 1) input at (batch, 3, size, size) with dropout
+    off (the batch statistics, so every layer's activations keep about unit
+    scale, as a trained model's do), then drawn away from them: mean +
+    N(0, 0.1) x std, var x U(0.5, 1.5); BN affines U(0.8, 1.2) and
+    N(0, 0.1). A wrong fold, epsilon or statistic then shows in the logits."""
+    model = create_model(name)
+    norms = [m for m in model.modules() if isinstance(m, torch.nn.BatchNorm2d)]
+    for m in norms:
+        m.momentum = 1.0  # the running statistics become the batch's
+    model.train()
+    for m in model.modules():
+        if isinstance(m, Dropout2d):
+            m.eval()
+    x = torch.from_numpy(np.random.default_rng(seed).standard_normal(
+        (batch, 3, size, size), np.float32))
+    with torch.no_grad():
+        model(x)
+    rng = np.random.default_rng(seed + 1)
+    sd = {k: v.clone() for k, v in model.state_dict().items()}
+    for k in sd:
+        if k.endswith(".running_mean"):
+            p, c = k[:-len("running_mean")], sd[k].numel()
+
+            def draw(fn, *a):
+                return torch.from_numpy(fn(*a, c).astype(np.float32))
+
+            sd[p + "running_mean"] += draw(rng.normal, 0.0, 0.1) * sd[p + "running_var"].sqrt()
+            sd[p + "running_var"] *= draw(rng.uniform, 0.5, 1.5)
+            sd[p + "weight"] = draw(rng.uniform, 0.8, 1.2)
+            sd[p + "bias"] = draw(rng.normal, 0.0, 0.1)
+            sd[p + "num_batches_tracked"].zero_()
+    return sd
+
+
 def train_card_vs_cpu(dev, sd, size=64, model_fn=UNet, loss="ce", label="unet", beta=6.0,
-                      seed=3):
-    """One `make_train_epoch` of 2 Adam steps at (2, size, size) a batch,
+                      seed=3, batch=2):
+    """One `make_train_epoch` of 2 Adam steps at (batch, size, size) a batch,
     f32, wd 0.1, lr 1e-4, no augmentation, on the card and on the CPU path
     from the same weights and batches (cuDNN TF32 off), for the model
     `model_fn()` makes (its dropout off) with `loss`. The JAX package's
@@ -1001,10 +1128,11 @@ def train_card_vs_cpu(dev, sd, size=64, model_fn=UNet, loss="ce", label="unet", 
     mode, one sum order from run to run."""
     sd = shift_bn(sd, beta)
     rng = np.random.default_rng(seed)
-    images = rng.integers(0, 256, (4, size, size, 3), dtype=np.uint8)
-    masks = (rng.random((4, size, size)) > 0.5).astype(np.uint8)
-    idx, valid = np.array([[0, 1], [2, 3]], np.int32), np.ones((2, 2), np.float32)
-    cfg = TrainConfig(lr=1e-4, weight_decay=0.1, loss=loss, batch_size=2)
+    images = rng.integers(0, 256, (2 * batch, size, size, 3), dtype=np.uint8)
+    masks = (rng.random((2 * batch, size, size)) > 0.5).astype(np.uint8)
+    idx = np.arange(2 * batch, dtype=np.int32).reshape(2, batch)
+    valid = np.ones((2, batch), np.float32)
+    cfg = TrainConfig(lr=1e-4, weight_decay=0.1, loss=loss, batch_size=batch)
     runs = {}
     for d in (torch.device("cpu"), dev):
         model = without_dropout(model_fn())
@@ -1015,7 +1143,7 @@ def train_card_vs_cpu(dev, sd, size=64, model_fn=UNet, loss="ce", label="unet", 
         runs[d.type] = (loss, {k: v.detach().cpu() for k, v in model.state_dict().items()},
                         [n for n, p in model.named_parameters() if p.grad is None])
     (l_cpu, ref, _), (l_dev, got, no_grad) = runs["cpu"], runs[dev.type]
-    out = dict(shape=[2, size, size, 3], steps=2, bn_bias=beta, image_seed=seed,
+    out = dict(shape=[batch, size, size, 3], steps=2, bn_bias=beta, image_seed=seed,
                loss_cpu=l_cpu, loss_card=l_dev,
                loss_rel_err=abs(l_dev - l_cpu) / abs(l_cpu), tensors_out_of_bound={},
                elements_out_of_bound=0, max_abs_err_params=0.0, max_abs_err_bn_stats=0.0,
@@ -1198,19 +1326,20 @@ def train_path(dev, size=TRAIN_SIZE, batch=TRAIN_BATCH, n_train=TRAIN_TILES, n_v
 
 REPO = os.path.dirname(os.path.abspath(__file__))
 PROTOCOL_DIR = os.path.join(REPO, "build", "protocol_path")  # listed in .gitignore
-PROTOCOL_ARGS = ["--synthetic", "20", "--models", "Robust UNet,SegNet", "--epochs", "2",
-                 "--image-size", "512", "--dtype", "bfloat16"]
-ALL_COUNTERS = {"fused_conv3x3_bn_relu": fused_conv3x3_bn_relu, "dilate_disk": dilate_disk,
-                "avg_max_pool": cbam.avg_max_pool, "fused_avg_max_pool": fused_avg_max_pool,
-                "gated_spatial_stats": cbam.gated_spatial_stats, "cbam_tail": cbam.cbam_tail_apply,
-                "max_pool_with_indices": unpool.max_pool_with_indices,
-                "max_unpool": unpool.max_unpool}
+PROTOCOL_ARGS = ["--synthetic", "20", "--epochs", "2", "--image-size", "512",
+                 "--dtype", "bfloat16"]  # no --models: the default list of eleven
 # each kernel's launches a bf16 eval forward of the protocol's models; every other kernel 0
-PROTOCOL_WANT = {"RobustUNet": {"avg_max_pool": 9, "gated_spatial_stats": 9, "cbam_tail": 9,
-                                "fused_conv3x3_bn_relu": 2},
+PROTOCOL_WANT = {"Robust UNet": {"avg_max_pool": 9, "gated_spatial_stats": 9, "cbam_tail": 9,
+                                 "fused_conv3x3_bn_relu": 2},
                  "SegNet": {"max_pool_with_indices": 4, "max_unpool": 4,
                             "fused_conv3x3_bn_relu": 2}}
-PARAM_COUNT_KEYS = {"Robust UNet": "RobustUNet", "SegNet": "SegNet"}
+PROTOCOL_WANT.update((name, {k: n for k, n in zoo_want(name, torch.bfloat16).items() if n})
+                     for name in ZOO_MODELS)
+PARAM_COUNT_KEYS = {"Robust UNet": "RobustUNet", "SegNet": "SegNet", "UNet": "UNet",
+                    "DeepLabV3+": "DeepLabV3Plus", "YOLO-SEG": "YOLOSeg", "PSPNet": "PSPNet",
+                    "Fast-SCNN": "FastSCNN", "ENet": "ENet", "WaterNet": "WaterNet",
+                    "MSWNet": "MSWNet", "HRNet-Water": "HRNetWater",
+                    "SegFormer-Lite": "SegFormerLite"}
 
 
 def launch_counts() -> dict:
@@ -1232,7 +1361,8 @@ class CountingEvaluator(Evaluator):
 
     def __init__(self, model, config, augment_fn=None, device="cuda"):
         super().__init__(model, config, augment_fn, device)
-        self.arch = type(model).__name__
+        self.arch = next(n for n in bench_all.DEFAULT_BENCH_MODELS
+                         if isinstance(model, model_class(n)))
         self.eval_forwards, self.train_epochs, self._before = [], [], None
         model.register_forward_pre_hook(self._pre)
         model.register_forward_hook(self._post)
@@ -1280,8 +1410,8 @@ def protocol_cli(dev):
     result = dict(args=PROTOCOL_ARGS, rc=rc, run_s=run_s, launches=launches, models={})
     accounted = dict.fromkeys(launches, 0)
     for ev in CountingEvaluator.made:
-        name = {"RobustUNet": "Robust UNet", "SegNet": "SegNet"}[ev.arch]
-        want = dict.fromkeys(launches, 0) | PROTOCOL_WANT[ev.arch]
+        name = ev.arch
+        want = dict.fromkeys(launches, 0) | PROTOCOL_WANT[name]
         hist, res = bench["histories"][name], bench["results"][name]
         n_params, n_ref = bench["param_counts"][name], reference_counts[PARAM_COUNT_KEYS[name]]
         bad_forwards = [f for f in ev.eval_forwards if f != want]
@@ -1298,7 +1428,7 @@ def protocol_cli(dev):
             train_epoch_launches=train_launches, epoch_s=[e["s"] for e in ev.train_epochs],
             train_img_per_s_warm=(sum(e["steps"] for e in warm) * ev.config.batch_size
                                   / sum(e["s"] for e in warm) if warm else None))
-        log(f"protocol_{ev.arch.lower()}", json.dumps(result["models"][name]))
+        log(f"protocol_{label(name)}", json.dumps(result["models"][name]))
         if n_params != n_ref:
             failures.append(f"{name} has {n_params} parameters, the reference {n_ref}")
         if not all(np.isfinite(hist["train_loss"] + hist["val_loss"])):
@@ -1310,8 +1440,9 @@ def protocol_cli(dev):
                             f"forwards launched other than {want}: {bad_forwards[:2]}")
         if any(train_launches.values()) or steps == 0:
             failures.append(f"{name}: kernels launched in {steps} train steps: {train_launches}")
-    if set(result["models"]) != set(PARAM_COUNT_KEYS) or set(bench["results"]) != set(PARAM_COUNT_KEYS):
-        failures.append(f"benchmark_results.json holds {sorted(bench['results'])}")
+    if (list(result["models"]) != bench_all.DEFAULT_BENCH_MODELS
+            or list(bench["results"]) != bench_all.DEFAULT_BENCH_MODELS):
+        failures.append(f"benchmark_results.json holds {list(bench['results'])}")
     if accounted != launches:
         failures.append(f"launches outside the counted forwards and epochs: {launches} "
                         f"vs {accounted}")
@@ -1321,17 +1452,19 @@ def protocol_cli(dev):
 
 def protocol_step_times(dev, sds, images, masks, batch=8):
     """(d) One protocol train step (gather, forward, BCE, backward, Adam with
-    wd 1e-4) at batch 8, 512^2, bf16, for SegNet and the Robust U-Net under
-    each `remat` flavor: CUDA events over back-to-back steps, peak memory,
-    the kernel launches in them (none may run), and a profile of one step
-    by kernel class, whose idle share shows how much of a flavor's cost is
-    the host's (the "conv" policy dispatches every op through Python)."""
+    wd 1e-4) at batch 8, 512^2, bf16, for SegNet, the Robust U-Net under
+    each `remat` flavor and the nine other zoo models: CUDA events over
+    back-to-back steps, peak memory, the kernel launches in them (none may
+    run), and a profile of one step by kernel class, whose idle share shows
+    how much of a step's cost is the host's (the "conv" policy dispatches
+    every op through Python)."""
     idx, valid = batch_indices(batch, batch, shuffle=False, rng=np.random.default_rng(0))
     cfg = TrainConfig(batch_size=batch)
     out = {}
-    for name, remat in (("SegNet", None), ("Robust UNet", False), ("Robust UNet", True),
-                        ("Robust UNet", "conv")):
-        label = name.lower().replace(" ", "_") + ("" if remat is None else f"_remat_{remat}")
+    runs = [("SegNet", None), ("Robust UNet", False), ("Robust UNet", True),
+            ("Robust UNet", "conv")] + [(name, None) for name in ZOO_MODELS]
+    for name, remat in runs:
+        tag = label(name) + ("" if remat is None else f"_remat_{remat}")
         model = create_model(name, dtype=torch.bfloat16,
                              **({} if remat is None else {"remat": remat}))
         model.load_state_dict(sds[name], strict=True)
@@ -1349,10 +1482,10 @@ def protocol_step_times(dev, sds, images, masks, batch=8):
         entry = dict(step_b8_bf16_ms=ms, train_img_per_s=batch / ms * 1e3,
                      peak_memory_gb=torch.cuda.max_memory_allocated() / 2**30,
                      kernel_launches=sum(launches_since(before).values()))
-        entry["profile"] = profile_forward(step, f"{label}_train_profile_step_b8_bf16",
+        entry["profile"] = profile_forward(step, f"{tag}_train_profile_step_b8_bf16",
                                            classes=_TRAIN_CLASSES)
-        out[label] = entry
-        log(f"{label}_train_step", json.dumps({k: v for k, v in entry.items() if k != "profile"}))
+        out[tag] = entry
+        log(f"{tag}_train_step", json.dumps({k: v for k, v in entry.items() if k != "profile"}))
         del model, state, epoch
         torch.cuda.empty_cache()
     return out
@@ -1407,37 +1540,63 @@ def dropout_check(dev, p=0.2, shape=(64, 512, 32, 32)):
     return out
 
 
-# The card-vs-CPU f32 check's weights and BN shift for each protocol model, at
-# image seed 3 (`card_vs_cpu_scan`, PERF.md §6): the Robust U-Net with
-# the main path's bridge weights, BN biases at 6 (5 of 6 image seeds inside
+# The card-vs-CPU f32 check for each protocol model: (weights, BN shift, image
+# seed, images a step), from `card_vs_cpu_scan` (PERF.md §6). The Robust U-Net
+# with the main path's bridge weights, BN biases at 6 (5 of 6 image seeds inside
 # every bound; its kaiming fan_out constructor init 2 of 18 seed and shift
-# pairs); SegNet with its constructor's torch-default init, BN biases at 3
-# (4 of 6; at 6, BN statistics below the last unpool fell outside at every
-# seed).
-CARD_VS_CPU = {"Robust UNet": ("bridge", 6.0), "SegNet": ("ctor", 3.0)}
+# pairs); SegNet with its constructor's torch-default init, BN biases at 3 (4 of
+# 6; at 6, BN statistics below the last unpool fell outside at every seed). The
+# zoo's nine with `zoo_state_dict`'s weights: BN biases at 6 (all 6 seeds inside
+# for DeepLabV3+, YOLO-SEG, ENet, WaterNet and MSWNet, 5 for Fast-SCNN), at 2
+# for HRNet-Water and SegFormer-Lite (6 of 6; at 6, 4 of 6); PSPNet at 0 with 8
+# images a step (6 of 6): with 2 its pyramid's level-1 BN normalises two values
+# a channel, and at every shift 597 to 7,206 values fell outside, and BN biases
+# at 2 or 6 raise the pooled features' mean over their spread, which the BN's
+# float32 E[x^2] - mean^2 turns into noise (at 8 images, 1 to 255 outside).
+CARD_VS_CPU = {"Robust UNet": ("bridge", 6.0, 3, 2), "SegNet": ("ctor", 3.0, 3, 2),
+               "DeepLabV3+": ("zoo", 6.0, 3, 2), "YOLO-SEG": ("zoo", 6.0, 3, 2),
+               "PSPNet": ("zoo", 0.0, 3, 8), "Fast-SCNN": ("zoo", 6.0, 3, 2),
+               "ENet": ("zoo", 6.0, 3, 2), "WaterNet": ("zoo", 6.0, 3, 2),
+               "MSWNet": ("zoo", 6.0, 3, 2), "HRNet-Water": ("zoo", 2.0, 3, 2),
+               "SegFormer-Lite": ("zoo", 2.0, 3, 2)}
 
 
-def card_vs_cpu_scan(dev=None, seeds=range(6), out_path=None):
-    """`train_card_vs_cpu` for each protocol model from its constructor's
-    init ("ctor") and from the bridge's random weights ("bridge"), with BN
-    biases at 2, 3 and 6 and each image seed: how often two f32 Adam steps
-    on the card stay inside the JAX package's bounds; the rows go to
+def init_state_dict(name, init):
+    """A protocol model's weights: its constructor's init ("ctor"), the
+    bridge's random JAX-layout weights ("bridge"; Robust U-Net and SegNet) or
+    `zoo_state_dict` ("zoo")."""
+    if init == "ctor":
+        return create_model(name).state_dict()
+    if init == "zoo":
+        return zoo_state_dict(name)
+    return {"Robust UNet": lambda: robust_unet_state_dict(random_robust_unet_variables(seed=0)),
+            "SegNet": lambda: segnet_state_dict(random_segnet_variables(seed=0))}[name]()
+
+
+def card_vs_cpu_scan(dev=None, seeds=range(6), models=None, betas=(2.0, 3.0, 6.0), batch=2,
+                     out_path=None):
+    """`train_card_vs_cpu` for each protocol model (`models`, default all of
+    `CARD_VS_CPU`) from each of its inits (the Robust U-Net's and SegNet's
+    constructor and bridge weights, the zoo's `zoo_state_dict`), with BN
+    biases at each of `betas` and each image seed, `batch` images a step:
+    how often two f32 Adam steps on the card stay inside the JAX package's
+    bounds; the rows go to
     `out_path` (default `build/card_vs_cpu_scan.json`). Not run by `main`;
     on the card: `python -c "import chip_smoke; chip_smoke.card_vs_cpu_scan()"`."""
     os.environ.setdefault("CUBLAS_WORKSPACE_CONFIG", ":4096:8")  # before cuBLAS starts
     dev = dev or torch.device("cuda")
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cuda.matmul.allow_tf32 = False
-    inits = {"Robust UNet": robust_unet_state_dict(random_robust_unet_variables(seed=0)),
-             "SegNet": segnet_state_dict(random_segnet_variables(seed=0))}
     rows = []
-    for name, bridge in inits.items():
-        for init, sd in (("ctor", create_model(name).state_dict()), ("bridge", bridge)):
-            for beta in (2.0, 3.0, 6.0):
+    for name in models or CARD_VS_CPU:
+        for init in (("zoo",) if name in ZOO_MODELS else ("ctor", "bridge")):
+            sd = init_state_dict(name, init)
+            for beta in betas:
                 for seed in seeds:
                     out = train_card_vs_cpu(dev, sd, model_fn=lambda n=name: create_model(n),
-                                            loss="bce", label=name, beta=beta, seed=seed)
-                    rows.append(dict(model=name, init=init, beta=beta, seed=seed,
+                                            loss="bce", label=label(name), beta=beta, seed=seed,
+                                            batch=batch)
+                    rows.append(dict(model=name, init=init, beta=beta, seed=seed, batch=batch,
                                      out_of_bound=out["elements_out_of_bound"],
                                      tensors=out["tensors_out_of_bound"],
                                      loss_rel_err=out["loss_rel_err"], ok=out["ok"]))
@@ -1450,19 +1609,20 @@ def card_vs_cpu_scan(dev=None, seeds=range(6), out_path=None):
 
 def protocol_path(dev, size=512, batch=8, check_size=64, dropout_shape=(64, 512, 32, 32)):
     """The comparison protocol at full width: (a) `cli/bench_all.main` on
-    the Robust U-Net and SegNet, (b) their kernel launches, (c) two f32 Adam
-    steps of each at (2, check_size, check_size) on the card against the CPU
-    path, (d) batch-8 bf16 train steps at size^2 with `remat` and its
-    bit-equality, (e) Dropout2d on the card."""
+    the default list of eleven models, (b) their kernel launches, (c) two
+    f32 Adam steps of each at (2, check_size, check_size) on the card
+    against the CPU path, (d) batch-8 bf16 train steps at size^2 (the Robust
+    U-Net under each `remat` flavor) and `remat`'s bit-equality, (e)
+    Dropout2d on the card."""
     result = protocol_cli(dev)
     failures = result.pop("failures")
-    sds = {"Robust UNet": robust_unet_state_dict(random_robust_unet_variables(seed=0)),
-           "SegNet": segnet_state_dict(random_segnet_variables(seed=0))}
+    sds = {name: init_state_dict(name, "zoo" if name in ZOO_MODELS else "bridge")
+           for name in bench_all.DEFAULT_BENCH_MODELS}
     result["card_vs_cpu_f32"] = {}
-    for name, (init, beta) in CARD_VS_CPU.items():
-        sd = sds[name] if init == "bridge" else create_model(name).state_dict()
-        check = train_card_vs_cpu(dev, sd, size=check_size, model_fn=lambda n=name: create_model(n),
-                                  loss="bce", label=name.lower().replace(" ", "_"), beta=beta)
+    for name, (init, beta, seed, check_batch) in CARD_VS_CPU.items():
+        check = train_card_vs_cpu(dev, init_state_dict(name, init), size=check_size,
+                                  model_fn=lambda n=name: create_model(n), loss="bce",
+                                  label=label(name), beta=beta, seed=seed, batch=check_batch)
         result["card_vs_cpu_f32"][name] = check
         if not check["ok"]:
             failures.append(f"{name}: f32 train steps on the card disagree with the CPU path "
@@ -1504,7 +1664,7 @@ def main(argv=None) -> int:
     log(card)
     log("torch", torch.__version__, "cuda", torch.version.cuda, torch.cuda.get_device_name(0))
 
-    t0 = time.perf_counter()
+    t_start = t0 = time.perf_counter()
     build_logs = _build.build_all()
     build_s = time.perf_counter() - t0
     log(f"build {build_s:.1f} s")
@@ -1524,17 +1684,22 @@ def main(argv=None) -> int:
     block = residual_block_check(dev)
     robust = robust_unet_path(dev)
     segnet = segnet_path(dev)
+    zoo = zoo_path(dev)
     train = train_path(dev)
     protocol = protocol_path(dev)
 
     def path_launches(path, name):
         return sum(e["launches"][name] for e in path["epochs"].values())
 
+    def zoo_launches(name):
+        return sum(path_launches(path, name) for path in zoo.values())
+
     main_dil = dil[0]
     on_protocol = protocol["launches"]
     conv_paths = {"serving": serving["launches"]["fused_conv3x3_bn_relu"],
                   "robust_unet_eval": path_launches(robust, "fused_conv3x3_bn_relu"),
                   "segnet_eval": path_launches(segnet, "fused_conv3x3_bn_relu"),
+                  "zoo_eval": zoo_launches("fused_conv3x3_bn_relu"),
                   "unet_train_validate": train["fused_conv_launches"]["validate"],
                   "protocol": on_protocol["fused_conv3x3_bn_relu"]}
     kernels = [
@@ -1567,6 +1732,7 @@ def main(argv=None) -> int:
         t = cbam_times[name]
         by_path = {"robust_unet_eval": path_launches(robust, name), "protocol": on_protocol[name]}
         if name == "avg_max_pool":  # fused_avg_max_pool launches the same kernel
+            by_path["zoo_eval_fused_avg_max_pool"] = zoo_launches("fused_avg_max_pool")
             by_path["protocol_fused_avg_max_pool"] = on_protocol["fused_avg_max_pool"]
         entry = dict(name=name, route="cuda", source=f"coastline_torch/csrc/{source}",
                      replaces=replaces, launches=sum(by_path.values()), launches_by_path=by_path,
@@ -1592,8 +1758,10 @@ def main(argv=None) -> int:
             json.dump(dict(card=card, build_s=build_s, kernels=kernels, logits=logits,
                            serving=serving, cbam_cases=cbam_cases, residual_block=block,
                            robust_unet=robust, unpool_cases=unpool_cases, segnet=segnet,
+                           zoo=zoo, total_s=time.perf_counter() - t_start,
                            unet_train=train, protocol=protocol),
                       f, indent=1)
+    log(f"total {time.perf_counter() - t_start:.1f} s")
     log(json.dumps({"kernels": kernels}))
     log(card)
     log(json.dumps({"ok": True, "device": {"platform": "gpu",

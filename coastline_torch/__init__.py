@@ -1,6 +1,7 @@
-"""PyTorch/CUDA port of coastline: the serving path, the Robust U-Net's and
-SegNet's evaluation epochs, the production trainer and the comparison
-protocol (`cli/bench_all.py`, `train/loop.py::Evaluator`).
+"""PyTorch/CUDA port of coastline: the serving path, the evaluation epochs,
+the production trainer and the comparison protocol (`cli/bench_all.py`,
+`train/loop.py::Evaluator`) over the whole model zoo of the JAX registry
+(`models/registry.py`: the Robust U-Net, the UNet and ten baselines).
 
 `coastline/` (JAX) is the frozen reference; this package computes the same
 functions with PyTorch on an NVIDIA H100, and its TPU (Pallas) kernels are

@@ -5,18 +5,18 @@ table and `benchmark_results.json` in the JAX package's layout.
 
 Per-model epochs follow the reference harness that benchmarked the model:
 DeepLabV3+ 25 (`Main_Final.py:862-865`), SegNet 15 / PSPNet 20 / Fast-SCNN
-25 / ENet 20 (`comne.py:978-983`), everything else 20. Only the ported
-models run (Robust UNet, SegNet, UNet): any other name, the default list's
-other nine included, fails with the registry's KeyError, so pass
-`--models`. The JAX CLI's multi-device flags (--data-parallel,
---model-parallel, --sharded-data) are not ported yet and exit non-zero.
+25 / ENet 20 (`comne.py:978-983`), everything else 20. Every model of the
+registry runs; the default `--models` is the JAX CLI's list of eleven (the
+Robust U-Net and its ten baselines), and an unknown name fails with the
+registry's KeyError before any training. The JAX CLI's multi-device flags
+(--data-parallel, --model-parallel, --sharded-data) are not ported yet and
+exit non-zero.
 
 Usage:
-  python -m coastline_torch.cli.bench_all --models "Robust UNet,SegNet" \
-      --images-dir D --labels-dir L
+  python -m coastline_torch.cli.bench_all --images-dir D --labels-dir L
   python -m coastline_torch.cli.bench_all --synthetic 20 --models "Robust UNet,SegNet"
   python -m coastline_torch.cli.bench_all --synthetic 6 --image-size 32 --epochs 1 \
-      --models SegNet --device cpu
+      --device cpu
 """
 
 import argparse
@@ -80,7 +80,7 @@ def main(argv=None):
     p.add_argument("--images-dir", default="./labelme_images/converted")
     p.add_argument("--labels-dir", default="./labelme_images/annotations/")
     p.add_argument("--models", default=",".join(DEFAULT_BENCH_MODELS),
-                   help="comma-separated registry names (only ported models run)")
+                   help="comma-separated registry names or aliases")
     p.add_argument("--epochs", type=int, default=None,
                    help="override per-model reference epochs")
     p.add_argument("--batch-size", type=int, default=2)
@@ -115,7 +115,7 @@ def main(argv=None):
         return 2
     names = [m.strip() for m in args.models.split(",") if m.strip()]
     for name in names:
-        model_class(name)  # fail on an unported model before any training
+        model_class(name)  # fail on an unknown name before any training
     dev = resolve_device(args.device)
 
     if args.synthetic:

@@ -308,7 +308,7 @@ def test_conv_bn_without_bias_or_relu_matches_jax_bf16(monkeypatch):
     monkeypatch.setattr("coastline_torch.ops.blocks.fused_conv3x3_bn_relu", spy)
     xt = torch.from_numpy(x).permute(0, 3, 1, 2).to(torch.bfloat16)
     with torch.no_grad():
-        got = conv_bn(conv, norm.eval(), xt.contiguous(memory_format=torch.channels_last), act=False)
+        got = conv_bn(conv, norm.eval(), xt.contiguous(memory_format=torch.channels_last), "none")
     assert seen == [False] and got.dtype == torch.bfloat16
     got = got.permute(0, 2, 3, 1).float().numpy()
     assert np.all(np.abs(got - ref) <= 2.0 ** -5 * np.abs(ref) + 2.0 ** -5)

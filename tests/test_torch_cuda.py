@@ -352,6 +352,36 @@ def test_segnet_on_card_launches_the_unpool_kernels(dev, dtype, fused_convs):
         assert float(((got - ref).abs() <= tol).float().mean()) >= 0.999
 
 
+ZOO = ("DeepLabV3+", "YOLO-SEG", "PSPNet", "Fast-SCNN", "ENet", "WaterNet", "MSWNet",
+       "HRNet-Water", "SegFormer-Lite")
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("name", ZOO)
+def test_zoo_on_card_launches_its_kernels(dev, name, dtype):
+    """Each zoo model's eval forward on the card launches the kernels
+    `chip_smoke.zoo_want` lists (the fused conv twice in WaterNet, once in
+    HRNet-Water, in bf16; `fused_avg_max_pool` once in WaterNet) and no
+    other; in f32 every logit is within 1e-3 x max(1, std) of the CPU path's."""
+    from chip_smoke import launch_counts, launches_since, zoo_state_dict, zoo_want
+    from coastline_torch.models.registry import create_model
+
+    sd = zoo_state_dict(name)
+    cpu, gpu = create_model(name, dtype=dtype), create_model(name, dtype=dtype)
+    cpu.load_state_dict(sd)
+    gpu.load_state_dict(sd)
+    gpu = gpu.to(dev).eval()
+    x = torch.from_numpy(np.random.default_rng(1).normal(size=(2, 3, 64, 64)).astype(np.float32))
+    before = launch_counts()
+    with torch.inference_mode():
+        got = gpu(x.to(dev), return_logits=True).cpu()
+        ref = cpu.eval()(x, return_logits=True)
+    assert launches_since(before) == zoo_want(name, dtype)
+    assert torch.isfinite(got).all() and got.dtype == torch.float32
+    if dtype == torch.float32:
+        assert float((got - ref).abs().max()) <= 1e-3 * max(1.0, float(ref.std()))
+
+
 def test_f32_train_steps_on_card_match_cpu(dev):
     """`chip_smoke.train_card_vs_cpu`: two f32 Adam steps of the full-width
     UNet at (2, 64, 64) a batch, wd 0.1, on the card (TF32 off,
@@ -458,14 +488,14 @@ def test_segnet_train_gradients_on_card_match_cpu(dev):
     from chip_smoke import CARD_VS_CPU, train_card_vs_cpu
     from coastline_torch.models.segnet import SegNet
 
-    init, beta = CARD_VS_CPU["SegNet"]
+    init, beta, seed, batch = CARD_VS_CPU["SegNet"]
     assert init == "ctor"
     out = train_card_vs_cpu(dev, SegNet().state_dict(), model_fn=SegNet, loss="bce",
-                            label="segnet", beta=beta)
+                            label="segnet", beta=beta, seed=seed, batch=batch)
     assert out["params_without_grad_on_card"] == [] and out["ok"]
 
 
-@pytest.mark.parametrize("name", ["SegNet", "Robust UNet"])
+@pytest.mark.parametrize("name", ["SegNet", "Robust UNet", "WaterNet", "HRNet-Water"])
 def test_train_mode_launches_no_kernel(dev, name):
     """A bf16 train-mode forward and backward launches none of the seven
     kernels and leaves a gradient on every parameter; back at eval, under

@@ -24,6 +24,7 @@ import torch
 from chip_smoke import shift_bn
 from coastline.cli import bench_all as jax_bench_all
 from coastline.data.pipeline import make_dataset as jax_make_dataset
+from coastline.models import registry as jax_registry
 from coastline.models.segnet import SegNet as JaxSegNet
 from coastline.train import loop as jax_loop
 from coastline.utils.tables import format_results_table as jax_format_results_table
@@ -172,8 +173,8 @@ def test_bench_all_cli_on_the_cpu(tmp_path, capsys):
 
 
 @pytest.mark.parametrize("argv,code,message", [
-    (["--models", "SegNet,DeepLabV3+"], None, "not ported"),
-    ([], None, "not ported"),  # the default list: nine of its models are not ported
+    (["--models", "SegNet,DeepLabV3++"], None, "unknown model 'DeepLabV3\\+\\+'"),
+    (["--models", "robust_unet,segformer"], None, "unknown model 'segformer'"),  # not an alias
     (["--models", "SegNet", "--data-parallel", "2"], 2, "not ported yet"),
     (["--models", "SegNet", "--model-parallel", "2"], 2, "not ported yet"),
     (["--models", "SegNet", "--sharded-data"], 2, "not ported yet"),
@@ -183,7 +184,8 @@ def test_bench_all_refuses_what_is_not_ported(capsys, argv, code, message):
     if code is None:
         with pytest.raises(KeyError, match=message) as err:
             bench_all.main(argv)
-        assert "['Robust UNet', 'SegNet', 'UNet']" in str(err.value)
+        assert str(jax_registry.available_models()) in str(err.value)
+        assert "Training" not in capsys.readouterr().out  # refused before any training
     else:
         assert bench_all.main(argv) == code
         assert message in capsys.readouterr().err

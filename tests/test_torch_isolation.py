@@ -49,7 +49,11 @@ def test_port_and_chip_smoke_import_no_jax_and_no_coastline():
               "coastline_torch.train.hsv", "coastline_torch.utils.metrics_log",
               "coastline_torch.utils.tables", "coastline_torch.utils.profiling",
               "coastline_torch.report.curves", "coastline_torch.report.comparison",
-              "coastline_torch.report.error_maps"):
+              "coastline_torch.report.error_maps", "coastline_torch.models.deeplabv3p",
+              "coastline_torch.models.yoloseg", "coastline_torch.models.pspnet",
+              "coastline_torch.models.fastscnn", "coastline_torch.models.enet",
+              "coastline_torch.models.waternet", "coastline_torch.models.mswnet",
+              "coastline_torch.models.hrnet_water", "coastline_torch.models.segformer_lite"):
         assert m in report["modules"]
 
 
@@ -66,6 +70,7 @@ def _entry_points():
     from coastline_torch.train.trainer import WaterSegmentationTrainer
     from coastline_torch.cli.bench_all import main as bench_all_cli
     from coastline_torch.train.loop import Evaluator
+    from coastline_torch.models.registry import create_model
 
     mask = np.zeros((8, 8), np.uint8)
     return {
@@ -82,13 +87,18 @@ def _entry_points():
                                              np.zeros((1, 8, 8), np.uint8)),
         "evaluator": lambda: Evaluator(SegNet(), TrainConfig()),
         "bench_all_cli": lambda: bench_all_cli(["--synthetic", "2", "--models", "SegNet"]),
+        "zoo_eval_epoch": lambda: make_eval_epoch(create_model("WaterNet"), TrainConfig()),
+        "zoo_train_epoch": lambda: make_train_epoch(create_model("PSPNet"), TrainConfig()),
+        "zoo_evaluator": lambda: Evaluator(create_model("SegFormer-Lite"), TrainConfig()),
+        "bench_all_default_list": lambda: bench_all_cli(["--synthetic", "2"]),
     }
 
 
 @pytest.mark.parametrize("name", ["extractor", "coastline_band", "dilate", "make_eval_epoch",
                                   "segnet_eval_epoch", "make_train_epoch", "create_train_state",
                                   "trainer", "train_cli", "make_dataset", "evaluator",
-                                  "bench_all_cli"])
+                                  "bench_all_cli", "zoo_eval_epoch", "zoo_train_epoch",
+                                  "zoo_evaluator", "bench_all_default_list"])
 def test_entry_points_raise_without_a_card(name, monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="no CUDA device"):

@@ -21,6 +21,8 @@ Tolerances:
     three rounded ops).
 """
 
+import re
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -28,6 +30,7 @@ import pytest
 import torch
 from torch import nn
 
+from coastline.models import registry as jax_registry
 from coastline.models.robust_unet import RobustUNet as JaxRobustUNet
 from coastline.ops.blocks import AttentionGate as JaxAttentionGate
 from coastline.ops.blocks import DilatedBlock as JaxDilatedBlock
@@ -35,7 +38,8 @@ from coastline.ops.blocks import ResidualBlock as JaxResidualBlock
 from coastline.utils.torch_import import (export_reference_robust_unet as
                                           jax_export_reference_robust_unet)
 from coastline_torch.kernels.fused_conv import fused_conv3x3_bn_relu
-from coastline_torch.models.registry import available_models, canonical_name, create_model
+from coastline_torch.models.registry import (available_models, canonical_name, create_model,
+                                             model_class)
 from coastline_torch.models.robust_unet import RobustUNet
 from coastline_torch.models.segnet import SegNet
 from coastline_torch.models.unet import UNet
@@ -261,17 +265,25 @@ def test_blocks_are_eval_only(small_variables):
 
 
 def test_registry_names_aliases_and_unknown():
-    assert available_models() == ["Robust UNet", "SegNet", "UNet"]
+    """All twelve names of the JAX registry and its aliases resolve to the
+    same display names; an unknown name raises with the full list."""
+    jax_registry._populate()
+    assert available_models() == jax_registry.available_models()
+    assert len(available_models()) == 12
+    for alias, name in jax_registry._ALIASES.items():
+        assert canonical_name(alias) == name
+        assert canonical_name(alias.upper()) == name
+        assert model_class(alias).__name__ == jax_registry.MODEL_REGISTRY[name].__name__
     for alias in ("Robust UNet", "robust_unet", "RobustUNet", "ROBUSTUNET"):
         assert canonical_name(alias) == "Robust UNet"
     assert canonical_name("unet") == "UNet" and canonical_name("segnet") == "SegNet"
-    assert canonical_name("PSPNet") == "PSPNet"  # not ported: passes through
+    assert canonical_name("PSPNet++") == "PSPNet++"  # unknown: passes through
     model = create_model("robust_unet", base=16, dtype=torch.bfloat16)
     assert isinstance(model, RobustUNet) and model.dtype == torch.bfloat16
     assert isinstance(create_model("UNet", n_classes=2), UNet)
     assert isinstance(create_model("SEGNET", dtype=torch.bfloat16), SegNet)
-    with pytest.raises(KeyError, match=r"available: \['Robust UNet', 'SegNet', 'UNet'\]"):
-        create_model("PSPNet")
+    with pytest.raises(KeyError, match=re.escape(f"available: {available_models()}")):
+        create_model("PSPNet++")
 
 
 @pytest.mark.parametrize("dtype,fused_convs", [(torch.bfloat16, 2), (torch.float32, 0)])
