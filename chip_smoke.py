@@ -83,7 +83,20 @@ Needs one NVIDIA H100 and the CUDA toolkit; builds the kernels from
      `remat` flavor) with peak memory and profiles, the `remat` flavors
      bit-equal after one deterministic step with dropout on, and
      Dropout2d's mask statistics on the card;
-  11. a `kernels` JSON line, the card line and the last line:
+  11. the extraction path (`extraction_path`), serving the best checkpoint
+     of phase 9: a bf16 `CoastlineExtractor(checkpoint_dir=)` predicts a
+     10980^2 synthetic granule (a Sentinel-2 L1C tile) through
+     `predict_scene(batch=8, with_band=20)` with 158 fused-conv launches
+     and one dilation, equal bit for bit to the host tiling path; the
+     dilation at (1, 10980, 10980), size 20, equal to its plain version and
+     timed against its bound; the native contour tracer (built with g++) on
+     the band; the f32 scene path against the CPU on a 700x900 scene at
+     128^2 tiles (masks on >= 99.9% of pixels, the band exact);
+     `extract_scenes` over three 2048^2 scenes pipelined against
+     sequential; and the convert, predict (image, --batch, --scene), change
+     and export CLIs as subprocesses with their artifacts, the exported
+     .pth serving the checkpoint's masks;
+  12. a `kernels` JSON line, the card line and the last line:
      {"ok": true, "device": {...}}.
 
 Float32 convolutions run with cuDNN's TF32 off, so every float32 number
@@ -96,6 +109,7 @@ import json
 import os
 import subprocess
 import sys
+import shutil
 import tempfile
 import time
 
@@ -106,6 +120,7 @@ import torch.nn.functional as F
 from coastline_torch.infer.contours import extract_contours
 from coastline_torch.infer.extract import CoastlineExtractor
 from coastline_torch.infer.morphology import coastline_band, elliptical_kernel
+from coastline_torch.infer.scene import build_scene_fn
 from coastline_torch.kernels import _build, cbam, unpool
 from coastline_torch.kernels.fused_conv import (fused_conv3x3_bn_relu,
                                                 fused_conv3x3_bn_relu_plain)
@@ -117,6 +132,7 @@ from coastline_torch.ops.blocks import Dropout2d, ResidualBlock, fold_bn
 from coastline_torch.ops.primitives import Conv, ConvTranspose, Norm
 from coastline_torch.data.augment import make_augment_fn
 from coastline_torch.data.pipeline import DeviceDataset
+from coastline_torch.data.synthetic import make_scene
 from coastline_torch.models.unet import UNet
 from coastline_torch.train import trainer as trainer_module
 from coastline_torch.train.checkpoint import CheckpointManager
@@ -1246,63 +1262,63 @@ def train_path(dev, size=TRAIN_SIZE, batch=TRAIN_BATCH, n_train=TRAIN_TILES, n_v
                                            water_fraction=float(masks.mean()))))
     train_ds = DeviceDataset.from_numpy(images[:n_train], masks[:n_train], device=dev)
     val_ds = DeviceDataset.from_numpy(images[n_train:], masks[n_train:], device=dev)
-    result, failures = dict(route=route), []
-    with tempfile.TemporaryDirectory() as save_dir:
-        trainer = make_trainer(save_dir, TRAIN_EPOCHS, dev, sd, size=size, batch=batch)
-        n_params = sum(p.numel() for p in trainer.model.parameters())
-        if n_params != UNET_PARAMS:
-            raise AssertionError(f"UNet has {n_params} parameters, expected {UNET_PARAMS}")
-        if dev.type == "cuda":
-            torch.cuda.reset_peak_memory_stats()
-        fused_conv3x3_bn_relu.launches = 0
-        hist, rec = counted_train(trainer, train_ds, val_ds, dev)
-        launches = fused_conv3x3_bn_relu.launches
-        peak_gb = torch.cuda.max_memory_allocated() / 2**30 if dev.type == "cuda" else None
-        val_forwards = sum(r["batches"] for r in rec["validate"])
-        val_launches = sum(r["fused_conv_launches"] for r in rec["validate"])
-        train_launches = sum(r["fused_conv_launches"] for r in rec["train"])
-        warm = rec["train"][1:]
-        result.update(
-            train_losses=hist["train_losses"], val_losses=hist["val_losses"],
-            val_iou=hist["iou_scores"], val_accuracy=hist["accuracies"],
-            learning_rates=hist["learning_rates"], best_epoch=hist["best_model_epoch"],
-            fused_conv_launches=dict(total=launches, validate=val_launches,
-                                     train_steps=train_launches, validation_forwards=val_forwards),
-            epoch_s=[r["s"] for r in rec["train"]], validate_s=[r["s"] for r in rec["validate"]],
-            train_img_per_s_warm=n_train * len(warm) / sum(r["s"] for r in warm),
-            val_img_per_s=n_val * len(rec["validate"]) / sum(r["s"] for r in rec["validate"]),
-            peak_memory_gb=peak_gb, training_time_s=hist["training_time"])
-        log("unet_train_epochs", json.dumps(result))
-        if not all(np.isfinite(hist["train_losses"] + hist["val_losses"])):
-            failures.append("non-finite losses")
-        if not hist["train_losses"][-1] < hist["train_losses"][0]:
-            failures.append(f"train loss did not fall: {hist['train_losses']}")
-        if train_launches != 0 or val_launches != 2 * val_forwards or launches != val_launches:
-            failures.append(f"fused conv launches {result['fused_conv_launches']}: want 2 a "
-                            "validation forward and none in the train steps")
+    result, failures = dict(route=route, save_dir=TRAIN_DIR), []
+    save_dir = fresh_dir(TRAIN_DIR)  # extraction_path serves its best checkpoint
+    trainer = make_trainer(save_dir, TRAIN_EPOCHS, dev, sd, size=size, batch=batch)
+    n_params = sum(p.numel() for p in trainer.model.parameters())
+    if n_params != UNET_PARAMS:
+        raise AssertionError(f"UNet has {n_params} parameters, expected {UNET_PARAMS}")
+    if dev.type == "cuda":
+        torch.cuda.reset_peak_memory_stats()
+    fused_conv3x3_bn_relu.launches = 0
+    hist, rec = counted_train(trainer, train_ds, val_ds, dev)
+    launches = fused_conv3x3_bn_relu.launches
+    peak_gb = torch.cuda.max_memory_allocated() / 2**30 if dev.type == "cuda" else None
+    val_forwards = sum(r["batches"] for r in rec["validate"])
+    val_launches = sum(r["fused_conv_launches"] for r in rec["validate"])
+    train_launches = sum(r["fused_conv_launches"] for r in rec["train"])
+    warm = rec["train"][1:]
+    result.update(
+        train_losses=hist["train_losses"], val_losses=hist["val_losses"],
+        val_iou=hist["iou_scores"], val_accuracy=hist["accuracies"],
+        learning_rates=hist["learning_rates"], best_epoch=hist["best_model_epoch"],
+        fused_conv_launches=dict(total=launches, validate=val_launches,
+                                 train_steps=train_launches, validation_forwards=val_forwards),
+        epoch_s=[r["s"] for r in rec["train"]], validate_s=[r["s"] for r in rec["validate"]],
+        train_img_per_s_warm=n_train * len(warm) / sum(r["s"] for r in warm),
+        val_img_per_s=n_val * len(rec["validate"]) / sum(r["s"] for r in rec["validate"]),
+        peak_memory_gb=peak_gb, training_time_s=hist["training_time"])
+    log("unet_train_epochs", json.dumps(result))
+    if not all(np.isfinite(hist["train_losses"] + hist["val_losses"])):
+        failures.append("non-finite losses")
+    if not hist["train_losses"][-1] < hist["train_losses"][0]:
+        failures.append(f"train loss did not fall: {hist['train_losses']}")
+    if train_launches != 0 or val_launches != 2 * val_forwards or launches != val_launches:
+        failures.append(f"fused conv launches {result['fused_conv_launches']}: want 2 a "
+                        "validation forward and none in the train steps")
 
-        best = trainer.load_best()
-        fresh = UNet(dtype=torch.bfloat16)
-        fresh.load_state_dict(best, strict=True)
-        ex = CoastlineExtractor(torch_checkpoint=os.path.join(save_dir, "best", "model.pth"),
-                                dtype=torch.bfloat16, image_size=size, device=dev)
-        pred = ex.predict_masks_batch(images[n_train:])
-        result["best_export"] = dict(strict_load=True, mask_shape=list(pred.shape),
-                                     mask_accuracy_vs_labels=float((pred == masks[n_train:]).mean()))
-        template = create_train_state(UNet(dtype=torch.bfloat16),
-                                      TrainConfig(lr=1e-3, weight_decay=0.0, loss="ce"), device=dev)
-        ckpt = CheckpointManager(save_dir)
-        result["resume_point_step"] = ckpt.latest_step()
-        restored = ckpt.restore(template, step=ckpt.latest_step())
-        result["restored_equals_saved"] = states_equal(restored, trainer.state)
-        log("unet_train_checkpoint", json.dumps({k: result[k] for k in
-                                                 ("best_export", "resume_point_step",
-                                                  "restored_equals_saved")}))
-        if pred.shape != (n_val, size, size) or not set(np.unique(pred)) <= {0, 1}:
-            failures.append(f"bad masks from the best export: {pred.shape}")
-        if not all(result["restored_equals_saved"].values()):
-            failures.append(f"restored state differs: {result['restored_equals_saved']}")
-        del trainer, ex, fresh, restored, template
+    best = trainer.load_best()
+    fresh = UNet(dtype=torch.bfloat16)
+    fresh.load_state_dict(best, strict=True)
+    ex = CoastlineExtractor(torch_checkpoint=os.path.join(save_dir, "best", "model.pth"),
+                            dtype=torch.bfloat16, image_size=size, device=dev)
+    pred = ex.predict_masks_batch(images[n_train:])
+    result["best_export"] = dict(strict_load=True, mask_shape=list(pred.shape),
+                                 mask_accuracy_vs_labels=float((pred == masks[n_train:]).mean()))
+    template = create_train_state(UNet(dtype=torch.bfloat16),
+                                  TrainConfig(lr=1e-3, weight_decay=0.0, loss="ce"), device=dev)
+    ckpt = CheckpointManager(save_dir)
+    result["resume_point_step"] = ckpt.latest_step()
+    restored = ckpt.restore(template, step=ckpt.latest_step())
+    result["restored_equals_saved"] = states_equal(restored, trainer.state)
+    log("unet_train_checkpoint", json.dumps({k: result[k] for k in
+                                             ("best_export", "resume_point_step",
+                                              "restored_equals_saved")}))
+    if pred.shape != (n_val, size, size) or not set(np.unique(pred)) <= {0, 1}:
+        failures.append(f"bad masks from the best export: {pred.shape}")
+    if not all(result["restored_equals_saved"].values()):
+        failures.append(f"restored state differs: {result['restored_equals_saved']}")
+    del trainer, ex, fresh, restored, template
     torch.cuda.empty_cache()
 
     result["card_vs_cpu_f32"] = train_card_vs_cpu(dev, UNet().state_dict())
@@ -1648,6 +1664,360 @@ def protocol_path(dev, size=512, batch=8, check_size=64, dropout_shape=(64, 512,
     return result
 
 
+GRANULE = 10980  # a Sentinel-2 L1C tile: 109.8 km at 10 m, 120.6 Mpx
+TRAIN_DIR = os.path.join(REPO, "build", "train_path")  # listed in .gitignore
+EXTRACT_DIR = os.path.join(REPO, "build", "extraction_path")
+
+
+def fresh_dir(path):
+    shutil.rmtree(path, ignore_errors=True)
+    os.makedirs(path)
+    return path
+
+
+def tiled_scene(size, seed, tile=512, n_unique=24):
+    """A size^2 synthetic scene and its ground-truth water mask, assembled
+    from the port's `make_scene` tiles as `scripts/bench_scene_e2e.py`
+    assembles its 2048^2 one; at most `n_unique` distinct tiles repeat over
+    the grid, so that a granule takes seconds to build."""
+    rng = np.random.default_rng(seed)
+    k = -(-size // tile)
+    pairs = [make_scene(rng, tile)[:2] for _ in range(min(n_unique, k * k))]
+    scene = np.empty((k * tile, k * tile, 3), np.uint8)
+    truth = np.empty((k * tile, k * tile), np.uint8)
+    for r in range(k):
+        for c in range(k):
+            img, m = pairs[(r * k + c) % len(pairs)]
+            scene[r * tile:(r + 1) * tile, c * tile:(c + 1) * tile] = img
+            truth[r * tile:(r + 1) * tile, c * tile:(c + 1) * tile] = m
+    return np.ascontiguousarray(scene[:size, :size]), np.ascontiguousarray(truth[:size, :size])
+
+
+def write_five_band_tif(path, img, rng):
+    """A 5-band uint8 GeoTIFF (PIL, no geotransform) whose NIR-R-G
+    combination (bands 4, 3, 2) is `img`'s RGB."""
+    from PIL import Image
+
+    bands = [rng.integers(0, 255, img.shape[:2], dtype=np.uint8), img[..., 1], img[..., 2],
+             img[..., 1], img[..., 0]]
+    frames = [Image.fromarray(b) for b in bands]
+    frames[0].save(path, save_all=True, append_images=frames[1:])
+
+
+def granule_check(ex, dev, size, batch, dilation, seed=7):
+    """The extractor's `predict_scene` over one size^2 scene with the band
+    on, counted, timed and held against the host tiling path; then the
+    dilation at the granule's shape against its plain version, and the
+    native tracer on the band."""
+    scene, truth = tiled_scene(size, seed)
+    tile = ex.image_size
+    overlap = tile // 8
+    n_side = -(-(size - overlap) // (tile - overlap))
+    n_chunks = -(-n_side * n_side // batch)
+    ex.predict_masks_batch(np.zeros((batch, tile, tile, 3), np.uint8))  # warm-up, uncounted
+    sync(dev)
+    for fn in ALL_COUNTERS.values():
+        fn.launches = 0
+    if dev.type == "cuda":
+        torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    mask, band = ex.predict_scene(scene, batch=batch, with_band=dilation)
+    wall_s = time.perf_counter() - t0
+    launches = launch_counts()
+    peak_gb = torch.cuda.max_memory_allocated() / 2**30 if dev.type == "cuda" else None
+    want = dict.fromkeys(launches, 0) | {"fused_conv3x3_bn_relu": 2 * n_chunks, "dilate_disk": 1}
+    t0 = time.perf_counter()
+    host_mask, host_band = ex.predict_scene(scene, batch=batch, with_band=dilation,
+                                            device_pipeline=False)
+    host_s = time.perf_counter() - t0
+    host_equal = bool(np.array_equal(mask, host_mask) and np.array_equal(band, host_band))
+    del host_mask, host_band
+
+    # device times with the scene already on the card (no transfers)
+    scene_dev = torch.from_numpy(scene).to(dev)
+    run = build_scene_fn(ex._predict_fn, size, size, 3, tile, overlap, batch,
+                         band_dilation=dilation)
+    pipeline_ms = cuda_ms(lambda: run(scene_dev), 1, 0)
+    chunk = scene_dev[:tile, :tile][None].expand(batch, -1, -1, -1).contiguous()
+    forwards_ms = cuda_ms(lambda: ex._predict_fn(chunk), 5) * n_chunks
+    cut_and_stitch = build_scene_fn(lambda c: c[..., 0].contiguous(), size, size, 3, tile,
+                                    overlap, batch)
+    tile_stitch_ms = cuda_ms(lambda: cut_and_stitch(scene_dev), 2, 1)
+    mask_dev = torch.from_numpy(mask).to(dev)
+    band_ms = cuda_ms(lambda: coastline_band(mask_dev, dilation, device=dev), 5)
+    del scene_dev, chunk
+
+    # the kernel at the granule's shape, against its plain version
+    ker = elliptical_kernel(dilation)
+    binary = (mask_dev > 0).to(torch.uint8)[None].contiguous()
+    got = dilate_disk(binary, ker)
+    sync(dev)
+    ref = dilate_disk_plain(binary, ker)
+    dilate_equal = bool(torch.equal(got, ref))
+    groups = se_row_groups(ker)
+    ops_px = max(hi - lo for (lo, hi), _ in groups) + sum(len(s) for _, s in groups)
+    dil_bound_ms, dil_bound_by = bound(2 * binary.numel(), ops_px * binary.numel(), PEAK_F32_OPS)
+    dilate = dict(shape=list(binary.shape), size=dilation, equal_to_plain=dilate_equal,
+                  max_abs_err=float((got.float() - ref.float()).abs().max()),
+                  ms=cuda_ms(lambda: dilate_disk(binary, ker), 20),
+                  device_ms=device_ms(lambda: dilate_disk(binary, ker), 20),
+                  plain_ms=cuda_ms(lambda: dilate_disk_plain(binary, ker), 2, 1),
+                  library_ms=cuda_ms(lambda: conv_threshold_dilate(binary, ker), 2, 1),
+                  bound_ms=dil_bound_ms, bound_by=dil_bound_by,
+                  byte_bound_ms=2 * binary.numel() / PEAK_BYTES_PER_S * 1e3)
+    dilate["share_of_bound"] = dil_bound_ms / dilate["device_ms"]
+    del got, ref, binary, mask_dev
+    if dev.type == "cuda":
+        torch.cuda.empty_cache()
+
+    t0 = time.perf_counter()
+    lines = extract_contours(band, backend="native")
+    contour_s = time.perf_counter() - t0
+    inter = np.logical_and(mask > 0, truth > 0).sum()
+    union = np.logical_or(mask > 0, truth > 0).sum()
+    out = dict(scene=[size, size], tile=tile, overlap=overlap, batch=batch, chunks=n_chunks,
+               dilation=dilation, dtype=str(ex.model.dtype),
+               upload_mb=scene.nbytes / 1e6, launches=launches, want_launches=want,
+               wall_s=wall_s, host_path_s=host_s, host_path_equal=host_equal,
+               pipeline_device_ms=pipeline_ms, forwards_ms=forwards_ms,
+               tile_and_stitch_ms=tile_stitch_ms, band_ms=band_ms, peak_memory_gb=peak_gb,
+               contour_s=contour_s, contours=len(lines),
+               contour_points=int(sum(len(p) for p in lines)),
+               band_pixels=int(band.sum()), water_fraction=float(mask.mean()),
+               iou_vs_truth=float(inter / max(union, 1)), dilate_granule=dilate)
+    log("extraction_granule", json.dumps(out))
+    failures = []
+    if launches != want:
+        failures.append(f"granule launches {launches}, want {want}")
+    if mask.shape != (size, size) or band.shape != (size, size) or not set(np.unique(mask)) <= {0, 1}:
+        failures.append(f"bad granule mask {mask.shape} or band {band.shape}")
+    if not host_equal:
+        failures.append("the device scene pipeline differs from the host tiling path")
+    if not dilate_equal:
+        failures.append(f"dilate_disk at {dilate['shape']} differs from its plain version")
+    if not lines:
+        failures.append("no contour traced from the granule's band")
+    return out, failures
+
+
+def scene_card_vs_cpu(save_dir, dev, shape=(700, 900), tile=128, overlap=16, dilation=20,
+                      seed=11):
+    """The f32 scene path on the card against the port's CPU path (TF32
+    off): masks on >= 99.9% of pixels (float32 sums in another order flip
+    near ties), the card's band equal to the CPU band of the card's mask."""
+    scene = tiled_scene(max(shape), seed)[0][:shape[0], :shape[1]].copy()
+    card = CoastlineExtractor(checkpoint_dir=save_dir, image_size=tile, device=dev)
+    mask, band = card.predict_scene(scene, batch=8, overlap=overlap, with_band=dilation)
+    cpu = CoastlineExtractor(checkpoint_dir=save_dir, image_size=tile, device="cpu")
+    t0 = time.perf_counter()
+    cpu_mask = cpu.predict_scene(scene, batch=8, overlap=overlap)
+    cpu_s = time.perf_counter() - t0
+    out = dict(shape=list(shape), tile=tile, overlap=overlap,
+               mask_agreement=float(np.mean(mask == cpu_mask)),
+               band_equal=bool(np.array_equal(
+                   band, coastline_band(mask, dilation, device="cpu").numpy())),
+               water_fraction=float(mask.mean()), cpu_s=cpu_s)
+    log("extraction_card_vs_cpu", json.dumps(out))
+    failures = []
+    if out["mask_agreement"] < 0.999 or not out["band_equal"]:
+        failures.append(f"scene on the card against the CPU path: {out}")
+    return out, failures
+
+
+def scene_pipelining(ex, root, size, batch, dilation, years=(2019, 2021, 2024)):
+    """`extract_scenes` over three same-size scenes, pipelined (depth 2)
+    against sequential (depth 1): equal results, both wall times."""
+    from PIL import Image
+
+    paths = []
+    for i, year in enumerate(years):
+        paths.append(os.path.join(root, f"scene_{year}.png"))
+        Image.fromarray(tiled_scene(size, 20 + i)[0]).save(paths[-1])
+    runs = {}
+    for depth in (1, 2):
+        out = os.path.join(root, f"depth{depth}")
+        sync(ex.device)
+        t0 = time.perf_counter()
+        results = ex.extract_scenes(paths, out, dilation, batch=batch, pipeline_depth=depth)
+        runs[depth] = (time.perf_counter() - t0, results, out)
+    seq, piped = runs[1][1], runs[2][1]
+    equal = all(a is not None and b is not None and np.array_equal(a["water_mask"], b["water_mask"])
+                and np.array_equal(a["coastline_mask"], b["coastline_mask"])
+                and a["coastlines"] == b["coastlines"] for a, b in zip(seq, piped))
+    out = dict(scenes=len(paths), size=size, sequential_s=runs[1][0], pipelined_s=runs[2][0],
+               equal=equal, coastlines=[r["coastline_count"] for r in piped if r])
+    log("extraction_pipelining", json.dumps(out))
+    return out, runs[2][2], ([] if equal else ["pipelined extract_scenes differs from sequential"])
+
+
+def run_clis(jobs, log_dir, timeout=600):
+    """Run `python -m <module> <args>` for every job at once, from the repo
+    root; {name: {"rc", "s"}}. Every process is stopped before returning."""
+    procs, out = {}, {}
+    t0 = time.perf_counter()
+    try:
+        for name, argv in jobs.items():
+            f = open(os.path.join(log_dir, f"{name}.log"), "w")
+            procs[name] = (subprocess.Popen([sys.executable, "-m", *argv], cwd=REPO, stdout=f,
+                                            stderr=subprocess.STDOUT, text=True), f)
+        while len(out) < len(procs):
+            for name, (p, f) in procs.items():
+                if name not in out and p.poll() is not None:
+                    out[name] = dict(rc=p.returncode, s=time.perf_counter() - t0)
+            if time.perf_counter() - t0 > timeout:
+                break
+            time.sleep(0.05)
+    finally:
+        for name, (p, f) in procs.items():
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+                out.setdefault(name, dict(rc="killed", s=time.perf_counter() - t0))
+            f.close()
+    return out
+
+
+def cli_checks(save_dir, dev, root, scene_dir, dilation, years, scene_size, tile=512,
+               cli_scene=(1500, 2048)):
+    """The four CLIs end to end as subprocesses: convert on a 5-band TIFF
+    year tree, predict on one PNG, a --batch directory of 8 and a --scene
+    TIFF, change over the pipelined scenes' dated polylines, export of the
+    trainer's checkpoint, then predict --torch-checkpoint of the export,
+    whose masks must equal --checkpoint's."""
+    import importlib.util
+
+    from PIL import Image
+
+    rng = np.random.default_rng(5)
+    for year in (2021, 2022):
+        os.makedirs(os.path.join(root, "tifs", str(year)))
+        write_five_band_tif(os.path.join(root, "tifs", str(year), f"coast_{year}.tif"),
+                            tiled_scene(600, year)[0][:, :500], rng)
+    os.makedirs(os.path.join(root, "batch"))
+    for i in range(8):
+        Image.fromarray(tiled_scene(512, 40 + i)[0]).save(os.path.join(root, "batch", f"t{i}.png"))
+    Image.fromarray(tiled_scene(512, 50)[0]).save(os.path.join(root, "single.png"))
+    write_five_band_tif(os.path.join(root, "granule_cut.tif"),
+                        tiled_scene(max(cli_scene), 51)[0][:cli_scene[0], :cli_scene[1]], rng)
+    logs = fresh_dir(os.path.join(root, "logs"))
+
+    def out(name):
+        return os.path.join(root, name)
+
+    predict = ["coastline_torch.cli.predict", "--dilation", str(dilation), "--image-size",
+               str(tile), "--device", str(dev)]
+    shorelines = [os.path.join(scene_dir, f"scene_{y}_coastlines.json") for y in years]
+    jobs = {
+        "convert": ["coastline_torch.cli.convert", "--input", out("tifs"), "--output",
+                    out("converted")],
+        "predict_single": predict + [out("single.png"), "--checkpoint", save_dir, "--output",
+                                     out("single_out")],
+        "predict_batch": predict + [out("batch"), "--batch", "--checkpoint", save_dir,
+                                    "--output", out("batch_out")],
+        "predict_scene": predict + [out("granule_cut.tif"), "--scene", "--checkpoint", save_dir,
+                                    "--output", out("scene_out")],
+        "change": ["coastline_torch.cli.change", *shorelines, "--baseline",
+                   f"0,{scene_size // 2} {scene_size - 1},{scene_size // 2}",
+                   "--spacing", "128", "--length", "1000", "--output-dir", out("change_out")],
+        "export": ["coastline_torch.cli.export", "--checkpoint-dir", save_dir, "--out",
+                   out("model.pth"), "--device", str(dev)],
+    }
+    runs = run_clis(jobs, logs)
+    runs.update(run_clis({"predict_batch_pth": predict + [
+        out("batch"), "--batch", "--torch-checkpoint", out("model.pth"), "--output",
+        out("batch_pth_out")]}, logs))
+    figures = importlib.util.find_spec("matplotlib") is not None  # the figures need it
+
+    def extraction_set(base):
+        return [f"{base}_water_mask.png", f"{base}_coastline_mask.png",
+                f"{base}_coastlines.json"] + ([f"{base}_analysis.png"] if figures else [])
+
+    want = {
+        "convert": ["converted/coast_2021.png", "converted/coast_2022.png",
+                    "metadata/coast_2021.json", "metadata/coast_2022.json",
+                    "conversion_summary.json"],
+        "predict_single": extraction_set("single"),
+        "predict_batch": [f for i in range(8) for f in extraction_set(f"t{i}")],
+        "predict_scene": extraction_set("granule_cut"),
+        "change": ["shoreline_change.json"] + (["shoreline_change.png"] if figures else []),
+        "predict_batch_pth": [f for i in range(8) for f in extraction_set(f"t{i}")],
+    }
+    dirs = {"convert": "converted", "predict_single": "single_out", "predict_batch": "batch_out",
+            "predict_scene": "scene_out", "change": "change_out",
+            "predict_batch_pth": "batch_pth_out"}
+    failures = [f"cli {name} exited {r['rc']}: see {os.path.join(logs, name + '.log')}"
+                for name, r in runs.items() if r["rc"] != 0]
+    for name, files in want.items():
+        missing = [f for f in files if not os.path.exists(os.path.join(out(dirs[name]), f))]
+        runs[name]["artifacts"] = len(files) - len(missing)
+        if missing:
+            failures.append(f"cli {name} did not write {missing}")
+    if not failures:
+        sd = torch.load(out("model.pth"), map_location="cpu", weights_only=True)
+        UNet(n_classes=2).load_state_dict(sd, strict=True)
+        same = [np.array_equal(*(np.asarray(Image.open(os.path.join(out(d), f"t{i}_water_mask.png")))
+                                 for d in ("batch_out", "batch_pth_out"))) for i in range(8)]
+        runs["export"]["pth_masks_equal_checkpoint_masks"] = all(same)
+        scene_mask = np.asarray(Image.open(os.path.join(out("scene_out"),
+                                                        "granule_cut_water_mask.png")))
+        runs["predict_scene"]["mask_shape"] = list(scene_mask.shape)
+        with open(os.path.join(out("converted"), "conversion_summary.json")) as f:
+            runs["convert"]["converted_files"] = json.load(f)["converted_files"]
+        with open(os.path.join(out("change_out"), "shoreline_change.json")) as f:
+            change = json.load(f)
+        runs["change"].update(transects=len(change["transects"]),
+                              with_rate=change["n_transects_with_rate"])
+        if not all(same):
+            failures.append("the exported .pth serves other masks than its checkpoint")
+        if scene_mask.shape != tuple(cli_scene):
+            failures.append(f"--scene mask {scene_mask.shape}, want the TIFF's {cli_scene}")
+        if runs["convert"]["converted_files"] != 2 or not change["transects"]:
+            failures.append(f"convert or change produced nothing: {runs}")
+    runs["figures"] = figures
+    log("extraction_clis", json.dumps(runs))
+    return runs, failures
+
+
+def extraction_path(dev, save_dir=TRAIN_DIR, size=GRANULE, tile=512, batch=8, dilation=20,
+                    check_shape=(700, 900), check_tile=128, pipe_size=2048,
+                    cli_scene=(1500, 2048)):
+    """The extraction path on the card, serving `train_path`'s best
+    checkpoint: (1) a bf16 `CoastlineExtractor(checkpoint_dir=)` predicts a
+    size^2 granule through `predict_scene(batch=8, with_band=20)`, counted,
+    against the host tiling path, with the dilation at the granule's shape
+    against its plain version and the native tracer on the band; (2) the f32
+    scene path against the CPU; (3) `extract_scenes` pipelined against
+    sequential over three 2048^2 scenes; (4) the CLIs as subprocesses. No
+    check depends on how well the checkpoint learned."""
+    t0 = time.perf_counter()
+    root = fresh_dir(EXTRACT_DIR)
+    ex = CoastlineExtractor(checkpoint_dir=save_dir, dtype=torch.bfloat16, image_size=tile,
+                            device=dev)
+    result, failures = {}, []
+    result["granule"], fails = granule_check(ex, dev, size, batch, dilation)
+    failures += fails
+    if dev.type == "cuda":
+        torch.cuda.empty_cache()
+    result["card_vs_cpu"], fails = scene_card_vs_cpu(save_dir, dev, check_shape, check_tile,
+                                                     check_tile // 8, dilation)
+    failures += fails
+    years = (2019, 2021, 2024)
+    result["pipelining"], scene_dir, fails = scene_pipelining(ex, root, pipe_size, batch, dilation,
+                                                              years)
+    failures += fails
+    del ex
+    if dev.type == "cuda":
+        torch.cuda.empty_cache()
+    result["clis"], fails = cli_checks(save_dir, dev, root, scene_dir, dilation, years,
+                                       pipe_size, tile, cli_scene)
+    failures += fails
+    result["s"] = time.perf_counter() - t0
+    log(f"extraction_path {result['s']:.1f} s")
+    if failures:
+        raise AssertionError("extraction path: " + "; ".join(failures))
+    return result
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--out", help="also write every result to this JSON file")
@@ -1687,6 +2057,8 @@ def main(argv=None) -> int:
     zoo = zoo_path(dev)
     train = train_path(dev)
     protocol = protocol_path(dev)
+    extraction = extraction_path(dev, train["save_dir"])
+    granule = extraction["granule"]
 
     def path_launches(path, name):
         return sum(e["launches"][name] for e in path["epochs"].values())
@@ -1701,7 +2073,8 @@ def main(argv=None) -> int:
                   "segnet_eval": path_launches(segnet, "fused_conv3x3_bn_relu"),
                   "zoo_eval": zoo_launches("fused_conv3x3_bn_relu"),
                   "unet_train_validate": train["fused_conv_launches"]["validate"],
-                  "protocol": on_protocol["fused_conv3x3_bn_relu"]}
+                  "protocol": on_protocol["fused_conv3x3_bn_relu"],
+                  "extraction_granule": granule["launches"]["fused_conv3x3_bn_relu"]}
     kernels = [
         dict(name="fused_conv3x3_bn_relu", route="cuda",
              source="coastline_torch/csrc/fused_conv3x3_bn_relu.cu",
@@ -1714,15 +2087,18 @@ def main(argv=None) -> int:
              tflops=conv["tflops"], shape=conv["shape"]),
         dict(name="dilate_disk", route="cuda", source="coastline_torch/csrc/dilate_disk.cu",
              replaces="coastline/pallas/morphology.py:262",
-             launches=serving["launches"]["dilate_disk"] + on_protocol["dilate_disk"],
+             launches=(serving["launches"]["dilate_disk"] + on_protocol["dilate_disk"]
+                       + granule["launches"]["dilate_disk"]),
              launches_by_path={"serving": serving["launches"]["dilate_disk"],
-                               "protocol": on_protocol["dilate_disk"]},
+                               "protocol": on_protocol["dilate_disk"],
+                               "extraction_granule": granule["launches"]["dilate_disk"]},
              max_abs_err=max(c["max_abs_err"] for c in dil), ms=main_dil["ms"],
              plain_ms=main_dil["plain_ms"], bound_ms=main_dil["bound_ms"],
              bound_by=main_dil["bound_by"], library_ms=main_dil["library_ms"],
              device_ms=main_dil["device_ms"], share_of_bound=main_dil["share_of_bound"],
              shape=main_dil["shape"], size=main_dil["size"],
-             library="conv-threshold: F.conv2d f32 with the SE, then > 0", cases=dil),
+             library="conv-threshold: F.conv2d f32 with the SE, then > 0", cases=dil,
+             granule=granule["dilate_granule"]),
     ]
     for name, source, replaces in (
             ("avg_max_pool", "avg_max_pool.cu",
@@ -1759,7 +2135,7 @@ def main(argv=None) -> int:
                            serving=serving, cbam_cases=cbam_cases, residual_block=block,
                            robust_unet=robust, unpool_cases=unpool_cases, segnet=segnet,
                            zoo=zoo, total_s=time.perf_counter() - t_start,
-                           unet_train=train, protocol=protocol),
+                           unet_train=train, protocol=protocol, extraction=extraction),
                       f, indent=1)
     log(f"total {time.perf_counter() - t_start:.1f} s")
     log(json.dumps({"kernels": kernels}))

@@ -114,13 +114,16 @@ def make_dataset(images: np.ndarray, masks: np.ndarray, paths=None, placement: s
 
 def load_image_rgb(path: str, fallback_size=(512, 512)):
     """RGB PIL image with the reference's grey fallback for an unreadable
-    file (`Main_Final.py:56-60`). Raw GeoTIFFs (`.tif`, `.tiff`) raise: their
-    NIR-R-G intake is not ported yet."""
+    file (`Main_Final.py:56-60`). Raw GeoTIFFs (`.tif`, `.tiff`) go through
+    the NIR-R-G water-enhancement intake (`data/geotiff.py`), the
+    production dataset's behaviour (`train_water_segmentation.py:89-174`)."""
     from PIL import Image
 
-    if path.lower().endswith((".tif", ".tiff")):
-        raise NotImplementedError(f"{path}: the GeoTIFF intake is not ported yet")
     try:
+        if path.lower().endswith((".tif", ".tiff")):
+            from coastline_torch.data.geotiff import load_tif_enhanced
+
+            return Image.fromarray(load_tif_enhanced(path)[0])
         return Image.open(path).convert("RGB")
     except Exception:  # any unreadable file, PIL's DecompressionBombError too, as the reference
         return Image.new("RGB", fallback_size, (128, 128, 128))

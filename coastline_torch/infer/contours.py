@@ -1,11 +1,13 @@
 """Host-side contour tracing and simplification (counterpart of
-`coastline/infer/contours.py:27-129`).
+`coastline/infer/contours.py`).
 
-External contours only, contours of <= MIN_POINTS points dropped,
-simplified with epsilon = EPSILON_FRAC * arc length, as the reference
-does. cv2 gives the reference's exact semantics when it is installed;
-otherwise the pure-Python Moore tracer and Ramer-Douglas-Peucker run (they
-need scipy).
+External contours only, contours of <= `min_points` points dropped,
+simplified with epsilon = `epsilon_frac` * arc length, as the reference
+does (`predict_coastline.py:583-618`). Backends, in `auto`'s order: cv2
+(the reference's exact semantics) when it imports, the native C++ tracer
+(`coastline_torch/native`, built with g++ at first use; bit-identical to
+the Python one), then the pure-Python Moore tracer and Ramer-Douglas-Peucker
+(they need scipy). `backend=` forces one.
 """
 
 from typing import List
@@ -83,14 +85,17 @@ def _rdp(points: np.ndarray, eps: float) -> np.ndarray:
     return points[keep]
 
 
-def extract_contours(band_mask, backend: str = "auto") -> List[List[List[int]]]:
+def extract_contours(band_mask, min_points: int = MIN_POINTS,
+                     epsilon_frac: float = EPSILON_FRAC,
+                     backend: str = "auto") -> List[List[List[int]]]:
     """Coastline band (numpy array or tensor) -> polylines as [[x, y], ...].
 
-    backend: 'auto' (cv2 when installed, else python), 'cv2' or 'python'."""
+    backend: 'auto' (cv2 > native > python), or 'cv2', 'native', 'python'.
+    A forced backend that is unavailable raises."""
     if isinstance(band_mask, torch.Tensor):
         band_mask = band_mask.cpu().numpy()
     band = np.asarray(band_mask).astype(np.uint8)
-    if backend not in ("auto", "cv2", "python"):
+    if backend not in ("auto", "cv2", "native", "python"):
         raise ValueError(f"unknown contour backend {backend!r}")
     if backend == "cv2" and not _HAS_CV2:
         raise RuntimeError("cv2 backend requested but cv2 is not installed")
@@ -98,13 +103,24 @@ def extract_contours(band_mask, backend: str = "auto") -> List[List[List[int]]]:
     if backend == "cv2" or (backend == "auto" and _HAS_CV2):
         contours, _ = cv2.findContours(band, cv2.RETR_EXTERNAL, cv2.CHAIN_APPROX_SIMPLE)
         for c in contours:
-            if len(c) > MIN_POINTS:
-                eps = EPSILON_FRAC * cv2.arcLength(c, True)
+            if len(c) > min_points:
+                eps = epsilon_frac * cv2.arcLength(c, True)
                 coastlines.append(cv2.approxPolyDP(c, eps, True).reshape(-1, 2).tolist())
         return coastlines
-    for c in _moore_trace(band):
-        if len(c) > MIN_POINTS:
+    traced, simplify = None, _rdp
+    if backend in ("auto", "native"):
+        from coastline_torch import native
+
+        traced = native.moore_trace(band)
+        if traced is not None:
+            simplify = native.rdp
+        elif backend == "native":
+            raise RuntimeError("native contour library unavailable (g++ missing or build failed)")
+    if traced is None:
+        traced = _moore_trace(band)
+    for c in traced:
+        if len(c) > min_points:
             closed = np.vstack([c, c[:1]])
             arc = np.hypot(*np.diff(closed, axis=0).astype(float).T).sum()
-            coastlines.append(_rdp(c, EPSILON_FRAC * arc).tolist())
+            coastlines.append(simplify(c, epsilon_frac * arc).tolist())
     return coastlines

@@ -16,6 +16,8 @@ order before its roundings: |d| <= 1e-5 (|y| + |ref|) + 1e-6 in float32 and
 2^-6 (|y| + |ref|) in bfloat16.
 """
 
+import os
+
 import numpy as np
 import pytest
 import torch
@@ -553,3 +555,50 @@ def test_dropout2d_on_card(dev):
     from chip_smoke import dropout_check
 
     assert dropout_check(dev)["ok"]
+
+
+@pytest.mark.parametrize("shape,batch,overlap,dilation", [((300, 410, 3), 4, 16, 20),
+                                                          ((70, 1101, 3), 3, 8, 5),
+                                                          ((50, 60, 3), 8, 16, 20)])
+def test_scene_pipeline_on_card_matches_host_path(dev, shape, batch, overlap, dilation):
+    """The device scene pipeline on the card (pinned upload, tiles cut and
+    stitched there, band by the dilation kernel) equals the host tiling path
+    bit for bit, its band equals the CPU band of its mask, and one scene
+    launches the dilation once (widths 1 and 1101 mod 4 = 1)."""
+    from coastline_torch.infer.extract import CoastlineExtractor
+    from coastline_torch.infer.morphology import coastline_band
+
+    ex = CoastlineExtractor(dtype=torch.bfloat16, image_size=128, device=dev)
+    scene = np.random.default_rng(1).integers(0, 256, shape, dtype=np.uint8)
+    before = (dilate_disk.launches, fused_conv3x3_bn_relu.launches)
+    mask, band = ex.predict_scene(scene, batch=batch, overlap=overlap, with_band=dilation)
+    ny, nx = (-(-(n - overlap) // (128 - overlap)) for n in shape[:2])
+    assert (dilate_disk.launches - before[0],
+            fused_conv3x3_bn_relu.launches - before[1]) == (1, 2 * -(-ny * nx // batch))
+    host_mask, host_band = ex.predict_scene(scene, batch=batch, overlap=overlap,
+                                            device_pipeline=False, with_band=dilation)
+    np.testing.assert_array_equal(mask, host_mask)
+    np.testing.assert_array_equal(band, host_band)
+    np.testing.assert_array_equal(band, coastline_band(mask, dilation, device="cpu").numpy())
+
+
+def test_extract_scenes_on_card_pipelined_matches_sequential(dev, tmp_path):
+    """Pinned, non-blocking downloads queued before the next scene's work:
+    the pipelined run equals the sequential one, artifacts included."""
+    from PIL import Image
+
+    from coastline_torch.infer.extract import CoastlineExtractor
+
+    ex = CoastlineExtractor(image_size=64, device=dev)
+    rng = np.random.default_rng(2)
+    paths = []
+    for i, shape in enumerate([(200, 300, 3), (200, 300, 3), (180, 90, 3)]):
+        paths.append(str(tmp_path / f"s{2019 + i}.png"))
+        Image.fromarray(rng.integers(0, 256, shape, dtype=np.uint8)).save(paths[-1])
+    seq = ex.extract_scenes(paths, str(tmp_path / "a"), 5, batch=4, pipeline_depth=1)
+    piped = ex.extract_scenes(paths, str(tmp_path / "b"), 5, batch=4, pipeline_depth=2)
+    for a, b in zip(seq, piped):
+        np.testing.assert_array_equal(a["water_mask"], b["water_mask"])
+        np.testing.assert_array_equal(a["coastline_mask"], b["coastline_mask"])
+        assert a["coastlines"] == b["coastlines"]
+    assert sorted(os.listdir(tmp_path / "a")) == sorted(os.listdir(tmp_path / "b"))

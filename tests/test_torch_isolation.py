@@ -53,7 +53,13 @@ def test_port_and_chip_smoke_import_no_jax_and_no_coastline():
               "coastline_torch.models.yoloseg", "coastline_torch.models.pspnet",
               "coastline_torch.models.fastscnn", "coastline_torch.models.enet",
               "coastline_torch.models.waternet", "coastline_torch.models.mswnet",
-              "coastline_torch.models.hrnet_water", "coastline_torch.models.segformer_lite"):
+              "coastline_torch.models.hrnet_water", "coastline_torch.models.segformer_lite",
+              "coastline_torch.data.tiling", "coastline_torch.infer.scene",
+              "coastline_torch.data.geotiff", "coastline_torch.infer.geojson",
+              "coastline_torch.infer.change", "coastline_torch.report.coastsat_fig",
+              "coastline_torch.report.change_fig", "coastline_torch.cli.predict",
+              "coastline_torch.cli.convert", "coastline_torch.cli.change",
+              "coastline_torch.cli.export", "coastline_torch.native"):
         assert m in report["modules"]
 
 
@@ -71,6 +77,8 @@ def _entry_points():
     from coastline_torch.cli.bench_all import main as bench_all_cli
     from coastline_torch.train.loop import Evaluator
     from coastline_torch.models.registry import create_model
+    from coastline_torch.cli.predict import main as predict_cli
+    from coastline_torch.cli.export import main as export_cli
 
     mask = np.zeros((8, 8), np.uint8)
     return {
@@ -91,6 +99,9 @@ def _entry_points():
         "zoo_train_epoch": lambda: make_train_epoch(create_model("PSPNet"), TrainConfig()),
         "zoo_evaluator": lambda: Evaluator(create_model("SegFormer-Lite"), TrainConfig()),
         "bench_all_default_list": lambda: bench_all_cli(["--synthetic", "2"]),
+        "predict_cli": lambda: predict_cli(["x.png", "--random-weights"]),
+        "scene": lambda: CoastlineExtractor().predict_scene(np.zeros((40, 40, 3), np.uint8)),
+        "export_cli": lambda: export_cli(["--checkpoint-dir", "x", "--out", "x.pth"]),
     }
 
 
@@ -98,7 +109,8 @@ def _entry_points():
                                   "segnet_eval_epoch", "make_train_epoch", "create_train_state",
                                   "trainer", "train_cli", "make_dataset", "evaluator",
                                   "bench_all_cli", "zoo_eval_epoch", "zoo_train_epoch",
-                                  "zoo_evaluator", "bench_all_default_list"])
+                                  "zoo_evaluator", "bench_all_default_list", "predict_cli",
+                                  "scene", "export_cli"])
 def test_entry_points_raise_without_a_card(name, monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="no CUDA device"):

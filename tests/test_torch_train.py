@@ -277,10 +277,20 @@ def test_file_pipeline_matches_jax(tmp_path):
     ds = pipeline.build_dataset(*got, (24, 20), with_paths=True, device="cpu")
     assert isinstance(ds, pipeline.DeviceDataset) and ds.paths == got[0]
     assert tuple(ds.images.shape) == (3, 20, 24, 3) and ds.masks.dtype == torch.uint8
-    tif = tmp_path / "scene.tif"
-    tif.write_bytes(b"")
-    with pytest.raises(NotImplementedError, match="GeoTIFF"):
-        pipeline.load_image_rgb(str(tif))
+    from PIL import Image
+
+    empty = tmp_path / "empty.tif"  # GeoTIFFs: JAX's grey fallback for an empty file,
+    empty.write_bytes(b"")  # the enhanced NIR-R-G image for a valid one
+    tif = str(tmp_path / "scene.tif")
+    frames = [Image.fromarray(b) for b in
+              np.random.default_rng(3).integers(0, 255, (5, 20, 30), dtype=np.uint8)]
+    frames[0].save(tif, save_all=True, append_images=frames[1:])
+    grey, rgb = pipeline.load_image_rgb(str(empty)), pipeline.load_image_rgb(tif)
+    assert grey.size == (512, 512) and (np.asarray(grey) == 128).all()
+    assert rgb.size == (30, 20) and rgb.mode == "RGB"
+    for path, loaded in ((str(empty), grey), (tif, rgb)):
+        np.testing.assert_array_equal(np.asarray(loaded),
+                                      np.asarray(jax_pipeline.load_image_rgb(path)))
 
 
 def test_loaders_catch_what_the_jax_package_catches(tmp_path, monkeypatch):
