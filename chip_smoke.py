@@ -15,11 +15,11 @@ Needs one NVIDIA H100 and the CUDA toolkit; builds the kernels from
      (8, 256, 256, 64) with a conv bias folded into its BN), the dilation,
      the three CBAM kernels (pool, gated stats, tail) at the five Robust
      U-Net level shapes (the fourth, (8, 64, 64, 512), also WaterNet's
-     bottleneck, where `fused_avg_max_pool` runs), (2, 4, 4, 1024) and an
-     odd shape, and SegNet's indexed
+     bottleneck, where `fused_avg_max_pool` runs and is timed), (2, 4, 4,
+     1024) and an odd shape, and SegNet's indexed
      pool and unpool at its four levels and an odd shape, on inputs full of
      ties (ReLU zeros, equal pairs, +0/-0, NaN and inf), bit for bit, in
-     bf16 and f32;
+     bf16 and f32, and in int8 on codes in -3..3 (the int8 SegNet's);
   4. the serving path at full width: the 31,043,586-parameter 2-class UNet
      (random weights from a numpy seed, through the weight bridge) in bf16
      behind `serve(batch_size=8)` answers 16 concurrent 512^2 requests, the
@@ -96,7 +96,23 @@ Needs one NVIDIA H100 and the CUDA toolkit; builds the kernels from
      sequential; and the convert, predict (image, --batch, --scene), change
      and export CLIs as subprocesses with their artifacts, the exported
      .pth serving the checkpoint's masks;
-  12. a `kernels` JSON line, the card line and the last line:
+  12. the int8 PTQ path (`int8_path`, serving phase 9's checkpoint): the
+     UNet `quantize`d to an .npz, 16 requests through `serve()` at batch 8,
+     512^2 (21 int8 conv launches a forward, no fused conv, one dilation a
+     band call), `from_quantized` serving the same masks bit for bit, the
+     card against the CPU path at 128^2 (>= 99.5% of mask pixels), int8 and
+     bf16 forward times; an int8 2048^2 scene equal to the host tiling path;
+     the Robust U-Net's and SegNet's int8 forwards at batch 8, 512^2 (38 and
+     18 int8 convs, SegNet's 4 pools and unpools on codes) against the CPU
+     at 128^2 layer by layer (>= 99% of mask pixels, <= 1e-5 of any site's
+     codes, a limit that a control, the site multiplying by the step's
+     reciprocal, must exceed; `forced_card_vs_cpu` says why); then the int8
+     conv at every configuration those three forwards take, bit for bit
+     against its plain version, timed against its bound and cuDNN's bf16
+     conv. The int8 CLIs (predict --int8
+     --save-quantized, predict --batch --quantized, export --quantized-out
+     --calib-images) run in phase 11's subprocess pool;
+  13. a `kernels` JSON line, the card line and the last line:
      {"ok": true, "device": {...}}.
 
 Float32 convolutions run with cuDNN's TF32 off, so every float32 number
@@ -118,12 +134,16 @@ import torch
 import torch.nn.functional as F
 
 from coastline_torch.infer.contours import extract_contours
+from coastline_torch.infer import deploy as quant_deploy
+from coastline_torch.infer import quant
 from coastline_torch.infer.extract import CoastlineExtractor
 from coastline_torch.infer.morphology import coastline_band, elliptical_kernel
 from coastline_torch.infer.scene import build_scene_fn
 from coastline_torch.kernels import _build, cbam, unpool
 from coastline_torch.kernels.fused_conv import (fused_conv3x3_bn_relu,
                                                 fused_conv3x3_bn_relu_plain)
+from coastline_torch.kernels.int8_conv import (int8_conv, int8_conv_plain, normalize_padding,
+                                               packed)
 from coastline_torch.kernels.morphology import dilate_disk, dilate_disk_plain, se_row_groups
 from coastline_torch.kernels.pools import fused_avg_max_pool
 from coastline_torch.models import segnet as segnet_module
@@ -440,6 +460,22 @@ def check_cbam(dev):
                          gb_per_s=nbytes / ms / 1e6, shape=list(shape), dtype="bfloat16",
                          library=lib_name)
         log(name, json.dumps(out[name]))
+    # `fused_avg_max_pool` (the same kernel under its own wrapper) at WaterNet's
+    # bottleneck, (8, 64, 64, 512) bf16, where its one launch a forward runs
+    shape = LEVEL_SHAPES[3]
+    x = _cbam_inputs(shape, torch.bfloat16, dev, gen)[0]
+    xl = x.permute(0, 3, 1, 2)
+    n = x.numel()
+    nbytes = 2 * n + 2 * shape[0] * shape[3] * 2
+    bound_ms, bound_by = bound(nbytes, 2 * n, PEAK_F32_OPS)
+    out["fused_avg_max_pool"] = dict(
+        ms=cuda_ms(lambda: fused_avg_max_pool(x), 20),
+        device_ms=device_ms(lambda: fused_avg_max_pool(x), 20),
+        plain_ms=cuda_ms(lambda: cbam.avg_max_pool_plain(x), 5, 1),
+        library_ms=cuda_ms(lambda: (xl.mean((2, 3)), xl.amax((2, 3))), 20),
+        bound_ms=bound_ms, bound_by=bound_by, shape=list(shape), dtype="bfloat16",
+        library="channels_last x.mean((2,3)) + x.amax((2,3))")
+    log("fused_avg_max_pool", json.dumps(out["fused_avg_max_pool"]))
     return out, cases
 
 
@@ -483,21 +519,40 @@ def _finite_err(a, b) -> float:
     return float((a - b)[finite].abs().max()) if bool(finite.any()) else 0.0
 
 
+def _tie_codes(shape, dev, gen):
+    """Int8 codes full of ties, as a requantized ReLU activation holds them:
+    values in -3..3, channels 0::3 with equal codes at window positions 0
+    and 3, one channel of the first window all -128 (below every code the
+    sites make) and the extreme codes -127 and 127."""
+    b, h, w, c = shape
+    x = torch.randint(-3, 4, shape, device=dev, generator=gen, dtype=torch.int8)
+    if h % 2 == 0 and w % 2 == 0:
+        xw = x.view(b, h // 2, 2, w // 2, 2, c)
+        xw[:, :, 1, :, 1, ::3] = xw[:, :, 0, :, 0, ::3]
+    x[0, :2, :2, 0] = -128
+    x[-1, -1, -1, :], x[0, -1, 0, :] = 127, -127
+    return x
+
+
 def check_unpool(dev):
     """SegNet's indexed pool and unpool against their plain versions at the
-    four levels and an odd shape, in bf16 and f32, on inputs full of ties:
-    codes, values and the unpooled output bit for bit. Times at the top
-    level, bf16."""
+    four levels and an odd shape, in bf16, f32 and int8 (the int8 SegNet
+    pools and unpools codes), on inputs full of ties: codes, values and the
+    unpooled output bit for bit. Times at the top level, bf16, and beside
+    them int8."""
     gen = torch.Generator(device=dev).manual_seed(3)
     cases, errs = [], {"max_pool_with_indices": 0.0, "max_unpool": 0.0}
-    for dt in (torch.bfloat16, torch.float32):
+    for dt in (torch.bfloat16, torch.float32, torch.int8):
         for shape, vshape in zip(POOL_SHAPES, UNPOOL_SHAPES):
             odd = shape[0] == 3
-            x = _tie_input(shape, dt, dev, gen, nonfinite=odd)
+            if dt == torch.int8:
+                x, v = _tie_codes(shape, dev, gen), _tie_codes(vshape, dev, gen)
+            else:
+                x = _tie_input(shape, dt, dev, gen, nonfinite=odd)
+                v = _tie_input(vshape, dt, dev, gen, nonfinite=odd)
             vals, codes = unpool.max_pool_with_indices(x)
             torch.cuda.synchronize()
             r_vals, r_codes = unpool.max_pool_with_indices_plain(x)
-            v = _tie_input(vshape, dt, dev, gen, nonfinite=odd)
             k = torch.randint(0, 4, vshape, device=dev, generator=gen, dtype=torch.int32)
             out = unpool.max_unpool(v, k)
             torch.cuda.synchronize()
@@ -520,33 +575,40 @@ def check_unpool(dev):
                 raise AssertionError(f"a SegNet pool kernel disagrees with its plain version: {case}")
             del x, vals, codes, r_vals, r_codes, v, k, out, r_out
 
-    x = _tie_input(POOL_SHAPES[0], torch.bfloat16, dev, gen)
-    vals, codes = unpool.max_pool_with_indices(x)
-    xl = x.permute(0, 3, 1, 2)  # the channels_last NCHW view
-    lib_vals, lib_idx = F.max_pool2d(xl, 2, return_indices=True)
-    n_in, n_out = x.numel(), vals.numel()
-    timings = {
-        "max_pool_with_indices": (
-            lambda: unpool.max_pool_with_indices(x), lambda: unpool.max_pool_with_indices_plain(x),
-            lambda: F.max_pool2d(xl, 2, return_indices=True),
-            "F.max_pool2d(return_indices=True), int64 flat indices, bf16 channels_last",
-            2 * n_in + 2 * n_out + 4 * n_out, 3 * n_out, list(x.shape)),
-        "max_unpool": (
-            lambda: unpool.max_unpool(vals, codes), lambda: unpool.max_unpool_plain(vals, codes),
-            lambda: F.max_unpool2d(lib_vals, lib_idx, 2),
-            "F.max_unpool2d, int64 flat indices, bf16 channels_last",
-            2 * n_out + 4 * n_out + 2 * n_in, 4 * n_out, list(vals.shape)),
-    }
     out = {}
-    for name, (kern, plain, lib, lib_name, nbytes, ops, shape) in timings.items():
-        ms = cuda_ms(kern, 20)
-        plain_ms = cuda_ms(plain, 5, 1)
-        library_ms = cuda_ms(lib, 20)
-        bound_ms, bound_by = bound(nbytes, ops, PEAK_F32_OPS)
-        out[name] = dict(max_abs_err=errs[name], ms=ms, plain_ms=plain_ms, library_ms=library_ms,
-                         bound_ms=bound_ms, bound_by=bound_by, gb_per_s=nbytes / ms / 1e6,
-                         shape=shape, dtype="bfloat16", library=lib_name)
-        log(name, json.dumps(out[name]))
+    for dt in (torch.bfloat16, torch.int8):
+        x = (_tie_codes(POOL_SHAPES[0], dev, gen) if dt == torch.int8
+             else _tie_input(POOL_SHAPES[0], dt, dev, gen))
+        vals, codes = unpool.max_pool_with_indices(x)
+        xl = x.permute(0, 3, 1, 2)  # the channels_last NCHW view
+        lib_vals, lib_idx = (F.max_pool2d(xl, 2, return_indices=True) if dt != torch.int8
+                             else (None, None))  # no int8 max pool in PyTorch on CUDA
+        n_in, n_out, size = x.numel(), vals.numel(), x.element_size()
+        timings = {
+            "max_pool_with_indices": (
+                lambda: unpool.max_pool_with_indices(x), lambda: unpool.max_pool_with_indices_plain(x),
+                lambda: F.max_pool2d(xl, 2, return_indices=True),
+                "F.max_pool2d(return_indices=True), int64 flat indices, bf16 channels_last",
+                size * n_in + size * n_out + 4 * n_out, 3 * n_out, list(x.shape)),
+            "max_unpool": (
+                lambda: unpool.max_unpool(vals, codes), lambda: unpool.max_unpool_plain(vals, codes),
+                lambda: F.max_unpool2d(lib_vals, lib_idx, 2),
+                "F.max_unpool2d, int64 flat indices, bf16 channels_last",
+                size * n_out + 4 * n_out + size * n_in, 4 * n_out, list(vals.shape)),
+        }
+        for name, (kern, plain, lib, lib_name, nbytes, ops, shape) in timings.items():
+            ms = cuda_ms(kern, 20)
+            plain_ms = cuda_ms(plain, 5, 1)
+            bound_ms, bound_by = bound(nbytes, ops, PEAK_F32_OPS)
+            row = dict(ms=ms, plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by,
+                       gb_per_s=nbytes / ms / 1e6, shape=shape, dtype=str(dt).split(".")[-1])
+            if dt == torch.int8:
+                out[name]["int8"] = row
+            else:
+                out[name] = dict(row, max_abs_err=errs[name], library_ms=cuda_ms(lib, 20),
+                                 library=lib_name)
+            log(name, json.dumps(row))
+        del x, vals, codes, xl, lib_vals, lib_idx
     return out, cases
 
 
@@ -687,6 +749,7 @@ def serving_path(variables, dev, rng, size=512):
 
 _KERNEL_CLASSES = (  # (class, substrings of the CUDA kernel name), first match wins
     ("fused_conv3x3_bn_relu (ours)", ("fused_conv_kernel",)),
+    ("int8_conv (ours)", ("int8_conv_kernel",)),
     ("dilate_disk (ours)", ("dilate_kernel",)),
     ("avg_max_pool (ours)", ("cbam_avg_max",)),
     ("gated_spatial_stats (ours)", ("cbam_gated_stats",)),
@@ -868,7 +931,7 @@ ALL_COUNTERS = {"fused_conv3x3_bn_relu": fused_conv3x3_bn_relu, "dilate_disk": d
                 "avg_max_pool": cbam.avg_max_pool, "fused_avg_max_pool": fused_avg_max_pool,
                 "gated_spatial_stats": cbam.gated_spatial_stats, "cbam_tail": cbam.cbam_tail_apply,
                 "max_pool_with_indices": unpool.max_pool_with_indices,
-                "max_unpool": unpool.max_unpool}
+                "max_unpool": unpool.max_unpool, "int8_conv": int8_conv}
 ROBUST_COUNTERS = {"avg_max_pool": cbam.avg_max_pool, "gated_spatial_stats": cbam.gated_spatial_stats,
                    "cbam_tail": cbam.cbam_tail_apply, "fused_conv3x3_bn_relu": fused_conv3x3_bn_relu,
                    "fused_avg_max_pool": fused_avg_max_pool}
@@ -984,6 +1047,7 @@ def zoo_path(dev, models=ZOO_MODELS, **kw):
 TRAIN_SIZE, TRAIN_BATCH, TRAIN_TILES, VAL_TILES, TRAIN_EPOCHS = 512, 8, 32, 8, 3
 _TRAIN_CLASSES = (  # kernel classes of a train step, first match wins
     ("fused_conv3x3_bn_relu (ours)", ("fused_conv_kernel",)),
+    ("int8_conv (ours)", ("int8_conv_kernel",)),
     ("Adam (foreach)", ("multi_tensor_apply",)),
     ("cuDNN conv backward (dgrad, wgrad)", ("dgrad", "wgrad", "bprop", "backward")),
     ("cuDNN conv and transposed conv forward", ("conv", "xmma", "gemm", "cudnn", "sm90", "cutlass",
@@ -1883,7 +1947,9 @@ def cli_checks(save_dir, dev, root, scene_dir, dilation, years, scene_size, tile
     year tree, predict on one PNG, a --batch directory of 8 and a --scene
     TIFF, change over the pipelined scenes' dated polylines, export of the
     trainer's checkpoint, then predict --torch-checkpoint of the export,
-    whose masks must equal --checkpoint's."""
+    whose masks must equal --checkpoint's; and the int8 runs: predict --int8
+    --save-quantized on the PNG, export --quantized-out --calib-images on
+    the directory, then predict --batch --quantized of the saved .npz."""
     import importlib.util
 
     from PIL import Image
@@ -1921,11 +1987,20 @@ def cli_checks(save_dir, dev, root, scene_dir, dilation, years, scene_size, tile
                    "--spacing", "128", "--length", "1000", "--output-dir", out("change_out")],
         "export": ["coastline_torch.cli.export", "--checkpoint-dir", save_dir, "--out",
                    out("model.pth"), "--device", str(dev)],
+        "predict_int8": predict + [out("single.png"), "--checkpoint", save_dir, "--int8",
+                                   "--save-quantized", out("cli_int8.npz"), "--output",
+                                   out("int8_out")],
+        "export_int8": ["coastline_torch.cli.export", "--checkpoint-dir", save_dir,
+                        "--quantized-out", out("export_int8.npz"), "--calib-images",
+                        out("batch"), "--image-size", str(tile), "--device", str(dev)],
     }
     runs = run_clis(jobs, logs)
-    runs.update(run_clis({"predict_batch_pth": predict + [
-        out("batch"), "--batch", "--torch-checkpoint", out("model.pth"), "--output",
-        out("batch_pth_out")]}, logs))
+    runs.update(run_clis({
+        "predict_batch_pth": predict + [out("batch"), "--batch", "--torch-checkpoint",
+                                        out("model.pth"), "--output", out("batch_pth_out")],
+        "predict_batch_quantized": predict + [out("batch"), "--batch", "--quantized",
+                                              out("cli_int8.npz"), "--output",
+                                              out("batch_int8_out")]}, logs))
     figures = importlib.util.find_spec("matplotlib") is not None  # the figures need it
 
     def extraction_set(base):
@@ -1941,10 +2016,14 @@ def cli_checks(save_dir, dev, root, scene_dir, dilation, years, scene_size, tile
         "predict_scene": extraction_set("granule_cut"),
         "change": ["shoreline_change.json"] + (["shoreline_change.png"] if figures else []),
         "predict_batch_pth": [f for i in range(8) for f in extraction_set(f"t{i}")],
+        "predict_int8": extraction_set("single") + ["../cli_int8.npz"],
+        "export_int8": ["export_int8.npz"],
+        "predict_batch_quantized": [f for i in range(8) for f in extraction_set(f"t{i}")],
     }
     dirs = {"convert": "converted", "predict_single": "single_out", "predict_batch": "batch_out",
             "predict_scene": "scene_out", "change": "change_out",
-            "predict_batch_pth": "batch_pth_out"}
+            "predict_batch_pth": "batch_pth_out", "predict_int8": "int8_out", "export_int8": ".",
+            "predict_batch_quantized": "batch_int8_out"}
     failures = [f"cli {name} exited {r['rc']}: see {os.path.join(logs, name + '.log')}"
                 for name, r in runs.items() if r["rc"] != 0]
     for name, files in want.items():
@@ -1967,6 +2046,11 @@ def cli_checks(save_dir, dev, root, scene_dir, dilation, years, scene_size, tile
             change = json.load(f)
         runs["change"].update(transects=len(change["transects"]),
                               with_rate=change["n_transects_with_rate"])
+        exported = quant_deploy.load_quantized(out("export_int8.npz"), device="cpu")
+        runs["export_int8"]["arch"] = exported.arch
+        runs["export_int8"]["sites"] = len(exported.scales)
+        if exported.arch != "unet":
+            failures.append(f"export --quantized-out wrote arch {exported.arch!r}")
         if not all(same):
             failures.append("the exported .pth serves other masks than its checkpoint")
         if scene_mask.shape != tuple(cli_scene):
@@ -2018,6 +2102,408 @@ def extraction_path(dev, save_dir=TRAIN_DIR, size=GRANULE, tile=512, batch=8, di
     return result
 
 
+INT8_DIR = os.path.join(REPO, "build", "int8_path")  # listed in .gitignore
+PEAK_INT8_OPS = 1979e12  # dense int8 tensor-core rate
+# int8 conv launches a forward under the default policy (`infer/quant.py`)
+INT8_CONVS = {"unet": 21, "robust_unet": 38, "segnet": 18}
+
+
+def int8_conv_configs(forwards):
+    """{config: {arch: calls a forward}} over one call of each `forwards[arch]`:
+    the distinct (input shape, weight shape, padding, dilation, lhs dilation,
+    output dtype) the int8 forwards hand the kernel."""
+    configs, real = {}, quant.int8_conv
+
+    def spy(x, w, x_step, w_step, bias, padding=0, dilation=1, lhs_dilation=None,
+            out_dtype=torch.float32):
+        key = (tuple(x.shape), tuple(w.hwio.shape), json.dumps(padding), dilation,
+               None if lhs_dilation is None else tuple(lhs_dilation), str(out_dtype))
+        per = configs.setdefault(key, {})
+        per[arch] = per.get(arch, 0) + 1
+        return real(x, w, x_step, w_step, bias, padding, dilation, lhs_dilation, out_dtype)
+
+    quant.int8_conv = spy
+    try:
+        for arch, fn in forwards.items():
+            fn()
+    finally:
+        quant.int8_conv = real
+    return configs
+
+
+def check_int8_conv(dev, configs, iters=10):
+    """The int8 conv at every configuration of `configs`: bit-equal to its
+    plain version (float64 cuDNN on the codes, then the same epilogue);
+    events ms, device ms, the plain version's ms, and the library
+    yardstick: the same conv in bf16 through cuDNN with the float32
+    epilogue, what the float path runs there. Bound: each input byte read
+    once, the output written once, against 2 * M * N * K int8 operations."""
+    rng = np.random.default_rng(9)
+    cases, failures = [], []
+    for (xs, ws, pad_json, dil, lhs, dt_name), per in configs.items():
+        dt = torch.bfloat16 if dt_name == "torch.bfloat16" else torch.float32
+        pad = json.loads(pad_json)
+        pad = pad if isinstance(pad, int) else tuple(tuple(p) for p in pad)
+        kh, kw, cin, cout = ws
+        x = torch.from_numpy(rng.integers(-127, 128, xs, dtype=np.int8)).to(dev)
+        wq = torch.from_numpy(rng.integers(-127, 128, ws, dtype=np.int8)).to(dev)
+        wstep = torch.from_numpy((rng.random(cout) * 2e-3 + 1e-4).astype(np.float32)).to(dev)
+        bias = torch.from_numpy(rng.normal(size=cout).astype(np.float32)).to(dev)
+        wp = packed(wq, lhs is not None)
+        step = 0.0371
+
+        def kernel():
+            return int8_conv(x, wp, step, wstep, bias, pad, dil, lhs, dt)
+
+        def plain():
+            return int8_conv_plain(x, wq, step, wstep, bias, pad, dil, lhs, dt)
+
+        got = kernel()
+        sync(dev)
+        ref = plain()
+        equal = bool(torch.equal(got.view(torch.int16 if dt == torch.bfloat16 else torch.int32),
+                                 ref.view(torch.int16 if dt == torch.bfloat16 else torch.int32)))
+        err = float((got.float() - ref.float()).abs().max())
+        # the library yardstick: the float path's bf16 cuDNN conv + float32 epilogue
+        xb = x.to(torch.bfloat16).permute(0, 3, 1, 2)
+        wf = wq.to(torch.bfloat16)
+        scale = (torch.tensor(step, device=dev) * wstep)[:, None, None]
+        if lhs is not None:
+            wt = wf.flip(0, 1).permute(2, 3, 0, 1).contiguous()
+
+            def library():
+                y = F.conv_transpose2d(xb, wt, stride=2)
+                return (y.float() * scale + bias[:, None, None]).to(dt)
+        else:
+            (pt, pb), (pl, pr) = normalize_padding(pad)
+            wo = wf.permute(3, 2, 0, 1).contiguous(memory_format=torch.channels_last)
+
+            def library():
+                y = F.conv2d(F.pad(xb, (pl, pr, pt, pb)), wo, dilation=dil)
+                return (y.float() * scale + bias[:, None, None]).to(dt)
+        m = got.shape[0] * got.shape[1] * got.shape[2]
+        k = (cin if lhs is not None else kh * kw * cin)
+        ops = 2.0 * m * cout * k
+        nbytes = x.numel() + wq.numel() + 8 * cout + got.numel() * got.element_size()
+        b_ms, b_by = bound(nbytes, ops, PEAK_INT8_OPS)
+        case = dict(x=list(xs), w=list(ws), padding=pad, dilation=dil,
+                    lhs_dilation=None if lhs is None else list(lhs), out=dt_name,
+                    per_forward=per, bit_equal=equal, max_abs_err=err,
+                    ms=cuda_ms(kernel, iters), device_ms=device_ms(kernel, iters),
+                    plain_ms=cuda_ms(plain, 1, 0), library_ms=cuda_ms(library, iters),
+                    bound_ms=b_ms, bound_by=b_by, gop=ops / 1e9)
+        case["share_of_bound"] = b_ms / case["device_ms"]
+        cases.append(case)
+        if not equal:
+            failures.append(f"int8_conv differs from its plain version at {case}")
+        del x, wq, got, ref
+    if dev.type == "cuda":
+        torch.cuda.empty_cache()
+    log("int8_conv_cases", json.dumps(cases))
+    return cases, failures
+
+
+def mask_agreement(arch, a, b) -> float:
+    """Masks of two NHWC outputs: the UNet's argmax, else probability > 0.5."""
+    if arch == "unet":
+        return float((a.argmax(-1) == b.argmax(-1)).float().mean())
+    return float(((a > 0.5) == (b > 0.5)).float().mean())
+
+
+# forced_card_vs_cpu's limit on the share of a site's codes that differ, set
+# from readings (PERF.md, int8 findings): sound runs move at most 4.8e-7 (one
+# code of a 2 Mi-code site; SegNet's `c0`, the Robust U-Net's `rb0.t1`), the
+# control `reciprocal_site` moves 3.7e-4 (SegNet `c2`) and 1.0e-3 (Robust
+# U-Net `rb0.short`) on the CPU at the same size. One code of the smallest
+# site (131,072 codes at 128^2, batch 2) is 7.6e-6.
+SITE_CODES_LIMIT = 1e-5
+
+
+def reciprocal_site(ctx, name, t, optional=False):
+    """A control for `forced_card_vs_cpu`: `_Ctx.site` multiplying by the
+    step's reciprocal instead of dividing, a rounding that the check must
+    see."""
+    out = _SITE(ctx, name, t, optional)
+    if out.step is None:
+        return out
+    inv = 1.0 / ctx.steps[(name, t.device)][1]
+    return quant._QT((t.float() * inv).round_().clamp_(-127, 127).to(torch.int8), out.step)
+
+
+_SITE = quant._Ctx.site
+
+
+def forced_card_vs_cpu(arch, card, cpu, x, card_site=_SITE):
+    """The int8 forward on the card against the CPU path, layer by layer:
+    the card's forward records every site's codes (quantized by
+    `card_site`); the CPU forward then quantizes each site from its own
+    input but passes the card's codes on, so every CPU layer reads what the
+    card's layer read. Returns the largest share of codes that a site would
+    have quantized otherwise, that site, and the mask agreement of the two
+    outputs (`mask_agreement`).
+
+    Free-running, one code that rounds otherwise early in a random-init
+    model (a float-path conv summed in another order by cuDNN than by
+    oneDNN) spreads through every later requantization; this comparison
+    holds each layer instead."""
+    rec = []
+
+    def record(ctx, name, t, optional=False):
+        out = card_site(ctx, name, t, optional)
+        rec.append((name, out.q.cpu(), out.step))
+        return out
+
+    def forced(ctx, name, t, optional=False):
+        own = _SITE(ctx, name, t, optional)
+        want, q, step = rec[len(seen)]
+        if want != name or step != own.step:
+            raise AssertionError(f"site order differs: {name} against the card's {want}")
+        seen[name] = float((own.q != q).float().mean())
+        return quant._QT(q, step)
+
+    seen = {}
+    try:
+        quant._Ctx.site = record
+        a = card(x.to(card.device)).cpu()
+        quant._Ctx.site = forced
+        b = cpu(x)
+    finally:
+        quant._Ctx.site = _SITE
+    worst = max(seen, key=seen.get)
+    return seen[worst], worst, mask_agreement(arch, a, b)
+
+
+def int8_eval(arch, dev, size, batch, check_size, check_batch, limit):
+    """One int8 model at (batch, size, size), bf16: launches of one counted
+    forward, its device and events ms beside the bf16 float model's on the
+    same weights, and its masks on the card against the CPU path (the same
+    tree and scales) at (check_batch, check_size, check_size): layer by layer
+    (`forced_card_vs_cpu`) within `limit` of the masks and `SITE_CODES_LIMIT`
+    of every site's codes, which the control `reciprocal_site` must exceed,
+    and free-running beside the bf16 float model's own card-vs-CPU
+    agreement (reported)."""
+    name = {"robust_unet": "Robust UNet", "segnet": "SegNet"}[arch]
+    sd = zoo_state_dict(name)  # seeded init, BN statistics from one forward
+    qm = quant.QuantizedModel.from_state_dict(sd, quant.default_calibration(size, device=dev),
+                                              arch=arch, device=dev)
+    images, _, _ = coast_tiles(batch, size, 30)
+    x = normalize_images(torch.from_numpy(images).to(dev))
+    qm(x)  # warm-up, uncounted
+    sync(dev)
+    for fn in ALL_COUNTERS.values():
+        fn.launches = 0
+    probs = qm(x)
+    sync(dev)
+    launches = {k: n for k, n in launch_counts().items() if n}
+    want = {"int8_conv": INT8_CONVS[arch]}
+    if arch == "segnet":
+        want.update(max_pool_with_indices=4, max_unpool=4)
+    model = create_model(name, dtype=torch.bfloat16)
+    model.load_state_dict(sd, strict=True)
+    model.to(dev).eval()
+    xc = x.permute(0, 3, 1, 2)
+    with torch.inference_mode():
+        fwd = {"int8": (lambda: qm(x)), "bf16": (lambda: model(xc))}
+        profiles = {k: profile_forward(f, f"profile_{arch}_{k}_forward_b{batch}")
+                    for k, f in fwd.items()}
+        times = {k: dict(forward_ms=cuda_ms(f, 5),
+                         forward_device_ms=profiles[k].get("device_ms_per_forward"))
+                 for k, f in fwd.items()}
+        float_probs = model(xc).permute(0, 2, 3, 1)
+    profile = profiles["int8"]
+    cpu = quant.QuantizedModel(qm.qparams, qm.scales, arch=arch, device="cpu")
+    small = normalize_images(torch.from_numpy(coast_tiles(check_batch, check_size, 31)[0]))
+    free = mask_agreement(arch, qm(small).cpu(), cpu(small))
+    site_share, site_name, card_vs_cpu = forced_card_vs_cpu(arch, qm, cpu, small)
+    control_share, control_site, _ = forced_card_vs_cpu(arch, qm, cpu, small,
+                                                        card_site=reciprocal_site)
+    bf16_cpu = create_model(name, dtype=torch.bfloat16)
+    bf16_cpu.load_state_dict(sd, strict=True)
+    with torch.inference_mode():
+        bf16_free = mask_agreement(arch, model(small.permute(0, 3, 1, 2).to(dev)).cpu(),
+                                   bf16_cpu.eval()(small.permute(0, 3, 1, 2)))
+    out = dict(arch=arch, batch=batch, size=size, launches=launches, want_launches=want,
+               times=times, int8_vs_bf16_mask_agreement=mask_agreement(arch, probs, float_probs),
+               card_vs_cpu_mask_agreement=card_vs_cpu, card_vs_cpu_site_codes=site_share,
+               card_vs_cpu_worst_site=site_name, site_codes_limit=SITE_CODES_LIMIT,
+               control_reciprocal_site_codes=control_share, control_worst_site=control_site,
+               card_vs_cpu_free_running=free,
+               bf16_card_vs_cpu_free_running=bf16_free, check=[check_batch, check_size],
+               finite=bool(torch.isfinite(probs).all()), profile=profile)
+    log(f"int8_eval_{arch}", json.dumps({k: v for k, v in out.items() if k != "profile"}))
+    failures = []
+    if launches != want:
+        failures.append(f"{arch} int8 forward launched {launches}, want {want}")
+    if card_vs_cpu < limit or site_share > SITE_CODES_LIMIT or not out["finite"]:
+        failures.append(f"{arch} int8 on the card against the CPU, layer by layer: masks "
+                        f"{card_vs_cpu:.5f} (limit {limit}), codes {site_share:.2e} at {site_name} "
+                        f"(limit {SITE_CODES_LIMIT})")
+    if control_share <= SITE_CODES_LIMIT:
+        failures.append(f"{arch}: the layer-by-layer check does not see a reciprocal site "
+                        f"({control_share:.2e} at {control_site}, limit {SITE_CODES_LIMIT})")
+    return out, qm, failures
+
+
+def tensor_bytes(node) -> int:
+    """Bytes of every tensor in a nested tree of dicts and tuples."""
+    if isinstance(node, torch.Tensor):
+        return node.numel() * node.element_size()
+    if isinstance(node, dict):
+        return sum(tensor_bytes(v) for v in node.values())
+    if isinstance(node, (tuple, list)):
+        return sum(tensor_bytes(v) for v in node)
+    return 0
+
+
+def int8_serving(dev, save_dir, root, size, batch, check_size, check_batch):
+    """The UNet int8 serving path from `train_path`'s checkpoint: `quantize`
+    to an .npz, 16 counted requests through `serve()` (21 int8 convs a
+    forward, no fused conv, one dilation a band call), `from_quantized`
+    serving the same masks bit for bit, the card against the CPU path on the
+    same .npz, and the int8 and bf16 forwards' times and masks."""
+    npz = os.path.join(root, "unet_int8.npz")
+    ex_f = CoastlineExtractor(checkpoint_dir=save_dir, dtype=torch.bfloat16, image_size=size,
+                              device=dev)
+    ex = CoastlineExtractor(checkpoint_dir=save_dir, dtype=torch.bfloat16, image_size=size,
+                            device=dev)
+    t0 = time.perf_counter()
+    ex.quantize(save_to=npz)
+    quantize_s = time.perf_counter() - t0
+    images, _, _ = coast_tiles(16, size, 40)
+    ex.predict_masks_batch(images[:batch])  # warm-up, uncounted
+    sync(dev)
+    forwards = []
+    predict = ex.predict_masks_batch
+    ex.predict_masks_batch = lambda b: forwards.append(len(b)) or predict(b)
+    for fn in ALL_COUNTERS.values():
+        fn.launches = 0
+    t0 = time.perf_counter()
+    with ex.serve(batch_size=batch) as srv:
+        masks = np.stack(srv.predict_many(list(images)))
+    serve_s = time.perf_counter() - t0
+    stacked = torch.from_numpy(masks).to(dev)
+    bands = [coastline_band(stacked[i:i + batch], 20, device=dev)
+             for i in range(0, len(masks), batch)]
+    sync(dev)
+    launches = {k: n for k, n in launch_counts().items() if n}
+    del ex.predict_masks_batch
+    want = {"int8_conv": INT8_CONVS["unet"] * len(forwards), "dilate_disk": len(bands)}
+
+    served = CoastlineExtractor.from_quantized(npz, image_size=size, device=dev)
+    reloaded = np.concatenate([served.predict_masks_batch(images[i:i + batch])
+                               for i in range(0, len(images), batch)])
+    float_masks = np.concatenate([ex_f.predict_masks_batch(images[i:i + batch])
+                                  for i in range(0, len(images), batch)])
+    small = coast_tiles(check_batch, check_size, 41)[0]
+    card = CoastlineExtractor.from_quantized(npz, image_size=check_size, device=dev)
+    cpu = CoastlineExtractor.from_quantized(npz, image_size=check_size, device="cpu")
+    card_vs_cpu = float(np.mean(card.predict_masks_batch(small) == cpu.predict_masks_batch(small)))
+
+    # the forward alone (events ms, and device ms from the profiler: its ~250
+    # launches fill the launch queue, so `device_ms` cannot queue 10 of them),
+    # and the predict function around it (normalize, forward, argmax)
+    x8 = torch.from_numpy(images[:batch]).to(dev)
+    xn = normalize_images(x8)
+    times, profiles = {}, {}
+    with torch.inference_mode():
+        for name, e, fwd in (("int8", ex, lambda: ex.quantized(xn)),
+                             ("bf16", ex_f, lambda: ex_f.model(xn.permute(0, 3, 1, 2)))):
+            if dev.type == "cuda":
+                torch.cuda.reset_peak_memory_stats()
+            e.predict_masks_batch_async(x8)
+            sync(dev)
+            peak = torch.cuda.max_memory_allocated() / 2**30 if dev.type == "cuda" else None
+            profiles[name] = profile_forward(fwd, f"profile_unet_{name}_forward_b{batch}")
+            times[name] = dict(forward_ms=cuda_ms(fwd, 10),
+                               forward_device_ms=profiles[name].get("device_ms_per_forward"),
+                               predict_ms=cuda_ms(lambda e=e: e.predict_masks_batch_async(x8), 10),
+                               peak_memory_gb=peak)
+    profile = profiles["int8"]
+    out = dict(requests=len(masks), batches=forwards, launches=launches, want_launches=want,
+               quantize_s=quantize_s, serve_s=serve_s, img_per_s=len(masks) / serve_s,
+               npz_mb=os.path.getsize(npz) / 1e6,
+               device_tree_mb=tensor_bytes(ex.quantized.params) / 1e6,
+               bf16_params_mb=tensor_bytes(list(ex_f.model.state_dict().values())) / 1e6,
+               reload_equal=bool(np.array_equal(masks, reloaded)),
+               card_vs_cpu_mask_agreement=card_vs_cpu, check=[check_batch, check_size],
+               int8_vs_bf16_mask_agreement=float(np.mean(masks == float_masks)),
+               water_fraction=float(masks.mean()), times=times, profile=profile)
+    log("int8_serving", json.dumps({k: v for k, v in out.items() if k != "profile"}))
+    failures = []
+    if launches != want:
+        failures.append(f"int8 serving launched {launches}, want {want}")
+    if masks.shape != (16, size, size) or not set(np.unique(masks)) <= {0, 1}:
+        failures.append(f"bad int8 masks {masks.shape} {np.unique(masks)}")
+    if not out["reload_equal"]:
+        failures.append("from_quantized serves other masks than quantize()")
+    if card_vs_cpu < 0.995:
+        failures.append(f"int8 UNet on the card against the CPU: {card_vs_cpu:.5f} < 0.995")
+    return out, ex, failures
+
+
+def int8_scene(ex, dev, size, batch, dilation=20):
+    """`predict_scene` of a size^2 scene with the int8 forward, with the
+    band: the device path against the host tiling path, bit for bit."""
+    scene, _ = tiled_scene(size, 12)
+    tile = ex.image_size
+    n_side = -(-(size - tile // 8) // (tile - tile // 8))
+    for fn in ALL_COUNTERS.values():
+        fn.launches = 0
+    mask, band = ex.predict_scene(scene, batch=batch, with_band=dilation)
+    sync(dev)
+    launches = {k: n for k, n in launch_counts().items() if n}
+    host_mask, host_band = ex.predict_scene(scene, batch=batch, with_band=dilation,
+                                            device_pipeline=False)
+    want = {"int8_conv": INT8_CONVS["unet"] * -(-n_side * n_side // batch), "dilate_disk": 1}
+    out = dict(scene=[size, size], tile=tile, batch=batch, launches=launches, want_launches=want,
+               equal=bool(np.array_equal(mask, host_mask) and np.array_equal(band, host_band)),
+               water_fraction=float(mask.mean()))
+    log("int8_scene", json.dumps(out))
+    failures = []
+    if launches != want:
+        failures.append(f"int8 scene launched {launches}, want {want}")
+    if not out["equal"]:
+        failures.append("the int8 device scene path differs from the host tiling path")
+    return out, failures
+
+
+def int8_path(dev, save_dir=TRAIN_DIR, size=512, batch=8, check_size=128, check_batch=2,
+              scene_size=2048):
+    """The int8 PTQ path on the card: the int8 conv at every configuration
+    of the three int8 forwards at (batch, size, size), the UNet's int8
+    serving from `train_path`'s checkpoint, the Robust U-Net's and SegNet's
+    int8 eval forwards, and an int8 scene."""
+    t0 = time.perf_counter()
+    root = fresh_dir(INT8_DIR)
+    result, failures = {}, []
+    result["serving"], ex, fails = int8_serving(dev, save_dir, root, size, batch, check_size,
+                                                check_batch)
+    failures += fails
+    result["scene"], fails = int8_scene(ex, dev, scene_size, batch)
+    failures += fails
+    models = {"unet": ex.quantized}
+    for arch, limit in (("robust_unet", 0.99), ("segnet", 0.99)):
+        result[arch], models[arch], fails = int8_eval(arch, dev, size, batch, check_size,
+                                                      check_batch, limit)
+        failures += fails
+    # every conv configuration of the three forwards, from one forward each
+    x = normalize_images(torch.from_numpy(coast_tiles(batch, size, 32)[0]).to(dev))
+    configs = int8_conv_configs({a: (lambda m=m: m(x)) for a, m in models.items()})
+    del models, ex, x
+    if dev.type == "cuda":
+        torch.cuda.empty_cache()
+    per_arch = {a: sum(per.get(a, 0) for per in configs.values()) for a in INT8_CONVS}
+    if per_arch != INT8_CONVS:
+        failures.append(f"int8 conv calls a forward {per_arch}, want {INT8_CONVS}")
+    result["conv_cases"], fails = check_int8_conv(dev, configs)
+    failures += fails
+    result["s"] = time.perf_counter() - t0
+    log(f"int8_path {result['s']:.1f} s")
+    if failures:
+        raise AssertionError("int8 path: " + "; ".join(failures))
+    return result
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--out", help="also write every result to this JSON file")
@@ -2059,6 +2545,7 @@ def main(argv=None) -> int:
     protocol = protocol_path(dev)
     extraction = extraction_path(dev, train["save_dir"])
     granule = extraction["granule"]
+    int8 = int8_path(dev, train["save_dir"])
 
     def path_launches(path, name):
         return sum(e["launches"][name] for e in path["epochs"].values())
@@ -2117,17 +2604,37 @@ def main(argv=None) -> int:
                      library_ms=t["library_ms"], shape=t["shape"], library=t["library"])
         if name == "avg_max_pool":
             entry["fused_avg_max_pool_launches_residual_block"] = block["fused_avg_max_pool_launches"]
+            entry["fused_avg_max_pool_waternet"] = cbam_times["fused_avg_max_pool"]
         kernels.append(entry)
     for name, replaces in (("max_pool_with_indices", "coastline/pallas/unpool.py:67"),
                            ("max_unpool", "coastline/pallas/unpool.py:94")):
         t = unpool_times[name]
-        by_path = {"segnet_eval": path_launches(segnet, name), "protocol": on_protocol[name]}
+        by_path = {"segnet_eval": path_launches(segnet, name), "protocol": on_protocol[name],
+                   "segnet_int8_eval": int8["segnet"]["launches"].get(name, 0)}
         kernels.append(dict(name=name, route="cuda", source="coastline_torch/csrc/unpool.cu",
                             replaces=replaces, launches=sum(by_path.values()),
                             launches_by_path=by_path,
                             max_abs_err=t["max_abs_err"], ms=t["ms"], plain_ms=t["plain_ms"],
                             bound_ms=t["bound_ms"], bound_by=t["bound_by"],
-                            library_ms=t["library_ms"], shape=t["shape"], library=t["library"]))
+                            library_ms=t["library_ms"], shape=t["shape"], library=t["library"],
+                            int8=t["int8"]))
+    int8_by_path = {"int8_serving": int8["serving"]["launches"].get("int8_conv", 0),
+                    "int8_scene": int8["scene"]["launches"].get("int8_conv", 0),
+                    "robust_unet_int8_eval": int8["robust_unet"]["launches"].get("int8_conv", 0),
+                    "segnet_int8_eval": int8["segnet"]["launches"].get("int8_conv", 0)}
+    cases = int8["conv_cases"]
+    main_case = next((c for c in cases if c["x"] == [8, 512, 512, 64] and c["w"] == [3, 3, 64, 64]
+                      and c["out"] == "torch.bfloat16"), cases[0])  # the UNet's dc0.c2
+    kernels.append(dict(
+        name="int8_conv", route="cuda", source="coastline_torch/csrc/int8_conv.cu",
+        replaces="coastline/infer/quant.py:573",  # XLA's s8 conv: no Pallas kernel
+        launches=sum(int8_by_path.values()), launches_by_path=int8_by_path,
+        max_abs_err=max(c["max_abs_err"] for c in cases), ms=main_case["ms"],
+        plain_ms=main_case["plain_ms"], bound_ms=main_case["bound_ms"],
+        bound_by=main_case["bound_by"], library_ms=main_case["library_ms"],
+        device_ms=main_case["device_ms"], share_of_bound=main_case["share_of_bound"],
+        shape=main_case["x"], weights=main_case["w"], configurations=len(cases),
+        library="cuDNN bf16 conv (channels_last) + float32 epilogue"))
     if args.out:
         os.makedirs(os.path.dirname(args.out) or ".", exist_ok=True)
         with open(args.out, "w") as f:
@@ -2135,7 +2642,8 @@ def main(argv=None) -> int:
                            serving=serving, cbam_cases=cbam_cases, residual_block=block,
                            robust_unet=robust, unpool_cases=unpool_cases, segnet=segnet,
                            zoo=zoo, total_s=time.perf_counter() - t_start,
-                           unet_train=train, protocol=protocol, extraction=extraction),
+                           unet_train=train, protocol=protocol, extraction=extraction,
+                           int8=int8),
                       f, indent=1)
     log(f"total {time.perf_counter() - t_start:.1f} s")
     log(json.dumps({"kernels": kernels}))

@@ -7,9 +7,12 @@ Usage:
   python -m coastline_torch.cli.predict dir/ --batch --output ./batch_results
   python -m coastline_torch.cli.predict scene.tif --scene --output ./coastline_results
   python -m coastline_torch.cli.predict image.png --random-weights --device cpu
+  python -m coastline_torch.cli.predict image.png --int8 --save-quantized q.npz
+  python -m coastline_torch.cli.predict dir/ --batch --quantized q.npz
 
-The int8 flags (--int8, --save-quantized, --quantized) are not ported yet
-and exit non-zero.
+`--int8` calibrates and serves the int8 PTQ forward (`infer/quant.py`);
+`--quantized` serves a saved `.npz` artifact, written by this package or by
+the JAX one, with no checkpoint.
 """
 
 import argparse
@@ -46,20 +49,25 @@ def main(argv=None):
                    help="run without a checkpoint (smoke testing)")
     p.add_argument("--image-size", type=int, default=512,
                    help="model input resolution (must match training)")
-    p.add_argument("--int8", action="store_true", help="not ported yet: exits non-zero")
+    p.add_argument("--int8", action="store_true",
+                   help="serve the int8 PTQ path (calibrated on synthetic scenes)")
     p.add_argument("--save-quantized", default=None, metavar="NPZ",
-                   help="not ported yet: exits non-zero")
+                   help="with --int8: also write the quantized weights as a serving .npz "
+                        "(later served via --quantized)")
     p.add_argument("--quantized", default=None, metavar="NPZ",
-                   help="not ported yet: exits non-zero")
+                   help="serve directly from a quantized .npz artifact (no checkpoint or "
+                        "calibration needed)")
     p.add_argument("--tta", action="store_true",
                    help="flip/transpose test-time-augmentation ensemble (8 forwards)")
     p.add_argument("--device", default="cuda",
                    help="torch device; without a card only 'cpu' runs")
     args = p.parse_args(argv)
-    if args.int8 or args.save_quantized or args.quantized:
-        print("--int8, --save-quantized and --quantized are not ported yet: the port "
-              "serves the float UNet", file=sys.stderr)
-        return 2
+    if args.save_quantized and not args.int8:
+        p.error("--save-quantized requires --int8 (it writes the artifact produced by that "
+                "quantization pass)")
+    if args.save_quantized and args.quantized:
+        p.error("--save-quantized cannot be combined with --quantized (already serving from "
+                "a saved artifact)")
 
     from coastline_torch.infer.extract import CoastlineExtractor
 
@@ -69,11 +77,18 @@ def main(argv=None):
     elif not args.random_weights:
         kwargs["checkpoint_dir"] = args.checkpoint
     try:
-        ex = CoastlineExtractor(**kwargs)
+        if args.quantized:
+            ex = CoastlineExtractor.from_quantized(args.quantized, image_size=args.image_size,
+                                                   tta=args.tta, device=args.device)
+        else:
+            ex = CoastlineExtractor(**kwargs)
     except FileNotFoundError as e:
         print(f"{e}\n(hint: train first with coastline_torch.cli.train, or pass "
               f"--random-weights for a smoke run)")
         return 1
+    if args.int8 and not args.quantized:
+        print("quantizing to int8 (calibrating on synthetic scenes)")
+        ex.quantize(save_to=args.save_quantized)
 
     if args.batch or os.path.isdir(args.input):
         exts = ("*.png", "*.jpg", "*.jpeg", "*.tif", "*.tiff")

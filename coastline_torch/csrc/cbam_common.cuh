@@ -1,6 +1,6 @@
 // Shared device helpers of the CBAM kernels (avg_max_pool.cu,
 // gated_spatial_stats.cu, cbam_tail.cu) and of SegNet's indexed pool and
-// unpool (unpool.cu): dtype conversion, the per-op
+// unpool (unpool.cu, which also takes int8 codes): dtype conversion, the per-op
 // rounding of a bf16 computation, NaN-keeping max, and 16-byte vector
 // loads and stores of VEC consecutive channels.
 #pragma once
@@ -16,6 +16,7 @@ constexpr int THREADS = 256;
 
 __device__ __forceinline__ float to_float(float v) { return v; }
 __device__ __forceinline__ float to_float(__nv_bfloat16 v) { return __bfloat162float(v); }
+__device__ __forceinline__ float to_float(int8_t v) { return float(v); }  // exact
 
 template <typename T>
 __device__ __forceinline__ T from_float(float v);
@@ -25,6 +26,9 @@ template <>
 __device__ __forceinline__ __nv_bfloat16 from_float<__nv_bfloat16>(float v) {
   return __float2bfloat16_rn(v);
 }
+// int8 codes travel as exact floats (a code, or a code times 0 or 1)
+template <>
+__device__ __forceinline__ int8_t from_float<int8_t>(float v) { return int8_t(__float2int_rn(v)); }
 
 // v rounded to T and widened again: the rounding after each op of a T computation
 template <typename T>

@@ -12,7 +12,10 @@
 //     vals * (codes == k) at window position k. It multiplies, as the JAX
 //     package does: the zeros carry the value's sign, and an inf or NaN value
 //     writes NaN into the other three positions.
-// On SegNet's eval path each runs 4 times a forward, once per level.
+// On SegNet's eval path each runs 4 times a forward, once per level, on bf16 or
+// float32 values, and on int8 codes in its int8 PTQ forward
+// (coastline_torch/infer/quant.py; the codes' order is the values' order, and
+// a code times 0 or 1 is exact, so the same comparisons and products apply).
 //
 // What bounds them on an H100: a few comparisons or multiplies an element, so
 // HBM bytes. The pool reads x once and writes the values and the int32 codes
@@ -160,11 +163,18 @@ int launch_unpool(const void* vals, const void* codes, void* out, int B, int h, 
 
 }  // namespace
 
+// dtype codes 0 float32, 1 bfloat16 (as CBAM_DISPATCH), 2 int8; `vec` != 1 selects
+// the 16-byte path (16 int8, 8 bf16 or 4 float32 channels a load)
+#define UNPOOL_DISPATCH(dtype, vec, FN, ...)                                   \
+  ((dtype) == 2 ? ((vec) != 1 ? FN<int8_t, 16>(__VA_ARGS__)                    \
+                              : FN<int8_t, 1>(__VA_ARGS__))                    \
+                : CBAM_DISPATCH(dtype, vec, FN, __VA_ARGS__))
+
 // x (B, H, W, C) dt -> vals (B, H/2, W/2, C) dt, codes (B, H/2, W/2, C) int32; H, W even.
 extern "C" int coastline_max_pool_with_indices(const void* x, void* vals, void* codes, int B, int H,
                                                int W, int C, int dtype, int vec, void* stream) {
   if (B <= 0 || H <= 0 || W <= 0 || C <= 0 || H % 2 || W % 2) return int(cudaErrorInvalidValue);
-  return CBAM_DISPATCH(dtype, vec, launch_pool, x, vals, codes, B, H, W, C,
+  return UNPOOL_DISPATCH(dtype, vec, launch_pool, x, vals, codes, B, H, W, C,
                        static_cast<cudaStream_t>(stream));
 }
 
@@ -172,6 +182,6 @@ extern "C" int coastline_max_pool_with_indices(const void* x, void* vals, void* 
 extern "C" int coastline_max_unpool(const void* vals, const void* codes, void* out, int B, int h,
                                     int w, int C, int dtype, int vec, void* stream) {
   if (B <= 0 || h <= 0 || w <= 0 || C <= 0) return int(cudaErrorInvalidValue);
-  return CBAM_DISPATCH(dtype, vec, launch_unpool, vals, codes, out, B, h, w, C,
+  return UNPOOL_DISPATCH(dtype, vec, launch_unpool, vals, codes, out, B, h, w, C,
                        static_cast<cudaStream_t>(stream));
 }

@@ -16,7 +16,10 @@ polylines (`infer/contours.py`, on the host). Its entry points:
     scenes tiled through the model (`infer/scene.py` on the device, or the
     host tiling path `data/tiling.py`), the per-year workflow.
 
-Not ported yet: int8 (`quantize`, `from_quantized`) and `predict_scene(mesh=)`.
+`quantize()` switches every one of them to the int8 PTQ forward
+(`infer/quant.py`), and `from_quantized` serves a saved `.npz` artifact
+(`infer/deploy.py`) with no float checkpoint. Not ported yet:
+`predict_scene(mesh=)`.
 """
 
 import json
@@ -128,7 +131,61 @@ class CoastlineExtractor:
         else:
             print("WARNING: no checkpoint provided — using random weights")
         self.model = model.to(self.device).eval()
+        self.quantized = None
         self._predict_fn = _make_predict_fn(self.model, tta=tta)
+
+    # ---------------------------------------------------------------- int8
+    def quantize(self, calib_images_u8: Optional[np.ndarray] = None, batch_size: int = 2,
+                 save_to: Optional[str] = None):
+        """Switch every predict path to the int8 PTQ forward (`infer/quant.py`).
+
+        `calib_images_u8` is (N, image_size, image_size, 3) uint8
+        representative data (default: the synthetic coastal scenes of
+        `quant.default_calibration`). `save_to` also writes the quantized
+        weights and scales as one .npz (`infer/deploy.py`) that
+        `from_quantized` serves without the float checkpoint or calibration
+        data. Returns self."""
+        from coastline_torch.infer.quant import QuantizedModel, default_calibration
+
+        calib = default_calibration(self.image_size, calib_images_u8, device=self.device)
+        qm = QuantizedModel.from_state_dict(self.model.state_dict(), calib,
+                                            batch_size=batch_size, arch="unet",
+                                            device=self.device)
+        if save_to is not None:
+            from coastline_torch.infer.deploy import save_quantized
+
+            save_quantized(save_to, qm)
+            print(f"saved quantized serving artifact: {save_to}")
+        self._wire_quantized(qm)
+        return self
+
+    def _wire_quantized(self, qm) -> None:
+        """Route the predict function through an int8 `QuantizedModel`: the
+        model callable of `_make_predict_fn` takes and returns NCHW views of
+        the quantized forward's NHWC tensors."""
+        self.quantized = qm
+        self._predict_fn = _make_predict_fn(
+            lambda x: qm(x.permute(0, 2, 3, 1)).permute(0, 3, 1, 2), tta=self.tta)
+
+    @classmethod
+    def from_quantized(cls, npz_path: str, image_size: int = 512, tta: bool = False,
+                       device="cuda"):
+        """Serve straight from a `save_quantized` .npz (written by this
+        package or the JAX one): no float checkpoint, weights tree or
+        calibration data. The artifact must hold the 2-class UNet."""
+        from coastline_torch.infer.deploy import load_quantized
+
+        dev = resolve_device(device)
+        qm = load_quantized(npz_path, device=dev)
+        if qm.arch != "unet":
+            raise ValueError(f"{npz_path} holds a {qm.arch!r} quantized model; the extractor's "
+                             "2-class argmax pipeline expects arch 'unet'")
+        ex = cls.__new__(cls)
+        ex.device, ex.image_size, ex.tta = dev, image_size, tta
+        ex.model = None  # no float model: the int8 forward is the server
+        ex._wire_quantized(qm)
+        print(f"loaded quantized serving artifact {npz_path}")
+        return ex
 
     # ------------------------------------------------------------------ io
     def _load_image_meta(self, image_path: str):

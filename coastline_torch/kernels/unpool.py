@@ -22,6 +22,10 @@ output once, the int32 codes (the JAX interface) being 2/3 of the pool's
 output: 469.8 MB at (8, 512, 512, 64) bf16, 0.140 ms at 3.35 TB/s. The
 source says how its design keeps to one coalesced pass.
 
+Both also take int8: SegNet's int8 PTQ forward (`infer/quant.py`) pools and
+unpools the activations' codes, as the JAX package's int8 SegNet runs its
+primitives on them (`coastline/infer/quant.py:794`).
+
 Each wrapper launches its kernel for a CUDA tensor (or raises) and runs its
 `*_plain` version only for a tensor on the CPU. A CUDA input must be
 contiguous: the NHWC view of a channels_last activation, read without a copy.
@@ -33,11 +37,22 @@ import ctypes
 import torch
 
 from coastline_torch.kernels import _build
-from coastline_torch.kernels.cbam import _DTYPES, _check, _on_card, _stream, _vec
+from coastline_torch.kernels.cbam import _DTYPES, _on_card, _stream, _vec
+
+_POOL_DTYPES = {**_DTYPES, torch.int8: 2}  # the dtype codes of `csrc/unpool.cu`
 
 # ---------------------------------------------------------------------------
 # Plain versions
 # ---------------------------------------------------------------------------
+
+
+def _check(name, t, ndim, dtype=None):
+    if t.ndim != ndim:
+        raise ValueError(f"{name} must have {ndim} dimensions, got shape {tuple(t.shape)}")
+    if t.dtype not in ((dtype,) if dtype is not None else tuple(_POOL_DTYPES)):
+        raise TypeError(f"{name} must be {dtype or 'float32, bfloat16 or int8'}, got {t.dtype}")
+    if t.numel() == 0:
+        raise ValueError(f"{name} is empty: {tuple(t.shape)}")
 
 
 def _check_even(x):
@@ -86,8 +101,8 @@ def _fn(name):
 
 
 def max_pool_with_indices(x):
-    """(B, H, W, C) float32 or bfloat16, H and W even -> (values (B, H/2, W/2,
-    C) in x.dtype, int32 codes), both contiguous NHWC."""
+    """(B, H, W, C) float32, bfloat16 or int8, H and W even -> (values (B, H/2,
+    W/2, C) in x.dtype, int32 codes), both contiguous NHWC."""
     _check("x", x, 4)
     _check_even(x)
     if not _on_card("max_pool_with_indices", x):
@@ -97,7 +112,7 @@ def max_pool_with_indices(x):
     codes = torch.empty(vals.shape, dtype=torch.int32, device=x.device)
     with torch.cuda.device(x.device):
         status = _fn("max_pool_with_indices")(x.data_ptr(), vals.data_ptr(), codes.data_ptr(),
-                                              b, h, w, c, _DTYPES[x.dtype],
+                                              b, h, w, c, _POOL_DTYPES[x.dtype],
                                               _vec(c, x, vals, codes), _stream(x))
     _build.check(status, "max_pool_with_indices launch")
     max_pool_with_indices.launches += 1
@@ -105,7 +120,7 @@ def max_pool_with_indices(x):
 
 
 def max_unpool(vals, codes):
-    """values (B, h, w, C) float32 or bfloat16, int32 codes of the same shape
+    """values (B, h, w, C) float32, bfloat16 or int8, int32 codes of the same shape
     -> (B, 2h, 2w, C) contiguous NHWC in values' dtype."""
     _check("vals", vals, 4)
     _check("codes", codes, 4, torch.int32)
@@ -117,7 +132,8 @@ def max_unpool(vals, codes):
     out = torch.empty((b, 2 * h, 2 * w, c), dtype=vals.dtype, device=vals.device)
     with torch.cuda.device(vals.device):
         status = _fn("max_unpool")(vals.data_ptr(), codes.data_ptr(), out.data_ptr(), b, h, w, c,
-                                   _DTYPES[vals.dtype], _vec(c, vals, codes, out), _stream(vals))
+                                   _POOL_DTYPES[vals.dtype], _vec(c, vals, codes, out),
+                                   _stream(vals))
     _build.check(status, "max_unpool launch")
     max_unpool.launches += 1
     return out

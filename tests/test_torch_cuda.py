@@ -6,7 +6,11 @@ dependencies:
 
     python -m pytest tests/test_torch_cuda.py -m cuda --noconftest -q
 
-Tolerances: dilation is exact; the fused conv may differ from its plain
+Tolerances: dilation is exact; the int8 conv is bit-equal to its plain
+version (exact int32 sums, the same float32 epilogue); the int8 models on
+the card agree with the CPU on >= 99.5% (UNet) or 99% of mask pixels (bf16
+float convs sum in another order, and a requantization turns an ulp into a
+code step); the fused conv may differ from its plain
 version by one bf16 ulp (2^-7 relative) + 1e-3, the same float32 sums taken
 in another order before one bf16 rounding. CBAM kernels: every max is exact;
 a mean is a float32 sum in another order, so |d| <= 1e-5 |ref| (float32) or
@@ -602,3 +606,138 @@ def test_extract_scenes_on_card_pipelined_matches_sequential(dev, tmp_path):
         np.testing.assert_array_equal(a["coastline_mask"], b["coastline_mask"])
         assert a["coastlines"] == b["coastlines"]
     assert sorted(os.listdir(tmp_path / "a")) == sorted(os.listdir(tmp_path / "b"))
+
+
+INT8_CONV_CASES = [  # (input shape, C_out, kernel, padding, dilation, lhs_dilation)
+    ((2, 9, 11, 64), 64, 3, 1, 1, None),
+    ((1, 7, 5, 32), 40, 1, 0, 1, None),          # ragged tiles in M and N
+    ((2, 16, 16, 96), 128, 3, 4, 4, None),       # the bottleneck's dilation 4
+    ((3, 13, 17, 128), 72, 3, 2, 2, None),
+    ((2, 8, 8, 64), 64, 2, ((1, 1), (1, 1)), 1, (2, 2)),  # a transposed conv
+    ((1, 3, 5, 1024), 512, 2, ((1, 1), (1, 1)), 1, (2, 2)),
+    ((1, 1, 1, 64), 64, 3, 1, 1, None),          # one pixel: every tap but one in the padding
+    ((2, 33, 130, 64), 128, 3, ((1, 0), (2, 1)), 1, None),
+]
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("case", range(len(INT8_CONV_CASES)))
+def test_int8_conv_kernel_matches_plain(dev, case, dtype):
+    from coastline_torch.kernels.int8_conv import int8_conv, int8_conv_plain, packed
+
+    shape, cout, k, pad, dil, lhs = INT8_CONV_CASES[case]
+    rng = np.random.default_rng(case)
+    x = torch.from_numpy(rng.integers(-127, 128, shape, dtype=np.int8)).to(dev)
+    wq = torch.from_numpy(rng.integers(-127, 128, (k, k, shape[-1], cout), dtype=np.int8)).to(dev)
+    ws = torch.from_numpy((rng.random(cout) * 1e-3).astype(np.float32)).to(dev)
+    b = torch.from_numpy(rng.standard_normal(cout).astype(np.float32)).to(dev)
+    before = int8_conv.launches
+    got = int8_conv(x, packed(wq, lhs is not None), 0.0123, ws, b, pad, dil, lhs, dtype)
+    torch.cuda.synchronize()
+    assert int8_conv.launches == before + 1
+    ref = int8_conv_plain(x.cpu(), wq.cpu(), 0.0123, ws.cpu(), b.cpu(), pad, dil, lhs, dtype)
+    assert _bits_equal(got, ref)
+
+
+def test_int8_conv_wrapper_refusals_on_card(dev):
+    from coastline_torch.kernels.int8_conv import PackedWeights, int8_conv, packed
+
+    x = torch.zeros((1, 4, 4, 64), dtype=torch.int8, device=dev)
+    wq = torch.zeros((3, 3, 64, 64), dtype=torch.int8, device=dev)
+    w = packed(wq)
+    ws, b = torch.ones(64, device=dev), torch.zeros(64, device=dev)
+    with pytest.raises(TypeError, match="PackedWeights"):
+        int8_conv(x, wq, 1.0, ws, b, 1)
+    with pytest.raises(ValueError, match="kernel layout"):
+        int8_conv(x, PackedWeights(wq, None, False), 1.0, ws, b, 1)
+    with pytest.raises(ValueError, match="one device"):
+        int8_conv(x, packed(wq.cpu()), 1.0, ws, b, 1)
+    with pytest.raises(ValueError, match="one device"):
+        int8_conv(x.cpu(), packed(wq.cpu()), 1.0, ws, b.cpu(), 1)
+    with pytest.raises(ValueError, match="C_in % 32"):
+        int8_conv(x[..., :48].contiguous(), packed(wq[:, :, :48].contiguous()), 1.0, ws, b, 1)
+    with pytest.raises(ValueError, match="C_out % 8"):
+        int8_conv(x, packed(wq[..., :60].contiguous()), 1.0, ws[:60], b[:60], 1)
+    with pytest.raises(RuntimeError, match="int8_conv has no backward"):
+        int8_conv(x, w, 1.0, ws.clone().requires_grad_(), b, 1)
+    buf = torch.zeros(x.numel() + 1, dtype=torch.int8, device=dev)
+    with pytest.raises(ValueError, match="16-byte"):
+        int8_conv(buf[1:].view(x.shape), w, 1.0, ws, b, 1)
+    with pytest.raises(ValueError, match="contiguous"):
+        int8_conv(x.transpose(1, 2), w, 1.0, ws, b, 1)
+    with pytest.raises(ValueError, match="transposed"):
+        int8_conv(x, w, 1.0, ws, b, 1, lhs_dilation=(2, 2))
+
+
+@pytest.mark.parametrize("shape", [(2, 16, 128, 64), (3, 38, 54, 20), (1, 6, 10, 1)])
+def test_unpool_kernels_on_int8_codes(dev, shape):
+    """SegNet's int8 forward pools and unpools codes: ties everywhere."""
+    from coastline_torch.kernels import unpool
+
+    rng = np.random.default_rng(shape[-1])
+    x = torch.from_numpy(rng.integers(-3, 4, shape, dtype=np.int8)).to(dev)
+    vals, codes = unpool.max_pool_with_indices(x)
+    out = unpool.max_unpool(vals, codes)
+    torch.cuda.synchronize()
+    r_vals, r_codes = unpool.max_pool_with_indices_plain(x.cpu())
+    assert vals.dtype == torch.int8 and torch.equal(vals.cpu(), r_vals)
+    assert torch.equal(codes.cpu(), r_codes)
+    assert torch.equal(out.cpu(), unpool.max_unpool_plain(r_vals, r_codes))
+
+
+@pytest.mark.parametrize("arch,want,limit", [("unet", 21, 0.995), ("robust_unet", 38, 0.99),
+                                             ("segnet", 18, 0.99)])
+def test_quantized_model_on_card_matches_cpu(dev, arch, want, limit):
+    """One int8 model, its tree on the card and on the CPU, the same scales:
+    the int8 conv launched for every conv on the int8 path, SegNet's pool
+    and unpool on codes, and the masks within `limit` of the CPU's."""
+    from coastline_torch.infer import quant
+    from coastline_torch.kernels import unpool
+    from coastline_torch.kernels.int8_conv import int8_conv
+    from coastline_torch.utils import torch_import as ti
+
+    make, to_sd = {"unet": (ti.random_unet_variables, ti.unet_state_dict),
+                   "robust_unet": (ti.random_robust_unet_variables, ti.robust_unet_state_dict),
+                   "segnet": (ti.random_segnet_variables, ti.segnet_state_dict)}[arch]
+    folded = quant.ARCHS[arch][0](to_sd(make(seed=0)))
+    calib = quant.default_calibration(64, device="cpu")
+    scales = quant.calibrate(folded, calib, arch=arch)
+    qp = quant.quantize_folded(folded)
+    cpu = quant.QuantizedModel(qp, scales, arch=arch, device="cpu")
+    card = quant.QuantizedModel(qp, scales, arch=arch, device=dev)
+    before = (int8_conv.launches, unpool.max_pool_with_indices.launches,
+              unpool.max_unpool.launches)
+    got = card(calib[:2], return_logits=True)
+    torch.cuda.synchronize()
+    pools = 4 if arch == "segnet" else 0
+    assert (int8_conv.launches - before[0], unpool.max_pool_with_indices.launches - before[1],
+            unpool.max_unpool.launches - before[2]) == (want, pools, pools)
+    ref = cpu(calib[:2], return_logits=True)
+    got = got.cpu()
+    if arch == "unet":
+        agree = (got.argmax(-1) == ref.argmax(-1)).float().mean()
+    else:
+        agree = ((got > 0) == (ref > 0)).float().mean()
+    assert torch.isfinite(got).all() and agree >= limit, float(agree)
+
+
+def test_quantized_extractor_on_card(dev, tmp_path):
+    """quantize() on the card: its artifact serves the same masks through
+    from_quantized, the scene path equals the host tiling path, and the
+    fused float conv never runs."""
+    from coastline_torch.infer.extract import CoastlineExtractor
+    from coastline_torch.kernels.int8_conv import int8_conv
+
+    npz = str(tmp_path / "q.npz")
+    ex = CoastlineExtractor(image_size=64, dtype=torch.bfloat16, device=dev).quantize(save_to=npz)
+    served = CoastlineExtractor.from_quantized(npz, image_size=64, device=dev)
+    images = np.random.default_rng(3).integers(0, 256, (4, 64, 64, 3), dtype=np.uint8)
+    before = (int8_conv.launches, fused_conv3x3_bn_relu.launches)
+    masks = served.predict_masks_batch(images)
+    assert (int8_conv.launches - before[0], fused_conv3x3_bn_relu.launches - before[1]) == (21, 0)
+    np.testing.assert_array_equal(masks, ex.predict_masks_batch(images))
+    scene = np.random.default_rng(4).integers(0, 256, (150, 170, 3), dtype=np.uint8)
+    mask, band = served.predict_scene(scene, batch=4, with_band=5)
+    host = served.predict_scene(scene, batch=4, with_band=5, device_pipeline=False)
+    np.testing.assert_array_equal(mask, host[0])
+    np.testing.assert_array_equal(band, host[1])

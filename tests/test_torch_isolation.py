@@ -59,7 +59,9 @@ def test_port_and_chip_smoke_import_no_jax_and_no_coastline():
               "coastline_torch.infer.change", "coastline_torch.report.coastsat_fig",
               "coastline_torch.report.change_fig", "coastline_torch.cli.predict",
               "coastline_torch.cli.convert", "coastline_torch.cli.change",
-              "coastline_torch.cli.export", "coastline_torch.native"):
+              "coastline_torch.cli.export", "coastline_torch.native",
+              "coastline_torch.infer.quant", "coastline_torch.infer.deploy",
+              "coastline_torch.kernels.int8_conv"):
         assert m in report["modules"]
 
 
@@ -79,6 +81,8 @@ def _entry_points():
     from coastline_torch.models.registry import create_model
     from coastline_torch.cli.predict import main as predict_cli
     from coastline_torch.cli.export import main as export_cli
+    from coastline_torch.infer.deploy import load_quantized
+    from coastline_torch.infer.quant import QuantizedModel, default_calibration
 
     mask = np.zeros((8, 8), np.uint8)
     return {
@@ -102,6 +106,13 @@ def _entry_points():
         "predict_cli": lambda: predict_cli(["x.png", "--random-weights"]),
         "scene": lambda: CoastlineExtractor().predict_scene(np.zeros((40, 40, 3), np.uint8)),
         "export_cli": lambda: export_cli(["--checkpoint-dir", "x", "--out", "x.pth"]),
+        "quantized_model": lambda: QuantizedModel({}, {}, arch="unet"),
+        "load_quantized": lambda: load_quantized("x.npz"),
+        "from_quantized": lambda: CoastlineExtractor.from_quantized("x.npz"),
+        "default_calibration": lambda: default_calibration(64),
+        "predict_cli_int8": lambda: predict_cli(["x.png", "--random-weights", "--int8"]),
+        "export_cli_int8": lambda: export_cli(["--checkpoint-dir", "x", "--quantized-out",
+                                               "x.npz"]),
     }
 
 
@@ -110,7 +121,9 @@ def _entry_points():
                                   "trainer", "train_cli", "make_dataset", "evaluator",
                                   "bench_all_cli", "zoo_eval_epoch", "zoo_train_epoch",
                                   "zoo_evaluator", "bench_all_default_list", "predict_cli",
-                                  "scene", "export_cli"])
+                                  "scene", "export_cli", "quantized_model", "load_quantized",
+                                  "from_quantized", "default_calibration", "predict_cli_int8",
+                                  "export_cli_int8"])
 def test_entry_points_raise_without_a_card(name, monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="no CUDA device"):

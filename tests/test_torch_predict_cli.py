@@ -101,9 +101,18 @@ def test_predict_cli_matches_jax(inputs, random_weights_pth, tmp_path, mode):
 @pytest.mark.parametrize("flags", [["--int8"], ["--int8", "--save-quantized", "q.npz"],
                                    ["--quantized", "q.npz"]])
 def test_predict_cli_int8_flags_are_not_ported(inputs, tmp_path, flags, capsys):
-    rc = predict_main([str(inputs / "single.png"), "--random-weights", "--device", "cpu",
-                       "--output", str(tmp_path), *flags])
-    assert rc != 0 and "not ported yet" in capsys.readouterr().err
+    """The int8 flags, refused while int8 was not ported (the name is from
+    then), now serve: each run exits 0 with its artifacts; --save-quantized
+    writes the .npz that --quantized serves with no checkpoint."""
+    npz = tmp_path / "q.npz"
+    if "--quantized" in flags:
+        CoastlineExtractor(image_size=64, device="cpu").quantize(save_to=str(npz))
+    flags = [str(npz) if f == "q.npz" else f for f in flags]
+    rc = predict_main([str(inputs / "single.png"), "--random-weights", "--image-size", "64",
+                       "--device", "cpu", "--output", str(tmp_path / "out"), *flags])
+    assert rc == 0 and (tmp_path / "out" / "single_water_mask.png").exists()
+    assert npz.exists() == ("--save-quantized" in flags or "--quantized" in flags)
+    assert "not ported yet" not in capsys.readouterr().err
 
 
 def test_predict_cli_missing_checkpoint(inputs, tmp_path, capsys):
@@ -293,9 +302,11 @@ def test_export_round_trip_serves_the_checkpoint(trained, inputs, tmp_path):
 
 
 def test_export_refusals(trained, tmp_path, capsys):
-    assert export_main(["--checkpoint-dir", trained, "--quantized-out", "q.npz",
-                        "--device", "cpu"]) == 2
-    assert "not ported yet" in capsys.readouterr().err
+    """--quantized-out now writes the int8 artifact (tests/test_torch_int8_cli.py);
+    it refuses an arch without a ported int8 fold."""
+    assert export_main(["--checkpoint-dir", trained, "--quantized-out", "q.npz", "--arch",
+                        "DeepLabV3+", "--device", "cpu"]) == 2
+    assert "no int8 fold" in capsys.readouterr().err
     with pytest.raises(SystemExit):
         export_main(["--checkpoint-dir", str(tmp_path), "--out", str(tmp_path / "x.pth"),
                      "--device", "cpu"])
