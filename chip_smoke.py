@@ -122,6 +122,7 @@ here is a true float32 result. Any failure raises and exits non-zero.
 import argparse
 import contextlib
 import json
+import math
 import os
 import subprocess
 import sys
@@ -143,7 +144,7 @@ from coastline_torch.kernels import _build, cbam, unpool
 from coastline_torch.kernels.fused_conv import (fused_conv3x3_bn_relu,
                                                 fused_conv3x3_bn_relu_plain)
 from coastline_torch.kernels.int8_conv import (int8_conv, int8_conv_plain, normalize_padding,
-                                               packed)
+                                               pack_weights, packed, quantize_codes)
 from coastline_torch.kernels.morphology import dilate_disk, dilate_disk_plain, se_row_groups
 from coastline_torch.kernels.pools import fused_avg_max_pool
 from coastline_torch.models import segnet as segnet_module
@@ -2106,21 +2107,27 @@ INT8_DIR = os.path.join(REPO, "build", "int8_path")  # listed in .gitignore
 PEAK_INT8_OPS = 1979e12  # dense int8 tensor-core rate
 # int8 conv launches a forward under the default policy (`infer/quant.py`)
 INT8_CONVS = {"unet": 21, "robust_unet": 38, "segnet": 18}
+# sites a forward quantizes in an int8 conv's epilogue and eagerly (`site_counts`)
+INT8_SITES = {"unet": dict(fused=21, eager=6), "robust_unet": dict(fused=28, eager=25),
+              "segnet": dict(fused=18, eager=2)}
 
 
 def int8_conv_configs(forwards):
     """{config: {arch: calls a forward}} over one call of each `forwards[arch]`:
     the distinct (input shape, weight shape, padding, dilation, lhs dilation,
-    output dtype) the int8 forwards hand the kernel."""
+    output dtype, relu, codes) the int8 forwards hand the kernel; codes is
+    True where the kernel quantizes to a site's codes (`out_step`)."""
     configs, real = {}, quant.int8_conv
 
     def spy(x, w, x_step, w_step, bias, padding=0, dilation=1, lhs_dilation=None,
-            out_dtype=torch.float32):
+            out_dtype=torch.float32, relu=False, out_step=None):
         key = (tuple(x.shape), tuple(w.hwio.shape), json.dumps(padding), dilation,
-               None if lhs_dilation is None else tuple(lhs_dilation), str(out_dtype))
+               None if lhs_dilation is None else tuple(lhs_dilation), str(out_dtype),
+               bool(relu), out_step is not None)
         per = configs.setdefault(key, {})
         per[arch] = per.get(arch, 0) + 1
-        return real(x, w, x_step, w_step, bias, padding, dilation, lhs_dilation, out_dtype)
+        return real(x, w, x_step, w_step, bias, padding, dilation, lhs_dilation, out_dtype,
+                    relu=relu, out_step=out_step)
 
     quant.int8_conv = spy
     try:
@@ -2132,15 +2139,24 @@ def int8_conv_configs(forwards):
 
 
 def check_int8_conv(dev, configs, iters=10):
-    """The int8 conv at every configuration of `configs`: bit-equal to its
-    plain version (float64 cuDNN on the codes, then the same epilogue);
-    events ms, device ms, the plain version's ms, and the library
-    yardstick: the same conv in bf16 through cuDNN with the float32
-    epilogue, what the float path runs there. Bound: each input byte read
-    once, the output written once, against 2 * M * N * K int8 operations."""
+    """The int8 conv at every configuration of `configs`, in its mode
+    (values, or codes of a site: ReLU'd or not): bit-equal to its plain
+    version (float64 cuDNN on the codes, then the same epilogue, ReLU and
+    site arithmetic); events ms, device ms, the plain version's ms, and the
+    library yardstick: the same conv in bf16 through cuDNN with the float32
+    epilogue, what the float path runs there, and in codes mode the eager
+    ReLU and site chain it replaces. Codes mode is held at two steps: a
+    power of two near max|y| / 100, where bf16 values land on exact .5 ties
+    (the kernel's exact path) and past the clamp, and float32(max|y| / 127),
+    a step as calibration makes it, at which it is timed. Where the
+    configuration is a plain GEMM (a 1x1 conv, the
+    transposed convs' parity sub-GEMMs) `torch._int_mm` at (M, K) x (K, N)
+    is timed too, the int8 tensor-core yardstick. Bound: each input byte
+    read once, the output written once (1 byte a code), against 2 * M * N *
+    K int8 operations."""
     rng = np.random.default_rng(9)
     cases, failures = [], []
-    for (xs, ws, pad_json, dil, lhs, dt_name), per in configs.items():
+    for (xs, ws, pad_json, dil, lhs, dt_name, relu, codes), per in configs.items():
         dt = torch.bfloat16 if dt_name == "torch.bfloat16" else torch.float32
         pad = json.loads(pad_json)
         pad = pad if isinstance(pad, int) else tuple(tuple(p) for p in pad)
@@ -2151,47 +2167,77 @@ def check_int8_conv(dev, configs, iters=10):
         bias = torch.from_numpy(rng.normal(size=cout).astype(np.float32)).to(dev)
         wp = packed(wq, lhs is not None)
         step = 0.0371
+        out_steps = [None]
+        if codes:
+            ymax = float(int8_conv_plain(x, wq, step, wstep, bias, pad, dil, lhs, dt).abs().max())
+            out_steps = [2.0 ** math.floor(math.log2(ymax / 100)), float(np.float32(ymax / 127))]
 
-        def kernel():
-            return int8_conv(x, wp, step, wstep, bias, pad, dil, lhs, dt)
+        def kernel(out_step):
+            return int8_conv(x, wp, step, wstep, bias, pad, dil, lhs, dt, relu=relu,
+                             out_step=out_step)
 
-        def plain():
-            return int8_conv_plain(x, wq, step, wstep, bias, pad, dil, lhs, dt)
+        def plain(out_step):
+            return int8_conv_plain(x, wq, step, wstep, bias, pad, dil, lhs, dt, relu=relu,
+                                   out_step=out_step)
 
-        got = kernel()
-        sync(dev)
-        ref = plain()
-        equal = bool(torch.equal(got.view(torch.int16 if dt == torch.bfloat16 else torch.int32),
-                                 ref.view(torch.int16 if dt == torch.bfloat16 else torch.int32)))
-        err = float((got.float() - ref.float()).abs().max())
-        # the library yardstick: the float path's bf16 cuDNN conv + float32 epilogue
+        equal, err = True, 0.0
+        for out_step in out_steps:  # the last one is timed
+            got = kernel(out_step)
+            sync(dev)
+            ref = plain(out_step)
+            if codes:
+                equal &= got.dtype == torch.int8 and bool(torch.equal(got, ref))
+            else:
+                bits = torch.int16 if dt == torch.bfloat16 else torch.int32
+                equal &= bool(torch.equal(got.view(bits), ref.view(bits)))
+            err = max(err, float((got.float() - ref.float()).abs().max()))
+        # the library yardstick: the float path's bf16 cuDNN conv + float32
+        # epilogue, then the ReLU and the site's eager quantization it replaces
         xb = x.to(torch.bfloat16).permute(0, 3, 1, 2)
         wf = wq.to(torch.bfloat16)
         scale = (torch.tensor(step, device=dev) * wstep)[:, None, None]
+        step_t = torch.tensor(out_step or 1.0, dtype=torch.float32, device=dev)
+
+        def timed():
+            return kernel(out_step)
+
+        def finish(y):
+            v = (y.float() * scale + bias[:, None, None]).to(dt)
+            if relu:
+                v = torch.relu(v)
+            return quantize_codes(v, step_t) if codes else v
+
         if lhs is not None:
             wt = wf.flip(0, 1).permute(2, 3, 0, 1).contiguous()
 
             def library():
-                y = F.conv_transpose2d(xb, wt, stride=2)
-                return (y.float() * scale + bias[:, None, None]).to(dt)
+                return finish(F.conv_transpose2d(xb, wt, stride=2))
         else:
             (pt, pb), (pl, pr) = normalize_padding(pad)
             wo = wf.permute(3, 2, 0, 1).contiguous(memory_format=torch.channels_last)
 
             def library():
-                y = F.conv2d(F.pad(xb, (pl, pr, pt, pb)), wo, dilation=dil)
-                return (y.float() * scale + bias[:, None, None]).to(dt)
+                return finish(F.conv2d(F.pad(xb, (pl, pr, pt, pb)), wo, dilation=dil))
         m = got.shape[0] * got.shape[1] * got.shape[2]
         k = (cin if lhs is not None else kh * kw * cin)
         ops = 2.0 * m * cout * k
         nbytes = x.numel() + wq.numel() + 8 * cout + got.numel() * got.element_size()
         b_ms, b_by = bound(nbytes, ops, PEAK_INT8_OPS)
         case = dict(x=list(xs), w=list(ws), padding=pad, dilation=dil,
-                    lhs_dilation=None if lhs is None else list(lhs), out=dt_name,
-                    per_forward=per, bit_equal=equal, max_abs_err=err,
-                    ms=cuda_ms(kernel, iters), device_ms=device_ms(kernel, iters),
-                    plain_ms=cuda_ms(plain, 1, 0), library_ms=cuda_ms(library, iters),
-                    bound_ms=b_ms, bound_by=b_by, gop=ops / 1e9)
+                    lhs_dilation=None if lhs is None else list(lhs), out=dt_name, relu=relu,
+                    codes=codes, out_steps=out_steps, per_forward=per, bit_equal=equal,
+                    max_abs_err=err, ms=cuda_ms(timed, iters), device_ms=device_ms(timed, iters),
+                    plain_ms=cuda_ms(lambda: plain(out_step), 1, 0),
+                    library_ms=cuda_ms(library, iters), bound_ms=b_ms, bound_by=b_by,
+                    gop=ops / 1e9, int_mm_ms=None)
+        if lhs is not None or (kh, kw) == (1, 1):  # a plain GEMM: time cuBLASLt's int8 GEMM
+            a_mat = x.view(-1, cin)
+            # (K, N) column-major, N = sub-GEMMs x C_out
+            b_mat = pack_weights(wq, lhs is not None).view(-1, cin).t()
+            try:
+                case["int_mm_ms"] = cuda_ms(lambda: torch._int_mm(a_mat, b_mat), iters)
+            except RuntimeError as e:  # a yardstick only: record why it did not run
+                case["int_mm_error"] = str(e).splitlines()[0][:200]
         case["share_of_bound"] = b_ms / case["device_ms"]
         cases.append(case)
         if not equal:
@@ -2230,28 +2276,83 @@ def reciprocal_site(ctx, name, t, optional=False):
     return quant._QT((t.float() * inv).round_().clamp_(-127, 127).to(torch.int8), out.step)
 
 
+def reciprocal_conv(*args, out_step=None, **kw):
+    """The control's sites fused into a conv: the kernel in values mode,
+    then the codes by the step's reciprocal (as `reciprocal_site`)."""
+    y = int8_conv(*args, **kw)
+    if out_step is None:
+        return y
+    inv = 1.0 / torch.tensor(out_step, dtype=torch.float32, device=y.device)
+    return (y.float() * inv).round_().clamp_(-127, 127).to(torch.int8)
+
+
 _SITE = quant._Ctx.site
 
 
-def forced_card_vs_cpu(arch, card, cpu, x, card_site=_SITE):
+@contextlib.contextmanager
+def patched(obj, **attrs):
+    """Set `attrs` on `obj` for the block, then restore them."""
+    old = {k: getattr(obj, k) for k in attrs}
+    for k, v in attrs.items():
+        setattr(obj, k, v)
+    try:
+        yield
+    finally:
+        for k, v in old.items():
+            setattr(obj, k, v)
+
+
+def site_counts(forward) -> dict:
+    """Sites one call of `forward` quantizes: `fused` in an int8 conv's
+    epilogue (`_Ctx.fused_codes`), `eager` by `_Ctx.site` on a float tensor.
+    On the CPU a fused site's plain version also goes through `_Ctx.site`:
+    it counts as fused only."""
+    eager, fused = set(), set()
+
+    def site(ctx, name, t, optional=False):
+        out = _SITE(ctx, name, t, optional)
+        if out.step is not None:
+            eager.add(name)
+        return out
+
+    def fused_codes(ctx, name, codes):
+        fused.add(name)
+        return codes
+
+    with patched(quant._Ctx, site=site, fused_codes=fused_codes):
+        forward()
+    return dict(fused=len(fused), eager=len(eager - fused))
+
+
+def forced_card_vs_cpu(arch, card, cpu, x, card_site=_SITE, card_conv=None):
     """The int8 forward on the card against the CPU path, layer by layer:
-    the card's forward records every site's codes (quantized by
-    `card_site`); the CPU forward then quantizes each site from its own
-    input but passes the card's codes on, so every CPU layer reads what the
-    card's layer read. Returns the largest share of codes that a site would
-    have quantized otherwise, that site, and the mask agreement of the two
-    outputs (`mask_agreement`).
+    the card's forward records every site's codes, those `card_site`
+    quantizes and those an int8 conv's epilogue makes (`_Ctx.fused_codes`;
+    `card_conv` stands in for the kernel where given); the CPU forward then
+    quantizes each site from its own input (the plain conv's values through
+    `_Ctx.site` for a fused one) but passes the card's codes on, so every
+    CPU layer reads what the card's layer read. Returns the largest share
+    of codes that a site would have quantized otherwise, that site, the
+    mask agreement of the two outputs (`mask_agreement`), and the count of
+    fused sites it held.
 
     Free-running, one code that rounds otherwise early in a random-init
     model (a float-path conv summed in another order by cuDNN than by
     oneDNN) spreads through every later requantization; this comparison
     holds each layer instead."""
-    rec = []
+    rec, fused = [], []
 
     def record(ctx, name, t, optional=False):
         out = card_site(ctx, name, t, optional)
         rec.append((name, out.q.cpu(), out.step))
         return out
+
+    def record_fused(ctx, name, codes):
+        if rec and rec[-1][0] == name:  # a CPU forward's plain path went through `site`
+            rec.pop()
+        rec.append((name, codes.q.cpu(), codes.step))
+        fused.append(name)
+        return codes
 
     def forced(ctx, name, t, optional=False):
         own = _SITE(ctx, name, t, optional)
@@ -2262,15 +2363,15 @@ def forced_card_vs_cpu(arch, card, cpu, x, card_site=_SITE):
         return quant._QT(q, step)
 
     seen = {}
-    try:
-        quant._Ctx.site = record
+    with patched(quant._Ctx, site=record, fused_codes=record_fused), \
+            patched(quant, int8_conv=card_conv or quant.int8_conv):
         a = card(x.to(card.device)).cpu()
-        quant._Ctx.site = forced
+    with patched(quant._Ctx, site=forced):
         b = cpu(x)
-    finally:
-        quant._Ctx.site = _SITE
+    if len(seen) != len(rec):
+        raise AssertionError(f"the CPU forward held {len(seen)} sites, the card's made {len(rec)}")
     worst = max(seen, key=seen.get)
-    return seen[worst], worst, mask_agreement(arch, a, b)
+    return seen[worst], worst, mask_agreement(arch, a, b), len(fused)
 
 
 def int8_eval(arch, dev, size, batch, check_size, check_batch, limit):
@@ -2314,9 +2415,10 @@ def int8_eval(arch, dev, size, batch, check_size, check_batch, limit):
     cpu = quant.QuantizedModel(qm.qparams, qm.scales, arch=arch, device="cpu")
     small = normalize_images(torch.from_numpy(coast_tiles(check_batch, check_size, 31)[0]))
     free = mask_agreement(arch, qm(small).cpu(), cpu(small))
-    site_share, site_name, card_vs_cpu = forced_card_vs_cpu(arch, qm, cpu, small)
-    control_share, control_site, _ = forced_card_vs_cpu(arch, qm, cpu, small,
-                                                        card_site=reciprocal_site)
+    site_share, site_name, card_vs_cpu, fused_held = forced_card_vs_cpu(arch, qm, cpu, small)
+    control_share, control_site, _, _ = forced_card_vs_cpu(
+        arch, qm, cpu, small, card_site=reciprocal_site, card_conv=reciprocal_conv)
+    sites = site_counts(lambda: qm(x))
     bf16_cpu = create_model(name, dtype=torch.bfloat16)
     bf16_cpu.load_state_dict(sd, strict=True)
     with torch.inference_mode():
@@ -2326,6 +2428,7 @@ def int8_eval(arch, dev, size, batch, check_size, check_batch, limit):
                times=times, int8_vs_bf16_mask_agreement=mask_agreement(arch, probs, float_probs),
                card_vs_cpu_mask_agreement=card_vs_cpu, card_vs_cpu_site_codes=site_share,
                card_vs_cpu_worst_site=site_name, site_codes_limit=SITE_CODES_LIMIT,
+               card_vs_cpu_fused_sites=fused_held, sites=sites,
                control_reciprocal_site_codes=control_share, control_worst_site=control_site,
                card_vs_cpu_free_running=free,
                bf16_card_vs_cpu_free_running=bf16_free, check=[check_batch, check_size],
@@ -2334,6 +2437,9 @@ def int8_eval(arch, dev, size, batch, check_size, check_batch, limit):
     failures = []
     if launches != want:
         failures.append(f"{arch} int8 forward launched {launches}, want {want}")
+    if sites != INT8_SITES[arch] or fused_held != INT8_SITES[arch]["fused"]:
+        failures.append(f"{arch} int8 sites {sites} (layer by layer {fused_held} fused), want "
+                        f"{INT8_SITES[arch]}")
     if card_vs_cpu < limit or site_share > SITE_CODES_LIMIT or not out["finite"]:
         failures.append(f"{arch} int8 on the card against the CPU, layer by layer: masks "
                         f"{card_vs_cpu:.5f} (limit {limit}), codes {site_share:.2e} at {site_name} "
@@ -2419,7 +2525,9 @@ def int8_serving(dev, save_dir, root, size, batch, check_size, check_batch):
                                predict_ms=cuda_ms(lambda e=e: e.predict_masks_batch_async(x8), 10),
                                peak_memory_gb=peak)
     profile = profiles["int8"]
+    sites = site_counts(lambda: ex.quantized(xn))
     out = dict(requests=len(masks), batches=forwards, launches=launches, want_launches=want,
+               sites=sites,
                quantize_s=quantize_s, serve_s=serve_s, img_per_s=len(masks) / serve_s,
                npz_mb=os.path.getsize(npz) / 1e6,
                device_tree_mb=tensor_bytes(ex.quantized.params) / 1e6,
@@ -2432,6 +2540,8 @@ def int8_serving(dev, save_dir, root, size, batch, check_size, check_batch):
     failures = []
     if launches != want:
         failures.append(f"int8 serving launched {launches}, want {want}")
+    if sites != INT8_SITES["unet"]:
+        failures.append(f"int8 UNet sites {sites}, want {INT8_SITES['unet']}")
     if masks.shape != (16, size, size) or not set(np.unique(masks)) <= {0, 1}:
         failures.append(f"bad int8 masks {masks.shape} {np.unique(masks)}")
     if not out["reload_equal"]:
@@ -2467,6 +2577,28 @@ def int8_scene(ex, dev, size, batch, dilation=20):
     return out, failures
 
 
+def int8_forwards(result) -> dict:
+    """Per model, a batch-8 int8 forward beside the bf16 float model's:
+    device ms, its `int8_conv` and elementwise ms and launches (profiler),
+    and the sites quantized in the conv epilogue and eagerly."""
+    out = {}
+    for arch, r in (("unet", result["serving"]), ("robust_unet", result["robust_unet"]),
+                    ("segnet", result["segnet"])):
+        classes = r["profile"].get("classes", {})
+        conv = classes.get("int8_conv (ours)", {})
+        elem = classes.get("elementwise: bias, BN affine, ReLU, casts", {})
+        out[arch] = dict(
+            int8_device_ms=r["times"]["int8"]["forward_device_ms"],
+            bf16_device_ms=r["times"]["bf16"]["forward_device_ms"],
+            int8_conv_ms=conv.get("ms_per_forward"),
+            int8_conv_launches=conv.get("launches_per_forward"),
+            elementwise_ms=elem.get("ms_per_forward"),
+            elementwise_launches=elem.get("launches_per_forward"),
+            idle_share=r["profile"].get("idle_share"), **r["sites"])
+    log("int8_forwards", json.dumps(out))
+    return out
+
+
 def int8_path(dev, save_dir=TRAIN_DIR, size=512, batch=8, check_size=128, check_batch=2,
               scene_size=2048):
     """The int8 PTQ path on the card: the int8 conv at every configuration
@@ -2497,6 +2629,7 @@ def int8_path(dev, save_dir=TRAIN_DIR, size=512, batch=8, check_size=128, check_
         failures.append(f"int8 conv calls a forward {per_arch}, want {INT8_CONVS}")
     result["conv_cases"], fails = check_int8_conv(dev, configs)
     failures += fails
+    result["forwards"] = int8_forwards(result)
     result["s"] = time.perf_counter() - t0
     log(f"int8_path {result['s']:.1f} s")
     if failures:
@@ -2624,7 +2757,7 @@ def main(argv=None) -> int:
                     "segnet_int8_eval": int8["segnet"]["launches"].get("int8_conv", 0)}
     cases = int8["conv_cases"]
     main_case = next((c for c in cases if c["x"] == [8, 512, 512, 64] and c["w"] == [3, 3, 64, 64]
-                      and c["out"] == "torch.bfloat16"), cases[0])  # the UNet's dc0.c2
+                      and c["codes"] and c["relu"]), cases[0])  # the UNet's dc0.c2 (and dc8)
     kernels.append(dict(
         name="int8_conv", route="cuda", source="coastline_torch/csrc/int8_conv.cu",
         replaces="coastline/infer/quant.py:573",  # XLA's s8 conv: no Pallas kernel
@@ -2633,8 +2766,10 @@ def main(argv=None) -> int:
         plain_ms=main_case["plain_ms"], bound_ms=main_case["bound_ms"],
         bound_by=main_case["bound_by"], library_ms=main_case["library_ms"],
         device_ms=main_case["device_ms"], share_of_bound=main_case["share_of_bound"],
-        shape=main_case["x"], weights=main_case["w"], configurations=len(cases),
-        library="cuDNN bf16 conv (channels_last) + float32 epilogue"))
+        shape=main_case["x"], weights=main_case["w"], mode="codes, relu",
+        configurations=len(cases),
+        library="cuDNN bf16 conv (channels_last) + float32 epilogue + ReLU + the site's "
+                "eager quantization"))
     if args.out:
         os.makedirs(os.path.dirname(args.out) or ".", exist_ok=True)
         with open(args.out, "w") as f:

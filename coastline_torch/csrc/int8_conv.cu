@@ -1,262 +1,634 @@
-// Int8 convolution with a fused dequantizing epilogue, for the PTQ serving path.
+// Int8 convolution with a fused epilogue for the PTQ serving path: dequantize,
+// bias, optional ReLU and, in codes mode, the next site's int8 quantization.
 //
 // No Pallas counterpart: the JAX package runs these convs as XLA s8 x s8 -> s32
-// convolutions with the epilogue fused by XLA (coastline/infer/quant.py:573-578,
-// the int8 branch of `_conv`). It computes, stride 1, NHWC:
-//   y[n, oy, ox, co] = cast(float(acc) * (x_step * w_step[co]) + bias[co])
-//   acc = sum over (ky, kx, ci) of x[n, oy - pad_t + ky * dil, ox - pad_l + kx * dil, ci]
-//                                  * w[co][(ky * KW + kx) * Cin + ci]
+// convolutions with the epilogue and the site's quantization fused by XLA
+// (coastline/infer/quant.py:573-578, the int8 branch of `_conv`, and `_Ctx.site`
+// at :546-548). It computes, stride 1, NHWC:
+//   acc[n, oy, ox, co] = sum over (ky, kx, ci) of
+//       x[n, oy - pad_t + ky * dil, ox - pad_l + kx * dil, ci] * w[co][(ky * KW + kx) * Cin + ci]
+//   v = cast(RN(RN(float(acc) * RN(x_step * w_step[co])) + bias[co])), then max(v, 0) if relu
+//   values mode: out = v (float32 or bf16)
+//   codes mode:  out = int8(clamp(rint(float(v) / out_step), -127, 127))
+//                (the float division's result, found without a division: `quantize`)
 // with x int8, w int8 packed K-major (kernels/int8_conv.py::pack_weights), acc
-// int32 (exact), x_step a float, w_step and bias float per output channel. The
-// epilogue rounds as XLA does, in its order: x_step * w_step, then acc * that,
-// then + bias, each an explicit round-to-nearest intrinsic so that nvcc cannot
-// contract them into an FMA; a bf16 result is rounded once (RN). The kernel is
-// then bit-equal to the plain version.
+// int32 (exact), x_step and out_step floats, w_step and bias float per output
+// channel. Each float op is an explicit round-to-nearest intrinsic (__fmul_rn,
+// __fadd_rn) so that nvcc cannot contract them into an FMA; a bf16 cast rounds
+// once (RN) and codes mode divides that bf16 value widened, with the result of
+// a true float division (never the float product with a reciprocal); rint
+// rounds half to even. The kernel is then bit-equal to its plain version and
+// to `_Ctx.site(relu(conv))`.
 //
 // A transposed conv of the UNets' decoders (lhs dilation 2, 2x2 kernel, padding
-// 1) is launched as its four output-parity sub-problems (blockIdx.z = 2 py + px):
-// output pixel (2a + py, 2b + px) is the 1x1 product of input pixel (a, b) with
-// tap (1 - py, 1 - px), so each is a dense GEMM over the input grid with no
-// zero taps, written at output stride 2.
+// 1) runs as its four output-parity sub-problems: output pixel (2a + py, 2b +
+// px) is the 1x1 product of input pixel (a, b) with tap (1 - py, 1 - px), so
+// each is a dense GEMM over the input grid with no zero taps, written at output
+// stride 2 (the sub-problem is part of the tile index).
 //
 // What bounds it on an H100: bytes at the full-resolution levels (at (8, 512,
-// 512, 64 -> 64) 3x3: 134 MB in, 268 MB out in bf16, 0.120 ms at 3.35 TB/s),
-// int8 tensor operations at the deep ones (at (8, 32, 32, 1024 -> 1024): 154.6
-// GOP, 0.078 ms at 1979 TOPS).
+// 512, 64 -> 64) 3x3: 134.2 MB in; out 268.4 MB as bf16, 0.120 ms at 3.35 TB/s,
+// or 134.2 MB as codes, 0.080 ms), int8 tensor operations at the deep ones (at
+// (8, 32, 32, 1024 -> 1024) 3x3: 154.6 GOP, 0.078 ms at 1979 TOPS).
 //
-// Design (simple first): an implicit GEMM with M = N * Ho * Wo output pixels,
-// N = Cout, K = KH * KW * Cin. A block of 256 threads owns a 128 x 64 output
-// tile; its 8 warps each own 32 x 32 of it. The K loop steps 32 channels of one
-// tap at a time (Cin % 32 == 0, so a step never straddles two taps): the A rows
-// are the 32 input channels at each output pixel's tap position (zero-filled by
-// cp.async where the tap falls in the padding), the B rows the 32 weights of
-// each output channel. Four stages of cp.async keep loads in flight; shared
-// rows are padded to 48 bytes so the fragment loads of a warp hit 32 distinct
-// banks. The products run on the tensor cores as
-// mma.sync.aligned.m16n8k32.row.col.s32.s8.s8.s32 (eight a warp a step). The
-// epilogue applies the scale and bias from registers and stores pairs of
-// channels. wgmma, TMA and a coalesced store through shared memory are later
-// work.
+// Design (Hopper: TMA, mbarrier, wgmma), an implicit GEMM with M = output
+// pixels, N = Cout, K = KH * KW * Cin:
+//   * a persistent grid walks the output tiles, BM = 128 pixels x BN channels:
+//     for Cout > 64, 128 x 128 tiles in one block per SM with two consumer
+//     warpgroups (64 rows each); for Cout <= 64 (the full-resolution levels),
+//     128 x 64 tiles in two blocks per SM with one consumer warpgroup each, so
+//     one block's epilogue runs beside the other's products (with one block
+//     an SM, the epilogue, run after the products, was about half the time
+//     at (8, 512, 512, 64 -> 64) on an H100). A tile's pixels are a
+//     rectangle TH x TW of one image (TW a power of two, up to 32 for a KH >
+//     1 kernel, else up to BM, so a narrow image wastes no rows), one parity
+//     sub-problem, BN channels.
+//   * one producer thread keeps a ring of 3-8 stages full (as many as the
+//     block's shared memory holds beside the staging tiles). A stage is one
+//     64-channel chunk at one kx for all KH taps ky: one 4-D TMA box (C, W, H, N) of TH +
+//     (KH - 1) * dil rows, requested at (c0, x0 - pad_l + kx * dil, y0 - pad_t,
+//     n), in which tap ky's pixels start ky * dil rows down (a whole number of
+//     512-byte swizzle atoms when TW % 8 == 0), and the KH weight slices (64 x
+//     BN each, 2-D TMA boxes over the packed matrix at (tap * Cin + c0, n0)).
+//     A box a tap would read each input row three times over per kx; the
+//     taller box reads it (TH + 2) / TH times, which is what bounds the
+//     full-resolution levels: the L2-to-shared traffic. Where a tile is
+//     narrower than 8 pixels a stage is one tap (a box of TH rows at y0 -
+//     pad_t + ky * dil). TMA zero-fills what lies outside the tensor: the
+//     padding (uneven too), the dilations, the ragged right and bottom edges,
+//     and the channels past Cin when Cin % 64 != 0 (a zero A value cancels
+//     whatever B holds there). Both land in the 64-byte swizzle a wgmma
+//     descriptor reads (a pixel's 64 channels are one swizzle row), so no
+//     thread computes an address. Im2col-mode TMA would fetch one box a tap;
+//     the tiled mode shares the rows between taps and keeps the dilations and
+//     per-side padding in plain coordinates.
+//   * the consumer warpgroups, each 64 or 128 rows of the tile, issue
+//     wgmma.mma_async m64nBNk32 s8 x s8 -> s32 with both operands in shared
+//     memory (SS, K-major), two K steps a tap, and hand a stage back once
+//     the products of the next one are issued (wgmma.wait_group 1). The
+//     accumulators stay in registers for the whole K loop.
+//   * the epilogue: scale (x_step * w_step) and bias sit in shared memory once
+//     per block; each consumer warpgroup rounds its accumulators in the order
+//     above, stages the tile in shared memory (1, 2 or 4 bytes a value; rows
+//     padded by 16 bytes against bank conflicts) and writes whole pixel rows
+//     with coalesced 16-byte stores (8-byte when a codes row is not a multiple
+//     of 16 bytes), skipping pixels and channels outside the output; a
+//     transposed conv's sub-problem writes at output stride 2. The producer
+//     meanwhile loads the next tile's first stages, so the epilogue overlaps
+//     the next tile's loads. Codes mode quantizes without a division and, but
+//     for near-ties, without a conversion instruction (`quantize`).
 
+#include <cuda.h>  // CUtensorMap and its enums; the encoder is looked up at run time
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
 namespace {
 
-constexpr int BM = 128;      // output pixels a block
-constexpr int BN = 64;       // output channels a block
-constexpr int BK = 32;       // int8 values of K a stage (one mma depth)
-constexpr int LDS = BK + 16; // shared row stride in bytes: conflict-free fragment loads
-constexpr int STAGES = 4;
-constexpr int THREADS = 256;
+constexpr int BK = 64;           // int8 values of K a stage: one 64-byte swizzle row a pixel
+constexpr int MAX_STAGES = 8;
+constexpr int SMEM_SM = 233472;  // an H100 SM's shared memory, 1 KB of it reserved a block
+
+// A block: CONS consumer warpgroups and a producer (a warpgroup beside two
+// consumers, whose registers they take with setmaxnreg; a warp beside one),
+// CONS == 1 blocks two to an SM.
+__host__ __device__ constexpr int threads(int cons) { return cons * 128 + (cons == 1 ? 32 : 128); }
+__host__ __device__ constexpr int blocks_per_sm(int cons) { return cons == 1 ? 2 : 1; }
+constexpr int smem_limit(int cons) { return SMEM_SM / blocks_per_sm(cons) - 1024; }
 
 struct Geometry {
-  int H, W, Cin, Cout, KW, pad_t, pad_l, dil;
-  int Mh, Mw;        // the grid of output pixels of one sub-problem
-  int out_h, out_w;  // the output tensor's H and W
-  int os;            // output stride: 2 for a transposed conv's sub-problems, else 1
-  int K, M;          // KH * KW * Cin, N * Mh * Mw
+  int Cin, Cout, KW, chunks;  // chunks: 64-channel K steps a tap
+  int pad_t, pad_l, dil;
+  int R, row_groups;       // ky taps a stage (KH or 1), KH / R
+  int a_box_bytes, a_bytes, stage_bytes;  // a stage: the A box (rounded to 1 KB), then R B tiles
+  int Mh, Mw;              // the grid of output pixels of one sub-problem
+  int TW, TH, tw_log;      // tile rectangle, TW = 1 << tw_log
+  int tiles_x, tiles_y, n_tiles_n, subs;
+  long long n_tiles;
+  int out_h, out_w, os;    // output tensor H, W; output stride (2 for a transposed conv)
+  int cout_pad;            // n_tiles_n * BN: the scale and bias arrays in shared memory
+  int stages, stage_out_bytes, out_row_stride, vec, row_chunks_log;  // vec-byte chunks a row
+  int relu;
+  float x_step;
+  float out_inv;     // RN(1 / out_step): codes mode multiplies by it (see `quantize`)
+  double out_inv_d;  // the same in double, for the exact path
 };
 
-__device__ __forceinline__ void cp_async16(void* smem, const void* gmem, bool valid) {
-  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(smem));
-  const int n = valid ? 16 : 0;  // 0 source bytes: the 16 destination bytes are zeroed
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(s), "l"(gmem), "r"(n));
+struct Tile {
+  int nt, sub, tx, ty, b;
+};
+
+// tile t: output-channel tile fastest (neighbouring blocks share their A boxes
+// in L2), then the parity sub-problem, then the pixel rectangle and the image
+__device__ __forceinline__ Tile decode(long long t, const Geometry& g) {
+  Tile r;
+  r.nt = int(t % g.n_tiles_n);
+  t /= g.n_tiles_n;
+  r.sub = int(t % g.subs);
+  t /= g.subs;
+  r.tx = int(t % g.tiles_x);
+  t /= g.tiles_x;
+  r.ty = int(t % g.tiles_y);
+  r.b = int(t / g.tiles_y);
+  return r;
 }
 
-__device__ __forceinline__ void cp_async_commit() { asm volatile("cp.async.commit_group;\n"); }
-
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return uint32_t(__cvta_generic_to_shared(p));
 }
 
-__device__ __forceinline__ void mma_s8(int (&c)[4], const uint32_t (&a)[4], uint32_t b0,
-                                       uint32_t b1) {
+__device__ __forceinline__ void mbar_init(uint32_t bar, uint32_t count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;" ::"r"(bar), "r"(count) : "memory");
+}
+
+__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
+  uint32_t done;
+  do {
+    asm volatile(
+        "{\n.reg .pred p;\nmbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        "selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done)
+        : "r"(bar), "r"(parity)
+        : "memory");
+  } while (!done);
+}
+
+__device__ __forceinline__ void mbar_arrive(uint32_t bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];" ::"r"(bar) : "memory");
+}
+
+__device__ __forceinline__ void mbar_arrive_expect_tx(uint32_t bar, uint32_t bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;" ::"r"(bar), "r"(bytes)
+               : "memory");
+}
+
+__device__ __forceinline__ void tma_load_4d(uint32_t dst, const CUtensorMap* map, uint32_t bar,
+                                            int c0, int c1, int c2, int c3) {
   asm volatile(
-      "mma.sync.aligned.m16n8k32.row.col.s32.s8.s8.s32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-      : "+r"(c[0]), "+r"(c[1]), "+r"(c[2]), "+r"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+      "cp.async.bulk.tensor.4d.shared::cluster.global.mbarrier::complete_tx::bytes "
+      "[%0], [%1, {%3, %4, %5, %6}], [%2];" ::"r"(dst),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(c0), "r"(c1), "r"(c2), "r"(c3)
+      : "memory");
 }
 
-__device__ __forceinline__ uint32_t lds32(const int8_t* p) {
-  return *reinterpret_cast<const uint32_t*>(p);
+__device__ __forceinline__ void tma_load_2d(uint32_t dst, const CUtensorMap* map, uint32_t bar,
+                                            int c0, int c1) {
+  asm volatile(
+      "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx::bytes "
+      "[%0], [%1, {%3, %4}], [%2];" ::"r"(dst),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(c0), "r"(c1)
+      : "memory");
 }
 
-template <bool BF16>
-__device__ __forceinline__ void store_pair(void* out, size_t idx, float y0, float y1) {
-  if constexpr (BF16) {
-    __nv_bfloat162 v;
-    v.x = __float2bfloat16_rn(y0);
-    v.y = __float2bfloat16_rn(y1);
-    *reinterpret_cast<__nv_bfloat162*>(static_cast<__nv_bfloat16*>(out) + idx) = v;
-  } else {
-    *reinterpret_cast<float2*>(static_cast<float*>(out) + idx) = make_float2(y0, y1);
-  }
+__device__ __forceinline__ void named_barrier(int id, int threads) {
+  asm volatile("bar.sync %0, %1;" ::"r"(id), "r"(threads) : "memory");
 }
 
-template <bool BF16>
-__global__ void __launch_bounds__(THREADS)
-int8_conv_kernel(const int8_t* __restrict__ x, const int8_t* __restrict__ w,
-                 const float* __restrict__ w_step, const float* __restrict__ bias,
-                 void* __restrict__ out, Geometry g, float x_step) {
-  __shared__ __align__(16) int8_t As[STAGES][BM * LDS];
-  __shared__ __align__(16) int8_t Bs[STAGES][BN * LDS];
+// wgmma descriptor: K-major, 64-byte swizzle, 8-row groups 512 bytes apart
+__device__ __forceinline__ uint64_t desc64(uint32_t addr) {
+  return uint64_t((addr & 0x3FFFF) >> 4) | (uint64_t(1) << 16) | (uint64_t(512 >> 4) << 32) |
+         (uint64_t(2) << 62);
+}
 
-  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
-  const int wm = warp & 3, wn = warp >> 2;  // the warp's 32 x 32 sub-tile
-  const int gid = lane >> 2, tig = lane & 3;
-  const int m0 = blockIdx.x * BM, n0 = blockIdx.y * BN;
-  const int py = blockIdx.z >> 1, px = blockIdx.z & 1;
-  const int8_t* wz = w + size_t(blockIdx.z) * g.Cout * g.K;
-  const int plane = g.Mh * g.Mw;
+__device__ __forceinline__ void wgmma_fence() {
+  asm volatile("wgmma.fence.sync.aligned;" ::: "memory");
+}
+__device__ __forceinline__ void wgmma_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;" ::: "memory");
+}
+template <int N>
+__device__ __forceinline__ void wgmma_wait() {
+  asm volatile("wgmma.wait_group.sync.aligned %0;" ::"n"(N) : "memory");
+}
 
-  // this thread's A row (one output pixel) and 16-byte half of it
-  const int a_row = tid >> 1, a_half = tid & 1;
-  const int am = m0 + a_row;
-  const bool a_in = am < g.M;
-  int an = 0, aoy = 0, aox = 0;
-  if (a_in) {
-    an = am / plane;
-    const int r = am - an * plane;
-    aoy = r / g.Mw;
-    aox = r - aoy * g.Mw;
+template <int BN>
+__device__ __forceinline__ void wgmma_s8(int (&d)[BN / 2], uint64_t a, uint64_t b);
+
+// d (64 x 64 s32, this thread's 32) += A (64 x 32 s8) * B (32 x 64 s8), both read
+// from shared memory through their descriptors
+template <>
+__device__ __forceinline__ void wgmma_s8<64>(int (&d)[32], uint64_t a, uint64_t b) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k32.s32.s8.s8 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, "
+      "%32, %33, p;\n}\n"
+      : "+r"(d[0]), "+r"(d[1]), "+r"(d[2]), "+r"(d[3]), "+r"(d[4]), "+r"(d[5]),
+        "+r"(d[6]), "+r"(d[7]), "+r"(d[8]), "+r"(d[9]), "+r"(d[10]), "+r"(d[11]),
+        "+r"(d[12]), "+r"(d[13]), "+r"(d[14]), "+r"(d[15]), "+r"(d[16]), "+r"(d[17]),
+        "+r"(d[18]), "+r"(d[19]), "+r"(d[20]), "+r"(d[21]), "+r"(d[22]), "+r"(d[23]),
+        "+r"(d[24]), "+r"(d[25]), "+r"(d[26]), "+r"(d[27]), "+r"(d[28]), "+r"(d[29]),
+        "+r"(d[30]), "+r"(d[31])
+      : "l"(a), "l"(b), "r"(1));  // scale-d: accumulate
+}
+
+// d (64 x 128 s32, this thread's 64) += A (64 x 32 s8) * B (32 x 128 s8), both read
+// from shared memory through their descriptors
+template <>
+__device__ __forceinline__ void wgmma_s8<128>(int (&d)[64], uint64_t a, uint64_t b) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k32.s32.s8.s8 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63}, "
+      "%64, %65, p;\n}\n"
+      : "+r"(d[0]), "+r"(d[1]), "+r"(d[2]), "+r"(d[3]), "+r"(d[4]), "+r"(d[5]),
+        "+r"(d[6]), "+r"(d[7]), "+r"(d[8]), "+r"(d[9]), "+r"(d[10]), "+r"(d[11]),
+        "+r"(d[12]), "+r"(d[13]), "+r"(d[14]), "+r"(d[15]), "+r"(d[16]), "+r"(d[17]),
+        "+r"(d[18]), "+r"(d[19]), "+r"(d[20]), "+r"(d[21]), "+r"(d[22]), "+r"(d[23]),
+        "+r"(d[24]), "+r"(d[25]), "+r"(d[26]), "+r"(d[27]), "+r"(d[28]), "+r"(d[29]),
+        "+r"(d[30]), "+r"(d[31]), "+r"(d[32]), "+r"(d[33]), "+r"(d[34]), "+r"(d[35]),
+        "+r"(d[36]), "+r"(d[37]), "+r"(d[38]), "+r"(d[39]), "+r"(d[40]), "+r"(d[41]),
+        "+r"(d[42]), "+r"(d[43]), "+r"(d[44]), "+r"(d[45]), "+r"(d[46]), "+r"(d[47]),
+        "+r"(d[48]), "+r"(d[49]), "+r"(d[50]), "+r"(d[51]), "+r"(d[52]), "+r"(d[53]),
+        "+r"(d[54]), "+r"(d[55]), "+r"(d[56]), "+r"(d[57]), "+r"(d[58]), "+r"(d[59]),
+        "+r"(d[60]), "+r"(d[61]), "+r"(d[62]), "+r"(d[63])
+      : "l"(a), "l"(b), "r"(1));  // scale-d: accumulate
+}
+
+// The site's quantization of one widened output value v: q = RN(v / step) as
+// a float, rounded half to even to an integer, clamped to +-127, without a
+// division and, but for near-ties, without a conversion instruction (those
+// run at a quarter of the float rate).
+//   * qa = RN(v * RN(1 / step)) is within 2^-13 of q wherever |q| <= 256 (two
+//     relative errors of 2^-24 at most, and q's own rounding). Rounding and
+//     clamping to the integers +-127 commute, so qa is clamped first; its
+//     rint comes from the magic-number add (1.5 * 2^23 rounds the sum half to
+//     even to an integer), which also gives its bits. Where qa lies 2^-12 or
+//     more from every half-integer, q lies on the same side of each as qa,
+//     and rint(q) = rint(qa); past +-127.5 both clamp alike.
+//   * otherwise (exact ties, as a power-of-two step gives, and near-ties) q is
+//     computed exactly: v times the double RN(1 / step), rounded to double,
+//     then to float, is RN(v / step): the product is within 2^-52 (relative) of
+//     v / step, and the quotient of two floats (24-bit significands) is never
+//     within 2^-49 of a float rounding midpoint (a 25-bit odd significand: v =
+//     M * step would need more than 24 bits), so both round alike.
+// __fdiv_rn costs far more here: its range check sends zeros (half the
+// values after a ReLU), and whole warps with them, down a slow path.
+__device__ __forceinline__ int quantize(float v, float inv, double inv_d) {
+  constexpr float MAGIC = 12582912.0f;  // 1.5 * 2^23
+  const float qa = fminf(fmaxf(__fmul_rn(v, inv), -127.0f), 127.0f);
+  const float t = __fadd_rn(qa, MAGIC);
+  const float frac = __fsub_rn(qa, __fsub_rn(t, MAGIC));  // qa - rint(qa), exact
+  if (fabsf(fabsf(frac) - 0.5f) < 0x1p-12f) {
+    const int n = __float2int_rn(__double2float_rn(__dmul_rn(double(v), inv_d)));
+    return min(max(n, -127), 127);
   }
-  const int8_t* a_img = x + size_t(an) * g.H * g.W * g.Cin + a_half * 16;
-  // this thread's B row (one output channel), threads 0..127
-  const int b_row = (tid & 127) >> 1;
-  const bool b_in = tid < 128 && n0 + b_row < g.Cout;
-  const int8_t* b_src = wz + size_t(b_in ? n0 + b_row : 0) * g.K + a_half * 16;
+  return __float_as_int(t) - 0x4B400000;  // rint(qa): t's low mantissa bits
+}
 
-  const int cin_steps = g.Cin / BK;
-  const int k_steps = g.K / BK;
-
-  auto load = [&](int stage, int kt) {
-    const int tap = kt / cin_steps;
-    const int ci0 = (kt - tap * cin_steps) * BK;
-    const int ky = tap / g.KW, kx = tap - (tap / g.KW) * g.KW;
-    const int iy = aoy - g.pad_t + ky * g.dil, ix = aox - g.pad_l + kx * g.dil;
-    const bool ok = a_in && iy >= 0 && iy < g.H && ix >= 0 && ix < g.W;
-    const int8_t* src = ok ? a_img + (size_t(iy) * g.W + ix) * g.Cin + ci0 : x;
-    cp_async16(&As[stage][a_row * LDS + a_half * 16], src, ok);
-    if (tid < 128) cp_async16(&Bs[stage][b_row * LDS + a_half * 16], b_src + size_t(kt) * BK, b_in);
-  };
-
-  int acc[2][4][4];
+// MODE 0: float32 values, 1: bf16 values, 2: codes of float32 values, 3: codes
+// of bf16 values. Writes this warpgroup's accumulators, finished, to its
+// staging tile (row = the warpgroup's pixel, out_row_stride bytes a row).
+template <int BN, int MW, int MODE>
+__device__ __forceinline__ void stage_tile(const int (&acc)[MW][BN / 2], uint32_t dst,
+                                           uint32_t sb, const Geometry& g, int n0, int warp,
+                                           int lane) {
+  const uint32_t sc_s = sb + n0 * 4, bi_s = sb + (g.cout_pad + n0) * 4;
 #pragma unroll
-  for (int i = 0; i < 2; ++i)
+  for (int m = 0; m < MW; ++m)
 #pragma unroll
-    for (int j = 0; j < 4; ++j)
+    for (int i = 0; i < BN / 8; ++i) {
+      const int col = i * 8 + (lane & 3) * 2;
+      float2 sc, bi;
+      asm volatile("ld.shared.v2.f32 {%0, %1}, [%2];"
+                   : "=f"(sc.x), "=f"(sc.y) : "r"(sc_s + col * 4));
+      asm volatile("ld.shared.v2.f32 {%0, %1}, [%2];"
+                   : "=f"(bi.x), "=f"(bi.y) : "r"(bi_s + col * 4));
 #pragma unroll
-      for (int q = 0; q < 4; ++q) acc[i][j][q] = 0;
-
-#pragma unroll
-  for (int s = 0; s < STAGES - 1; ++s) {
-    if (s < k_steps) load(s, s);
-    cp_async_commit();
-  }
-
-  for (int kt = 0; kt < k_steps; ++kt) {
-    cp_async_wait<STAGES - 2>();  // stage kt has landed (this thread's copies)
-    __syncthreads();              // ... and everyone's; stage kt - 1 is free
-    const int next = kt + STAGES - 1;
-    if (next < k_steps) load(next % STAGES, next);
-    cp_async_commit();
-
-    const int8_t* as = As[kt % STAGES];
-    const int8_t* bs = Bs[kt % STAGES];
-    uint32_t a[2][4];
-#pragma unroll
-    for (int i = 0; i < 2; ++i) {
-      const int8_t* r0 = as + (wm * 32 + i * 16 + gid) * LDS + tig * 4;
-      a[i][0] = lds32(r0);
-      a[i][1] = lds32(r0 + 8 * LDS);
-      a[i][2] = lds32(r0 + 16);
-      a[i][3] = lds32(r0 + 8 * LDS + 16);
-    }
-#pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      const int8_t* c0 = bs + (wn * 32 + j * 8 + gid) * LDS + tig * 4;
-      const uint32_t b0 = lds32(c0), b1 = lds32(c0 + 16);
-#pragma unroll
-      for (int i = 0; i < 2; ++i) mma_s8(acc[i][j], a[i], b0, b1);
-    }
-  }
-  cp_async_wait<0>();
-
-  // epilogue: rows gid and gid + 8 of each 16-row tile, channels 2 tig, 2 tig + 1
-  float sc[4][2], bi[4][2];
-  bool col_in[4];
-#pragma unroll
-  for (int j = 0; j < 4; ++j) {
-    const int co = n0 + wn * 32 + j * 8 + tig * 2;
-    col_in[j] = co < g.Cout;  // Cout % 8 == 0: the pair is in or out together
-#pragma unroll
-    for (int e = 0; e < 2; ++e) {
-      sc[j][e] = col_in[j] ? __fmul_rn(x_step, w_step[co + e]) : 0.0f;
-      bi[j][e] = col_in[j] ? bias[co + e] : 0.0f;
-    }
-  }
-#pragma unroll
-  for (int i = 0; i < 2; ++i) {
-#pragma unroll
-    for (int h = 0; h < 2; ++h) {
-      const int m = m0 + wm * 32 + i * 16 + h * 8 + gid;
-      if (m >= g.M) continue;
-      const int n = m / plane;
-      const int r = m - n * plane;
-      const int oy = r / g.Mw, ox = r - (r / g.Mw) * g.Mw;
-      const size_t pix = (size_t(n) * g.out_h + oy * g.os + py) * g.out_w + ox * g.os + px;
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        if (!col_in[j]) continue;
-        const int co = n0 + wn * 32 + j * 8 + tig * 2;
-        const float y0 = __fadd_rn(__fmul_rn(__int2float_rn(acc[i][j][2 * h]), sc[j][0]), bi[j][0]);
-        const float y1 =
-            __fadd_rn(__fmul_rn(__int2float_rn(acc[i][j][2 * h + 1]), sc[j][1]), bi[j][1]);
-        store_pair<BF16>(out, pix * g.Cout + co, y0, y1);
+      for (int h = 0; h < 2; ++h) {
+        const int row = m * 64 + warp * 16 + (lane >> 2) + h * 8;
+        float y0 = __fadd_rn(__fmul_rn(__int2float_rn(acc[m][4 * i + 2 * h]), sc.x), bi.x);
+        float y1 = __fadd_rn(__fmul_rn(__int2float_rn(acc[m][4 * i + 2 * h + 1]), sc.y), bi.y);
+        if (MODE == 1 || MODE == 3) {
+          y0 = __bfloat162float(__float2bfloat16_rn(y0));
+          y1 = __bfloat162float(__float2bfloat16_rn(y1));
+        }
+        if (g.relu) {  // torch.relu's choice: -0.0 stays, NaN stays
+          y0 = y0 < 0.0f ? 0.0f : y0;
+          y1 = y1 < 0.0f ? 0.0f : y1;
+        }
+        const uint32_t at = dst + row * g.out_row_stride;
+        if (MODE == 0) {
+          asm volatile("st.shared.v2.f32 [%0], {%1, %2};" ::"r"(at + col * 4), "f"(y0), "f"(y1)
+                       : "memory");
+        } else if (MODE == 1) {
+          __nv_bfloat162 v = __floats2bfloat162_rn(y0, y1);  // exact: both are bf16 values
+          asm volatile("st.shared.b32 [%0], %1;" ::"r"(at + col * 2),
+                       "r"(*reinterpret_cast<uint32_t*>(&v))
+                       : "memory");
+        } else {
+          const uint32_t q = (uint32_t(quantize(y0, g.out_inv, g.out_inv_d)) & 0xFFu) |
+                             ((uint32_t(quantize(y1, g.out_inv, g.out_inv_d)) & 0xFFu) << 8);
+          asm volatile("st.shared.b16 [%0], %1;" ::"r"(at + col), "h"(uint16_t(q)) : "memory");
+        }
       }
     }
+}
+
+// Writes this warpgroup's staged rows to the output: whole pixel rows of
+// g.vec-byte chunks, neighbouring threads on neighbouring chunks.
+template <int BN, int MW, int OB>
+__device__ __forceinline__ void store_tile(uint32_t src, unsigned char* __restrict__ out,
+                                           const Geometry& g, const Tile& T, int wg, int ltid) {
+  constexpr int ROWS = 64 * MW;
+  const int n0 = T.nt * BN, py = T.sub >> 1, px = T.sub & 1;
+  for (int idx = ltid; idx < ROWS << g.row_chunks_log; idx += 128) {
+    const int r = idx >> g.row_chunks_log, ch = idx & ((1 << g.row_chunks_log) - 1);
+    const int p = wg * ROWS + r;  // the tile's pixel
+    const int oy = T.ty * g.TH + (p >> g.tw_log), ox = T.tx * g.TW + (p & (g.TW - 1));
+    const int c = n0 + ch * g.vec / OB;
+    if (oy >= g.Mh || ox >= g.Mw || c >= g.Cout) continue;
+    const size_t pix =
+        (size_t(T.b) * g.out_h + size_t(oy) * g.os + py) * g.out_w + size_t(ox) * g.os + px;
+    unsigned char* dst = out + (pix * g.Cout + c) * OB;
+    const uint32_t at = src + r * g.out_row_stride + ch * g.vec;
+    if (g.vec == 16) {
+      uint4 v;
+      asm volatile("ld.shared.v4.b32 {%0, %1, %2, %3}, [%4];"
+                   : "=r"(v.x), "=r"(v.y), "=r"(v.z), "=r"(v.w)
+                   : "r"(at));
+      *reinterpret_cast<uint4*>(dst) = v;
+    } else {
+      uint2 v;
+      asm volatile("ld.shared.v2.b32 {%0, %1}, [%2];" : "=r"(v.x), "=r"(v.y) : "r"(at));
+      *reinterpret_cast<uint2*>(dst) = v;
+    }
   }
+}
+
+template <int BN, int MW, int MODE>
+__device__ __forceinline__ void epilogue(const int (&acc)[MW][BN / 2], uint32_t staging,
+                                         uint32_t sb, unsigned char* __restrict__ out,
+                                         const Geometry& g, const Tile& T, int wg, int ltid) {
+  constexpr int OB = MODE == 0 ? 4 : (MODE == 1 ? 2 : 1);
+  named_barrier(1 + wg, 128);  // the previous tile's stores have read the staging tile
+  stage_tile<BN, MW, MODE>(acc, staging, sb, g, T.nt * BN, ltid >> 5, ltid & 31);
+  named_barrier(1 + wg, 128);
+  store_tile<BN, MW, OB>(staging, out, g, T, wg, ltid);
+}
+
+template <int BN, int MW, int CONS>
+__global__ void __launch_bounds__(threads(CONS), blocks_per_sm(CONS))
+int8_conv_kernel(const __grid_constant__ CUtensorMap amap,
+                 const __grid_constant__ CUtensorMap bmap, const float* __restrict__ w_step,
+                 const float* __restrict__ bias, unsigned char* __restrict__ out,
+                 const Geometry g, int mode) {
+  constexpr int B_BYTES = BN * BK;
+  extern __shared__ unsigned char smem_raw[];
+  const uint32_t raw = smem_u32(smem_raw);
+  const uint32_t ring = (raw + 1023) & ~1023u;  // TMA's and wgmma's swizzle atoms
+  const uint32_t staging = ring + g.stages * g.stage_bytes;
+  const uint32_t sb = staging + CONS * g.stage_out_bytes;  // scale[cout_pad], bias[cout_pad]
+  const uint32_t full = sb + 8 * g.cout_pad, empty = full + 8 * MAX_STAGES;
+  const int tid = threadIdx.x;
+  // the role of this thread's warpgroup, read through a shuffle so the
+  // compiler knows it is warp-uniform and keeps the wgmma path convergent
+  const int wg = __shfl_sync(0xffffffffu, tid / 128, 0);
+
+  for (int c = tid; c < g.cout_pad; c += threads(CONS)) {
+    const bool in = c < g.Cout;
+    const float s = in ? __fmul_rn(g.x_step, __ldg(w_step + c)) : 0.0f;
+    const float b = in ? __ldg(bias + c) : 0.0f;
+    asm volatile("st.shared.f32 [%0], %1;" ::"r"(sb + c * 4), "f"(s) : "memory");
+    asm volatile("st.shared.f32 [%0], %1;" ::"r"(sb + (g.cout_pad + c) * 4), "f"(b) : "memory");
+  }
+  if (tid == 0) {
+    for (int s = 0; s < g.stages; ++s) {
+      mbar_init(full + 8 * s, 1);
+      mbar_init(empty + 8 * s, CONS * 4);  // one arrival a consumer warp
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
+  }
+  __syncthreads();
+
+  const int k_iters = g.chunks * g.KW * g.row_groups;
+  if (wg == CONS) {  // the producer: one thread keeps the ring full
+    if constexpr (CONS == 2) asm volatile("setmaxnreg.dec.sync.aligned.u32 40;");
+    if (tid == CONS * 128) {
+      int s = 0;
+      uint32_t ph = 0;
+      for (long long t = blockIdx.x; t < g.n_tiles; t += gridDim.x) {
+        const Tile T = decode(t, g);
+        const int x0 = T.tx * g.TW - g.pad_l, y0 = T.ty * g.TH - g.pad_t;
+        const int brow = T.sub * g.Cout + T.nt * BN;
+        for (int c = 0; c < g.chunks; ++c)
+          for (int kx = 0; kx < g.KW; ++kx)
+            for (int gy = 0; gy < g.row_groups; ++gy) {
+              mbar_wait(empty + 8 * s, ph ^ 1);  // a fresh ring passes at once
+              // zero-filled bytes count too
+              mbar_arrive_expect_tx(full + 8 * s, g.a_box_bytes + g.R * B_BYTES);
+              const uint32_t dst = ring + s * g.stage_bytes;
+              tma_load_4d(dst, &amap, full + 8 * s, c * BK, x0 + kx * g.dil,
+                          y0 + gy * g.R * g.dil, T.b);
+              for (int j = 0; j < g.R; ++j) {
+                const int tap = (gy * g.R + j) * g.KW + kx;
+                tma_load_2d(dst + g.a_bytes + j * B_BYTES, &bmap, full + 8 * s,
+                            tap * g.Cin + c * BK, brow);
+              }
+              if (++s == g.stages) {
+                s = 0;
+                ph ^= 1;
+              }
+            }
+      }
+    }
+    return;
+  }
+
+  if constexpr (CONS == 2) asm volatile("setmaxnreg.inc.sync.aligned.u32 232;");
+  const int ltid = tid % 128, lane = tid % 32;
+  const uint32_t my_staging = staging + wg * g.stage_out_bytes;
+  int s = 0;
+  uint32_t ph = 0;
+  for (long long t = blockIdx.x; t < g.n_tiles; t += gridDim.x) {
+    const Tile T = decode(t, g);
+    int acc[MW][BN / 2];
+#pragma unroll
+    for (int m = 0; m < MW; ++m)
+#pragma unroll
+      for (int j = 0; j < BN / 2; ++j) acc[m][j] = 0;
+    int prev = 0;
+    for (int k = 0; k < k_iters; ++k) {
+      mbar_wait(full + 8 * s, ph);
+      const uint32_t a_s = ring + s * g.stage_bytes + wg * MW * 64 * BK;  // this warpgroup's rows
+      const uint32_t b_s = ring + s * g.stage_bytes + g.a_bytes;
+      wgmma_fence();
+      for (int j = 0; j < g.R; ++j) {  // tap ky = gy * R + j: its pixels start j * dil rows down
+        const uint32_t a_j = a_s + j * g.dil * g.TW * BK, b_j = b_s + j * B_BYTES;
+#pragma unroll
+        for (int kk = 0; kk < BK / 32; ++kk)
+#pragma unroll
+          for (int m = 0; m < MW; ++m)
+            wgmma_s8<BN>(acc[m], desc64(a_j + m * 64 * BK + kk * 32), desc64(b_j + kk * 32));
+      }
+      wgmma_commit();
+      wgmma_wait<1>();  // the previous stage's products are done: hand it back
+      if (k > 0 && lane == 0) mbar_arrive(empty + 8 * prev);
+      prev = s;
+      if (++s == g.stages) {
+        s = 0;
+        ph ^= 1;
+      }
+    }
+    wgmma_wait<0>();
+    if (lane == 0) mbar_arrive(empty + 8 * prev);
+    switch (mode) {
+      case 0: epilogue<BN, MW, 0>(acc, my_staging, sb, out, g, T, wg, ltid); break;
+      case 1: epilogue<BN, MW, 1>(acc, my_staging, sb, out, g, T, wg, ltid); break;
+      case 2: epilogue<BN, MW, 2>(acc, my_staging, sb, out, g, T, wg, ltid); break;
+      default: epilogue<BN, MW, 3>(acc, my_staging, sb, out, g, T, wg, ltid); break;
+    }
+  }
+}
+
+typedef CUresult (*EncodeTiled)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
+                                const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
+                                const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
+                                CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
+
+// cuTensorMapEncodeTiled lives in libcuda; looking it up through the
+// runtime (cudaGetDriverEntryPointByVersion) spares the library -lcuda.
+EncodeTiled encode_tiled() {
+  static EncodeTiled fn = nullptr;
+  if (fn == nullptr) {
+    void* p = nullptr;
+    cudaDriverEntryPointQueryResult q;
+#if CUDART_VERSION >= 12050
+    cudaError_t err = cudaGetDriverEntryPointByVersion("cuTensorMapEncodeTiled", &p, 12000,
+                                                       cudaEnableDefault, &q);
+#else
+    cudaError_t err = cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p, cudaEnableDefault, &q);
+#endif
+    if (err != cudaSuccess || q != cudaDriverEntryPointSuccess) return nullptr;
+    fn = reinterpret_cast<EncodeTiled>(p);
+  }
+  return fn;
+}
+
+// an int8 map with a 64-byte swizzle, zero fill outside the tensor
+bool make_map(EncodeTiled encode, CUtensorMap* map, const void* ptr, int rank,
+              const cuuint64_t* dims, const cuuint64_t* strides, const cuuint32_t* box) {
+  const cuuint32_t elem[4] = {1, 1, 1, 1};
+  return encode(map, CU_TENSOR_MAP_DATA_TYPE_UINT8, cuuint32_t(rank), const_cast<void*>(ptr),
+                dims, strides, box, elem, CU_TENSOR_MAP_INTERLEAVE_NONE,
+                CU_TENSOR_MAP_SWIZZLE_64B, CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
+                CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
+// the ring's depth for `g`'s stage size: as many stages as the shared memory
+// holds beside the staging tiles, the scale and bias and the barriers
+int ring_stages(const Geometry& g, int cons) {
+  const int fixed = 1024 + cons * g.stage_out_bytes + 8 * g.cout_pad + 16 * MAX_STAGES;
+  const int stages = (smem_limit(cons) - fixed) / g.stage_bytes;
+  return stages > MAX_STAGES ? MAX_STAGES : stages;
+}
+
+template <int BN, int MW, int CONS>
+int launch(const CUtensorMap& amap, const CUtensorMap& bmap, const float* w_step,
+           const float* bias, void* out, const Geometry& g, int mode, cudaStream_t stream) {
+  const int smem = 1024 + CONS * g.stage_out_bytes + 8 * g.cout_pad + 16 * MAX_STAGES +
+                   g.stages * g.stage_bytes;
+  cudaError_t err = cudaFuncSetAttribute(int8_conv_kernel<BN, MW, CONS>,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err != cudaSuccess) return int(err);
+  // all of the SM's L1 as shared memory, so two narrow blocks fit beside each other
+  err = cudaFuncSetAttribute(int8_conv_kernel<BN, MW, CONS>,
+                             cudaFuncAttributePreferredSharedMemoryCarveout, 100);
+  if (err != cudaSuccess) return int(err);
+  int dev = 0, sms = 0;
+  if ((err = cudaGetDevice(&dev)) != cudaSuccess) return int(err);
+  if ((err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev)) != cudaSuccess)
+    return int(err);
+  const long long slots = (long long)sms * blocks_per_sm(CONS);
+  const int grid = int(g.n_tiles < slots ? g.n_tiles : slots);
+  int8_conv_kernel<BN, MW, CONS><<<grid, threads(CONS), smem, stream>>>(
+      amap, bmap, w_step, bias, static_cast<unsigned char*>(out), g, mode);
+  return int(cudaGetLastError());
 }
 
 }  // namespace
 
 // x int8 (N, H, W, Cin); w int8 packed (subs, Cout, KH * KW * Cin); w_step, bias
-// float (Cout); out (N, Ho, Wo, Cout) float or bf16. For a plain conv (transposed
-// 0) the M grid is (Mh, Mw) = (Ho, Wo); for a transposed one (transposed 1, KH =
-// KW = 1, pad 0, dil 1) it is the input grid (H, W) and the output is (2H, 2W).
+// float (Cout); out (N, Ho, Wo, Cout) float32 or bf16 (values) or int8 (codes).
+// For a plain conv (transposed 0) the M grid is (Mh, Mw) = (Ho, Wo); for a
+// transposed one (transposed 1, KH = KW = 1, pad 0, dil 1) it is the input grid
+// (H, W) and the output is (2H, 2W).
 extern "C" int coastline_int8_conv(const void* x, const void* w, const void* w_step,
                                    const void* bias, void* out, int N, int H, int W, int Cin,
                                    int Cout, int KH, int KW, int pad_t, int pad_l, int dil,
                                    int Mh, int Mw, int transposed, float x_step, int out_bf16,
-                                   void* stream) {
+                                   int relu, int codes, float out_step, void* stream) {
   if (N <= 0 || H <= 0 || W <= 0 || Cin <= 0 || Cout <= 0 || KH <= 0 || KW <= 0 || dil <= 0 ||
-      Mh <= 0 || Mw <= 0 || Cin % BK || Cout % 8)
+      Mh <= 0 || Mw <= 0 || Cin % 32 || Cout % 8)
     return int(cudaErrorInvalidValue);
   if (transposed && (KH != 1 || KW != 1 || pad_t || pad_l || dil != 1 || Mh != H || Mw != W))
     return int(cudaErrorInvalidValue);
-  const long long m = (long long)N * Mh * Mw;
-  if (m >= (1LL << 31) - BM) return int(cudaErrorInvalidValue);
+  const EncodeTiled encode = encode_tiled();
+  if (encode == nullptr) return int(cudaErrorSymbolNotFound);
+  const bool wide = Cout > 64;  // 128 x 128 tiles, two consumers; else 128 x 64, one
+  const int BN = wide ? 128 : 64, BM = 128, cons = wide ? 2 : 1;
   Geometry g;
-  g.H = H; g.W = W; g.Cin = Cin; g.Cout = Cout; g.KW = KW;
+  g.Cin = Cin; g.Cout = Cout; g.KW = KW; g.chunks = (Cin + BK - 1) / BK;
   g.pad_t = pad_t; g.pad_l = pad_l; g.dil = dil;
   g.Mh = Mh; g.Mw = Mw;
+  // with KH > 1 a tile row is at most 32 pixels, so a tile spans 4-8 rows and
+  // its box of TH + 2 dil rows loads each row 1.25-1.5 times a kx, not 3
+  const int tw_max = KH > 1 ? 32 : BM;
+  g.tw_log = 0;
+  while ((1 << g.tw_log) < Mw && (1 << g.tw_log) < tw_max) ++g.tw_log;
+  g.TW = 1 << g.tw_log; g.TH = BM / g.TW;
+  g.tiles_x = (Mw + g.TW - 1) / g.TW; g.tiles_y = (Mh + g.TH - 1) / g.TH;
+  g.n_tiles_n = (Cout + BN - 1) / BN;
+  g.subs = transposed ? 4 : 1;
+  g.n_tiles = (long long)g.subs * N * g.tiles_y * g.tiles_x * g.n_tiles_n;
   g.os = transposed ? 2 : 1;
   g.out_h = Mh * g.os; g.out_w = Mw * g.os;
-  g.K = KH * KW * Cin;
-  g.M = int(m);
-  const dim3 grid(unsigned((m + BM - 1) / BM), unsigned((Cout + BN - 1) / BN), transposed ? 4 : 1);
+  g.cout_pad = g.n_tiles_n * BN;
+  const int ob = codes ? 1 : (out_bf16 ? 2 : 4);
+  g.vec = (Cout * ob) % 16 == 0 ? 16 : 8;
+  g.row_chunks_log = 0;
+  while ((g.vec << g.row_chunks_log) < BN * ob) ++g.row_chunks_log;
+  g.out_row_stride = BN * ob + 16;
+  g.stage_out_bytes = BM / cons * g.out_row_stride;
+  // Merge the KH row taps of a (chunk, kx) into one stage when a tap's rows
+  // start on a swizzle atom (TW % 8 == 0: j * dil * TW pixels of 64 bytes is
+  // a multiple of 512) and the box and the ring fit; else one tap a stage.
+  for (g.R = KH; ; g.R = 1) {
+    const int a_rows = g.TH + (g.R - 1) * dil;
+    g.a_box_bytes = a_rows * g.TW * BK;
+    g.a_bytes = (g.a_box_bytes + 1023) / 1024 * 1024;
+    g.stage_bytes = g.a_bytes + g.R * BN * BK;
+    g.stages = ring_stages(g, cons);
+    if (g.R == 1 || (g.TW % 8 == 0 && a_rows <= 256 && g.stages >= 3)) break;
+  }
+  g.row_groups = KH / g.R;
+  if (g.stages < 3) return int(cudaErrorInvalidValue);  // C_out too wide for the staging
+  g.relu = relu; g.x_step = x_step;
+  g.out_inv = codes ? 1.0f / out_step : 1.0f;  // an IEEE float division: RN(1 / out_step)
+  g.out_inv_d = codes ? 1.0 / double(out_step) : 1.0;
+  const int mode = (codes ? 2 : 0) + (out_bf16 ? 1 : 0);
+
+  // A: the input, (C, W, H, N); a box is one 64-channel chunk of TH + (R - 1) dil rows
+  const cuuint64_t a_dims[4] = {cuuint64_t(Cin), cuuint64_t(W), cuuint64_t(H), cuuint64_t(N)};
+  const cuuint64_t a_strides[3] = {cuuint64_t(Cin), cuuint64_t(W) * Cin,
+                                   cuuint64_t(H) * cuuint64_t(W) * Cin};
+  const cuuint32_t a_box[4] = {BK, cuuint32_t(g.TW), cuuint32_t(g.TH + (g.R - 1) * dil), 1};
+  // B: the packed weights, (K, rows): rows = Cout, or 4 * Cout for the sub-problems
+  const int kdim = transposed ? Cin : KH * KW * Cin;
+  const cuuint64_t b_dims[2] = {cuuint64_t(kdim), cuuint64_t(Cout) * g.subs};
+  const cuuint64_t b_strides[1] = {cuuint64_t(kdim)};
+  const cuuint32_t b_box[2] = {BK, cuuint32_t(BN)};
+  CUtensorMap amap, bmap;
+  if (!make_map(encode, &amap, x, 4, a_dims, a_strides, a_box) ||
+      !make_map(encode, &bmap, w, 2, b_dims, b_strides, b_box))
+    return int(cudaErrorInvalidValue);
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const int8_t* xp = static_cast<const int8_t*>(x);
-  const int8_t* wp = static_cast<const int8_t*>(w);
   const float* sp = static_cast<const float*>(w_step);
   const float* bp = static_cast<const float*>(bias);
-  if (out_bf16)
-    int8_conv_kernel<true><<<grid, THREADS, 0, s>>>(xp, wp, sp, bp, out, g, x_step);
-  else
-    int8_conv_kernel<false><<<grid, THREADS, 0, s>>>(xp, wp, sp, bp, out, g, x_step);
-  return int(cudaGetLastError());
+  return wide ? launch<128, 1, 2>(amap, bmap, sp, bp, out, g, mode, s)
+              : launch<64, 2, 1>(amap, bmap, sp, bp, out, g, mode, s);
 }

@@ -19,6 +19,11 @@
     (`kernels/int8_conv.py`, the CUDA kernel on the card); a smaller conv
     (the RGB stem, the gates' psi and spatial-attention convs, the heads)
     dequantizes its int8 input and runs in the compute dtype.
+  * Where one such int8 conv feeds a site (`_Ctx.conv_site`: the double
+    convs, the up-convs, SegNet's convs, the residual blocks' shortcut, t1
+    and mid), the kernel's epilogue also applies the ReLU and quantizes to
+    the site's codes, so on the card the site's float tensor is never
+    written; the codes are those `_Ctx.site` would give, bit for bit.
 
 Everything is a function on tensors in the JAX package's NHWC layout; the
 float convs hand cuDNN the NCHW views of the same (channels_last) memory.
@@ -36,7 +41,7 @@ import torch.nn.functional as F
 
 from coastline_torch.kernels import unpool
 from coastline_torch.kernels.int8_conv import (PackedWeights, int8_conv, normalize_padding,
-                                               packed)
+                                               packed, quantize_codes)
 from coastline_torch.utils.device import resolve_device
 from coastline_torch.utils.torch_import import (ROBUST_BLOCKS, ROBUST_GATES, ROBUST_UPCONVS,
                                                 SEGNET_STAGES, UNET_BLOCKS, UNET_UPCONVS)
@@ -296,11 +301,36 @@ class _Ctx:
             return _QT(t.to(self.dtype))
         key = (name, t.device)
         if key not in self.steps:
-            step = float(np.float32(self.scales[name] / 127.0))
+            step = self.step_of(name)
             self.steps[key] = (step, torch.tensor(step, dtype=torch.float32, device=t.device))
         step, step_t = self.steps[key]
-        q = (t.float() / step_t).round_().clamp_(-127, 127).to(torch.int8)
-        return _QT(q, step)
+        return _QT(quantize_codes(t, step_t), step)
+
+    def conv_site(self, name: str, x: "_QT", entry, relu: bool = False, padding=0,
+                  dilation=1, lhs_dilation=None) -> "_QT":
+        """`site(name, relu(_conv(x, entry, ...)))` with the quantization in
+        the conv's epilogue where the int8 path applies (`_int8_path`): on the
+        card one `int8_conv` launch in codes mode, whose codes go through
+        `fused_codes`; on the CPU the kernel's plain version in values mode,
+        then `site`, so a site sees its own float input there."""
+        if not _int8_path(self, x, entry):
+            y = _conv(self, x, entry, padding, dilation, lhs_dilation)
+            return self.site(name, torch.relu(y) if relu else y)
+        args = (x.q.contiguous(), entry["wq"], x.step, entry["wstep"], entry["b"],
+                normalize_padding(padding), dilation, lhs_dilation, self.dtype, relu)
+        if not _codes_in_kernel(x.q):
+            return self.fused_codes(name, self.site(name, int8_conv(*args)))
+        step = self.step_of(name)
+        return self.fused_codes(name, _QT(int8_conv(*args, out_step=step), step))
+
+    def step_of(self, name: str) -> float:
+        """Site `name`'s step, float32(scale / 127), as a float."""
+        return float(np.float32(self.scales[name] / 127.0))
+
+    def fused_codes(self, name: str, codes: "_QT") -> "_QT":
+        """The codes of site `name` as `conv_site` made them; a hook for
+        checks that watch every site."""
+        return codes
 
 
 def _sigmoid(t):
@@ -332,16 +362,30 @@ def _float_conv(x, w, b, pads, dilation, lhs_dilation, dtype):
     return y.permute(0, 2, 3, 1) + b.to(dtype)
 
 
+def _codes_in_kernel(t: torch.Tensor) -> bool:
+    """Whether `conv_site` takes a site's codes from the conv's epilogue:
+    for tensors on the card. On the CPU the kernel's plain values go through
+    `_Ctx.site`, the same arithmetic."""
+    return t.device.type == "cuda"
+
+
+def _int8_path(ctx: _Ctx, x: _QT, entry) -> bool:
+    """Whether a conv runs on the int8 path: the context quantizes, the
+    input is int8 and the policy sends the conv there (`int8_eligible`)."""
+    if not (ctx.quant and x.step is not None and isinstance(entry, dict)):
+        return False
+    wq = entry["wq"]
+    return int8_eligible(wq.hwio.shape[2], wq.hwio.shape[3], wq.transposed, ctx.policy)
+
+
 def _conv(ctx: _Ctx, x: _QT, entry, padding=0, dilation=1, lhs_dilation=None) -> torch.Tensor:
     """Conv on a site tensor -> NHWC in the compute dtype, bias added.
 
-    The int8 path when the context quantizes, the input is int8 and the
-    policy sends the conv there (`int8_eligible`; stride 1)."""
+    The int8 path where `_int8_path` says so (stride 1)."""
     pads = normalize_padding(padding)
     if isinstance(entry, dict):
         w, b, wq, wstep = entry.get("w"), entry["b"], entry["wq"], entry["wstep"]
-        if ctx.quant and x.step is not None and int8_eligible(
-                wq.hwio.shape[2], wq.hwio.shape[3], wq.transposed, ctx.policy):
+        if _int8_path(ctx, x, entry):
             return int8_conv(x.q.contiguous(), wq, x.step, wstep, b, pads, dilation,
                              lhs_dilation, out_dtype=ctx.dtype)
         if w is None:
@@ -392,13 +436,12 @@ def _residual_block(ctx: _Ctx, name: str, x: Optional[_QT], p, pair=None) -> _QT
     dt = ctx.dtype
     if pair is not None:
         short = ctx.site(f"{name}.short", _conv_cat(ctx, *pair, p["short"]))
-        t1 = torch.relu(_conv_cat(ctx, *pair, p["c1"], padding=1))
+        t1 = ctx.site(f"{name}.t1", torch.relu(_conv_cat(ctx, *pair, p["c1"], padding=1)))
     else:
-        short = ctx.site(f"{name}.short", _conv(ctx, x, p["short"])) \
+        short = ctx.conv_site(f"{name}.short", x, p["short"]) \
             if p["short"] is not None else x
-        t1 = torch.relu(_conv(ctx, x, p["c1"], padding=1))
-    t1 = ctx.site(f"{name}.t1", t1)
-    mid = ctx.site(f"{name}.mid", _conv(ctx, t1, p["c2"], padding=1))
+        t1 = ctx.conv_site(f"{name}.t1", x, p["c1"], relu=True, padding=1)
+    mid = ctx.conv_site(f"{name}.mid", t1, p["c2"], padding=1)
 
     # CBAM channel gate: mean (float32 sum) and max of the raw codes, the
     # pooled vectors dequantized exactly (mean and max commute with the step)
@@ -435,10 +478,11 @@ def _attention_gate(ctx: _Ctx, name: str, g: _QT, x: _QT, p) -> _QT:
 
 
 def _double_conv(ctx: _Ctx, name: str, x: Optional[_QT], p, pair=None) -> _QT:
-    t1_raw = _conv_cat(ctx, *pair, p["c1"], padding=1) if pair is not None \
-        else _conv(ctx, x, p["c1"], padding=1)
-    t1 = ctx.site(f"{name}.t1", torch.relu(t1_raw))
-    return ctx.site(f"{name}.out", torch.relu(_conv(ctx, t1, p["c2"], padding=1)))
+    if pair is not None:
+        t1 = ctx.site(f"{name}.t1", torch.relu(_conv_cat(ctx, *pair, p["c1"], padding=1)))
+    else:
+        t1 = ctx.conv_site(f"{name}.t1", x, p["c1"], relu=True, padding=1)
+    return ctx.conv_site(f"{name}.out", t1, p["c2"], relu=True, padding=1)
 
 
 def _split_cat(ctx: _Ctx, a: _QT, b: _QT) -> bool:
@@ -457,8 +501,8 @@ def _forward_unet(qp, scales, x, collect=None, dtype=torch.bfloat16, policy=None
         cur = _maxpool(cur)
     cur = _double_conv(ctx, "dc4", cur, qp["dc4"])
     for i in range(4):
-        up = ctx.site(f"up{i}.out", _conv(ctx, cur, qp[f"up{i}"], lhs_dilation=(2, 2),
-                                          padding=((1, 1), (1, 1))))
+        up = ctx.conv_site(f"up{i}.out", cur, qp[f"up{i}"], lhs_dilation=(2, 2),
+                           padding=((1, 1), (1, 1)))
         skip = enc[3 - i]
         if _split_cat(ctx, up, skip):
             cur = _double_conv(ctx, f"dc{5 + i}", None, qp[f"dc{5 + i}"], pair=(up, skip))
@@ -488,8 +532,8 @@ def _forward(qp, scales, x, collect=None, dtype=torch.bfloat16, policy=None, ste
     cur = _residual_block(ctx, "rb4", cur, qp["rb4"])
 
     for i in range(4):
-        up = ctx.site(f"up{i}.out", _conv(ctx, cur, qp[f"up{i}"], lhs_dilation=(2, 2),
-                                          padding=((1, 1), (1, 1))))
+        up = ctx.conv_site(f"up{i}.out", cur, qp[f"up{i}"], lhs_dilation=(2, 2),
+                           padding=((1, 1), (1, 1)))
         skip = _attention_gate(ctx, f"ag{i}", up, enc[3 - i], qp[f"ag{i}"])
         if _split_cat(ctx, skip, up):
             cur = _residual_block(ctx, f"rb{5 + i}", None, qp[f"rb{5 + i}"], pair=(skip, up))
@@ -511,7 +555,7 @@ def _forward_segnet(qp, scales, x, collect=None, dtype=torch.bfloat16, policy=No
     def convs(cur, n):
         nonlocal k
         for _ in range(n):
-            cur = ctx.site(f"c{k}", torch.relu(_conv(ctx, cur, qp[f"c{k}"], padding=1)))
+            cur = ctx.conv_site(f"c{k}", cur, qp[f"c{k}"], relu=True, padding=1)
             k += 1
         return cur
 

@@ -1,10 +1,10 @@
-"""Int8 convolution with a fused dequantizing epilogue (no Pallas counterpart).
+"""Int8 convolution with a fused epilogue (no Pallas counterpart).
 
 The JAX package runs the int8 convs of its PTQ path as XLA `s8 x s8 -> s32`
-convolutions with the epilogue fused by XLA (`coastline/infer/quant.py:573-578`);
-no Pallas kernel is involved. PyTorch has no such conv on CUDA (`F.conv2d`
-refuses int8), so the port computes the same function with its own CUDA
-kernel, `csrc/int8_conv.cu`:
+convolutions with the epilogue, and the next site's quantization, fused by
+XLA (`coastline/infer/quant.py:546-578`); no Pallas kernel is involved.
+PyTorch has no such conv on CUDA (`F.conv2d` refuses int8), so the port
+computes the same function with its own CUDA kernel, `csrc/int8_conv.cu`:
 
     y[n, oy, ox, co] = cast( f32(acc) * (x_step * w_step[co]) + bias[co] )
     acc = sum over (ky, kx, ci) of x_q[n, iy, ix, ci] * w_q[ky, kx, ci, co]
@@ -13,7 +13,15 @@ x_q int8 NHWC, w_q int8 HWIO, acc int32 (exact: 127^2 * 9 * 1024 < 2^31),
 x_step a float32 scalar, w_step and bias float32 per output channel, the
 result in float32 or bfloat16 (one round to nearest even). The float32
 epilogue runs in that order, first x_step * w_step, then acc * that, then
-+ bias, each rounded, as XLA computes it.
++ bias, each rounded, as XLA computes it. `relu=True` then takes max(y, 0).
+
+Two output modes. Values (`out_step=None`): y as above. Codes (`out_step`
+a float32 value): the int8 codes of the site that y feeds,
+`clamp(rint(f32(y) / out_step), -127, 127)` with a true division and round
+half to even, which is `_Ctx.site` of `infer/quant.py` bit for bit (y is
+rounded to the output dtype before the division, as the site reads it).
+Codes mode writes one byte a value and keeps the float tensor out of
+device memory.
 
 Options (stride 1 only): any kh x kw, per-side `padding` ((top, bottom),
 (left, right)) or an int, rhs `dilation`, and `lhs_dilation=(2, 2)` with a
@@ -23,10 +31,12 @@ sub-problems, each a dense 1x1 GEMM (a tap loop over the zero-inserted
 input would multiply zeros for 3/4 of its taps).
 
 What bounds it on an H100: at the UNet's first level (8, 512, 512, 64 -> 64,
-3x3) the bytes (134 MB in, 268 MB out in bf16: 0.120 ms at 3.35 TB/s); at
-its bottleneck (8, 32, 32, 1024 -> 1024) the 154.6 GOP (0.078 ms at 1979
-int8 TOPS). The kernel is a plain implicit GEMM on `mma.sync` (see the
-source); wgmma and TMA are later work.
+3x3) the bytes (134 MB in; 268 MB out in bf16, 0.120 ms at 3.35 TB/s, or
+134 MB as codes, 0.080 ms); at its bottleneck (8, 32, 32, 1024 -> 1024) the
+154.6 GOP (0.078 ms at 1979 int8 TOPS). The kernel is an implicit GEMM on
+Hopper's wgmma (s8 x s8 -> s32, both operands in shared memory), fed by TMA
+tap boxes on mbarriers from one producer thread, in a persistent grid (see
+the source).
 
 `int8_conv` launches the kernel for CUDA tensors (or raises) and runs
 `int8_conv_plain` only for tensors on the CPU. It takes the weights as
@@ -97,13 +107,26 @@ def _epilogue(acc, x_step, w_step, bias, out_dtype):
     return (acc.float() * scale + bias.float()).to(out_dtype)
 
 
+def quantize_codes(t, step) -> torch.Tensor:
+    """A site's int8 codes of float tensor `t`: clamp(rint(f32(t) / step),
+    -127, 127). `step`, a float32 value, divides as a 0-d float32 tensor on
+    t's device (given as one, or made here), so CUDA divides too: by a host
+    scalar it would multiply by the reciprocal."""
+    if not isinstance(step, torch.Tensor):
+        step = torch.tensor(step, dtype=torch.float32, device=t.device)
+    return (t.float() / step).round_().clamp_(-127, 127).to(torch.int8)
+
+
 def int8_conv_plain(x, wq, x_step, w_step, bias, padding=0, dilation: int = 1,
-                    lhs_dilation=None, out_dtype=torch.float32):
+                    lhs_dilation=None, out_dtype=torch.float32, relu: bool = False,
+                    out_step: Optional[float] = None):
     """The plain version: the conv in float64 on the codes (exact for these
     sums, < 2^53), zero-inserted first for `lhs_dilation`, then int32 and the
-    float32 epilogue. x int8 (N, H, W, C_in); wq int8 HWIO -> (N, Ho, Wo,
-    C_out) in out_dtype, NHWC. Bit-equal to XLA's `preferred_element_type=
-    int32` conv followed by the same epilogue."""
+    float32 epilogue, then `relu`, then with `out_step` the site's codes
+    (`quantize_codes`). x int8 (N, H, W, C_in); wq int8 HWIO -> (N, Ho, Wo,
+    C_out) in out_dtype, or int8 codes, NHWC. Bit-equal to XLA's
+    `preferred_element_type=int32` conv followed by the same epilogue (and
+    the JAX package's `_Ctx.site`)."""
     (pt, pb), (pl, pr) = normalize_padding(padding)
     xd = x.permute(0, 3, 1, 2).double()
     if lhs_dilation is not None:
@@ -115,25 +138,30 @@ def int8_conv_plain(x, wq, x_step, w_step, bias, padding=0, dilation: int = 1,
     xd = F.pad(xd, (pl, pr, pt, pb))
     acc = F.conv2d(xd, wq.permute(3, 2, 0, 1).double(), dilation=dilation)
     acc = acc.to(torch.int32).permute(0, 2, 3, 1)
-    return _epilogue(acc, x_step, w_step, bias, out_dtype).contiguous()
+    y = _epilogue(acc, x_step, w_step, bias, out_dtype).contiguous()
+    if relu:
+        y = torch.relu(y)
+    return y if out_step is None else quantize_codes(y, out_step)
 
 
 def _fn():
     fn = _build.library("int8_conv").coastline_int8_conv
     if fn.argtypes is None:
         fn.argtypes = ([ctypes.c_void_p] * 5 + [ctypes.c_int] * 13 + [ctypes.c_float]
-                       + [ctypes.c_int, ctypes.c_void_p])
+                       + [ctypes.c_int] * 3 + [ctypes.c_float, ctypes.c_void_p])
         fn.restype = ctypes.c_int
     return fn
 
 
 def int8_conv(x, w: PackedWeights, x_step: float, w_step, bias, padding=0, dilation: int = 1,
-              lhs_dilation=None, out_dtype=torch.float32):
+              lhs_dilation=None, out_dtype=torch.float32, relu: bool = False,
+              out_step: Optional[float] = None):
     """x int8 (N, H, W, C_in) NHWC; w the conv's `PackedWeights` (`packed`
     of int8 HWIO (kh, kw, C_in, C_out), on x's device, built once); x_step a
     float (a float32 value); w_step, bias float32 (C_out,) -> (N, Ho, Wo,
-    C_out) contiguous NHWC in out_dtype (float32 or bfloat16). Stride 1;
-    see the module docstring for the options."""
+    C_out) contiguous NHWC in out_dtype (float32 or bfloat16), ReLU'd if
+    `relu`; with `out_step` (a float32 value) the int8 codes of that site
+    instead. Stride 1; see the module docstring for the options."""
     if not isinstance(w, PackedWeights):
         raise TypeError(f"w must be PackedWeights (`packed` of the int8 HWIO weights, built "
                         f"once), got {type(w).__name__}")
@@ -161,7 +189,8 @@ def int8_conv(x, w: PackedWeights, x_step: float, w_step, bias, padding=0, dilat
     if any(t.device != dev for t in (wq, w_step, bias)):
         raise ValueError("x, w, w_step and bias must be on one device")
     if dev.type == "cpu":
-        return int8_conv_plain(x, wq, x_step, w_step, bias, pads, dilation, lhs, out_dtype)
+        return int8_conv_plain(x, wq, x_step, w_step, bias, pads, dilation, lhs, out_dtype,
+                               relu, out_step)
     if dev.type != "cuda":
         raise ValueError(f"unsupported device {dev}")
     _build.refuse_grad("int8_conv", x, w_step, bias)
@@ -181,7 +210,8 @@ def int8_conv(x, w: PackedWeights, x_step: float, w_step, bias, padding=0, dilat
     w_step = w_step.to(torch.float32).contiguous()
     bias = bias.to(torch.float32).contiguous()
     n, h, wd, _ = x.shape
-    out = torch.empty((n, ho, wo, cout), dtype=out_dtype, device=dev)
+    codes = out_step is not None
+    out = torch.empty((n, ho, wo, cout), dtype=torch.int8 if codes else out_dtype, device=dev)
     (pt, _), (pl, _) = pads
     if transposed:  # four 1x1 sub-problems over the input grid
         geom = (1, 1, 0, 0, 1, h, wd)
@@ -190,7 +220,8 @@ def int8_conv(x, w: PackedWeights, x_step: float, w_step, bias, padding=0, dilat
     with torch.cuda.device(dev):
         status = _fn()(x.data_ptr(), mat.data_ptr(), w_step.data_ptr(), bias.data_ptr(),
                        out.data_ptr(), n, h, wd, cin, cout, *geom, int(transposed),
-                       float(x_step), int(out_dtype == torch.bfloat16),
+                       float(x_step), int(out_dtype == torch.bfloat16), int(relu),
+                       int(codes), float(out_step) if codes else 1.0,
                        torch.cuda.current_stream(dev).cuda_stream)
     _build.check(status, "int8_conv launch")
     int8_conv.launches += 1

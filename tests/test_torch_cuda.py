@@ -620,9 +620,13 @@ INT8_CONV_CASES = [  # (input shape, C_out, kernel, padding, dilation, lhs_dilat
 ]
 
 
+@pytest.mark.parametrize("mode", ["values", "values_relu", "codes", "codes_relu"])
 @pytest.mark.parametrize("dtype", DTYPES)
 @pytest.mark.parametrize("case", range(len(INT8_CONV_CASES)))
-def test_int8_conv_kernel_matches_plain(dev, case, dtype):
+def test_int8_conv_kernel_matches_plain(dev, case, dtype, mode):
+    """Bit for bit, every mode. Codes mode at two steps: 2^-6, where about
+    half the bf16 values land on an exact .5 after the division and the
+    values beyond +-1.98 clamp, and 0.0371, a step whose division rounds."""
     from coastline_torch.kernels.int8_conv import int8_conv, int8_conv_plain, packed
 
     shape, cout, k, pad, dil, lhs = INT8_CONV_CASES[case]
@@ -631,12 +635,46 @@ def test_int8_conv_kernel_matches_plain(dev, case, dtype):
     wq = torch.from_numpy(rng.integers(-127, 128, (k, k, shape[-1], cout), dtype=np.int8)).to(dev)
     ws = torch.from_numpy((rng.random(cout) * 1e-3).astype(np.float32)).to(dev)
     b = torch.from_numpy(rng.standard_normal(cout).astype(np.float32)).to(dev)
-    before = int8_conv.launches
-    got = int8_conv(x, packed(wq, lhs is not None), 0.0123, ws, b, pad, dil, lhs, dtype)
-    torch.cuda.synchronize()
-    assert int8_conv.launches == before + 1
-    ref = int8_conv_plain(x.cpu(), wq.cpu(), 0.0123, ws.cpu(), b.cpu(), pad, dil, lhs, dtype)
-    assert _bits_equal(got, ref)
+    relu = mode.endswith("relu")
+    steps = (2.0 ** -6, 0.0371) if mode.startswith("codes") else (None,)
+    for step in steps:
+        before = int8_conv.launches
+        got = int8_conv(x, packed(wq, lhs is not None), 0.0123, ws, b, pad, dil, lhs, dtype,
+                        relu=relu, out_step=step)
+        torch.cuda.synchronize()
+        assert int8_conv.launches == before + 1
+        ref = int8_conv_plain(x.cpu(), wq.cpu(), 0.0123, ws.cpu(), b.cpu(), pad, dil, lhs, dtype,
+                              relu=relu, out_step=step)
+        if step is None:
+            assert _bits_equal(got, ref)
+        else:
+            assert got.dtype == torch.int8 and torch.equal(got.cpu(), ref)
+
+
+@pytest.mark.parametrize("step", [2.0 ** -6, 0.0371, 1e-3, float(np.float32(7.3 / 127))])
+def test_int8_conv_codes_every_bf16_value(dev, step):
+    """Codes mode's division (a double product, rounded to float) against
+    the true float division on every bf16 value but NaN, and on 131,072
+    float32 values of random bits: a zero input makes each output its bias."""
+    from coastline_torch.kernels.int8_conv import int8_conv, int8_conv_plain, packed
+
+    bits = np.arange(2 ** 16, dtype=np.uint32) << 16
+    bf16 = bits.view(np.float32)
+    rng = np.random.default_rng(11)
+    f32 = rng.integers(0, 2 ** 32, 2 ** 17, dtype=np.uint64).astype(np.uint32).view(np.float32)
+    cout = 2048
+    x = torch.zeros((1, 1, 1, 32), dtype=torch.int8, device=dev)
+    wq = torch.zeros((1, 1, 32, cout), dtype=torch.int8, device=dev)
+    w = packed(wq)
+    ws = torch.ones(cout, device=dev)
+    for values, dtype in ((bf16, torch.bfloat16), (f32, torch.float32)):
+        values = values[~np.isnan(values)]
+        values = np.concatenate([values, np.zeros(-len(values) % cout, np.float32)])
+        for chunk in values.reshape(-1, cout):
+            b = torch.from_numpy(chunk.copy()).to(dev)
+            got = int8_conv(x, w, 1.0, ws, b, out_dtype=dtype, out_step=step)
+            ref = int8_conv_plain(x, wq, 1.0, ws, b, out_dtype=dtype, out_step=step)
+            assert torch.equal(got, ref), (dtype, step)
 
 
 def test_int8_conv_wrapper_refusals_on_card(dev):
