@@ -16,7 +16,9 @@ Needs one NVIDIA H100 and the CUDA toolkit; builds the kernels from
      the three CBAM kernels (pool, gated stats, tail) at the five Robust
      U-Net level shapes (the fourth, (8, 64, 64, 512), also WaterNet's
      bottleneck, where `fused_avg_max_pool` runs and is timed), (2, 4, 4,
-     1024) and an odd shape, and SegNet's indexed
+     1024) and an odd shape (the pool's max bit for bit, two calls and the
+     two pool wrappers bit-identical; the pool timed at every level
+     shape), and SegNet's indexed
      pool and unpool at its four levels and an odd shape, on inputs full of
      ties (ReLU zeros, equal pairs, +0/-0, NaN and inf), bit for bit, in
      bf16 and f32, and in int8 on codes in -3..3 (the int8 SegNet's);
@@ -36,7 +38,8 @@ Needs one NVIDIA H100 and the CUDA toolkit; builds the kernels from
      the weight bridge), its logits against the port's CPU path at 64^2,
      then `make_eval_epoch` over 16 synthetic 512^2 tiles at batch 8 in
      bf16 and in f32; the launch counters must show 9 pool, 9 stats and 9
-     tail launches a forward and, in bf16, 2 fused convs; the two epochs'
+     tail launches a forward and, in bf16, 2 fused convs, and the profiled
+     bf16 forward 9 pool kernels (one a call); the two epochs'
      losses and mean metrics must agree within 5e-3 and their masks on 95%
      of pixels; the forward is timed at batch 8 and profiled by kernel;
   7. the SegNet eval path the same way: the 15,278,593-parameter model, its
@@ -398,6 +401,7 @@ def check_cbam(dev):
             x, s, gate, sconv = _cbam_inputs(shape, dt, dev, gen)
             avg, mx = cbam.avg_max_pool(x)
             fa, fm = fused_avg_max_pool(x)
+            again = cbam.avg_max_pool(x)
             stats = cbam.gated_spatial_stats(x, gate)
             tail = cbam.cbam_tail_apply(x, s, gate, stats, sconv)
             torch.cuda.synchronize()
@@ -410,6 +414,8 @@ def check_cbam(dev):
                 pool_max_exact=bool(torch.equal(mx, r_mx) and torch.equal(fm, r_mx)),
                 pool_mean_ok=_mean_ok(avg, r_avg, x.float().abs().mean((1, 2)), dt)
                 and bool(torch.equal(fa, avg)),
+                pool_run_to_run_exact=bool(torch.equal(again[0], avg)
+                                           and torch.equal(again[1], mx)),
                 stats_max_exact=bool(torch.equal(stats[:, 1], r_stats[:, 1])),
                 stats_mean_ok=_mean_ok(stats[:, 0], r_stats[:, 0], z_abs, dt),
                 tail_ok=_tail_ok(tail, r_tail, x, dt),
@@ -423,8 +429,9 @@ def check_cbam(dev):
             log("cbam_check", json.dumps(case))
             if not all(v for k, v in case.items() if k.endswith(("_exact", "_ok"))):
                 raise AssertionError(f"a CBAM kernel disagrees with its plain version: {case}")
-            del x, s, gate, stats, tail, r_stats, r_tail
+            del x, s, gate, stats, tail, r_stats, r_tail, again
 
+    levels = time_pool_levels(dev, gen)
     b, h, w, c = shape = LEVEL_SHAPES[0]
     x, s, gate, sconv = _cbam_inputs(shape, torch.bfloat16, dev, gen)
     stats = cbam.gated_spatial_stats(x, gate)
@@ -432,10 +439,6 @@ def check_cbam(dev):
     w16 = sconv.to(torch.bfloat16).permute(3, 2, 0, 1)
     n, px = x.numel(), b * h * w
     timings = {
-        "avg_max_pool": (lambda: cbam.avg_max_pool(x), lambda: cbam.avg_max_pool_plain(x),
-                         lambda: (xl.mean((2, 3)), xl.amax((2, 3))),
-                         "channels_last x.mean((2,3)) + x.amax((2,3))",
-                         2 * n + 2 * b * c * 2, 2 * n),
         "gated_spatial_stats": (
             lambda: cbam.gated_spatial_stats(x, gate),
             lambda: cbam.gated_spatial_stats_plain(x, gate),
@@ -450,7 +453,7 @@ def check_cbam(dev):
             "F.conv2d(stats, w, padding=3) bf16 + sigmoid + the eager chain",
             3 * 2 * n + 2 * b * c + 2 * 2 * px + 98 * 4, 4 * n + 2 * 98 * px),
     }
-    out = {}
+    out = {"avg_max_pool": dict(levels[0], max_abs_err=errs["avg_max_pool"], levels=levels)}
     for name, (kern, plain, lib, lib_name, nbytes, ops) in timings.items():
         ms = cuda_ms(kern, 20)
         plain_ms = cuda_ms(plain, 5, 1)
@@ -469,15 +472,47 @@ def check_cbam(dev):
     n = x.numel()
     nbytes = 2 * n + 2 * shape[0] * shape[3] * 2
     bound_ms, bound_by = bound(nbytes, 2 * n, PEAK_F32_OPS)
-    out["fused_avg_max_pool"] = dict(
+    fused = out["fused_avg_max_pool"] = dict(
         ms=cuda_ms(lambda: fused_avg_max_pool(x), 20),
         device_ms=device_ms(lambda: fused_avg_max_pool(x), 20),
         plain_ms=cuda_ms(lambda: cbam.avg_max_pool_plain(x), 5, 1),
         library_ms=cuda_ms(lambda: (xl.mean((2, 3)), xl.amax((2, 3))), 20),
         bound_ms=bound_ms, bound_by=bound_by, shape=list(shape), dtype="bfloat16",
-        library="channels_last x.mean((2,3)) + x.amax((2,3))")
-    log("fused_avg_max_pool", json.dumps(out["fused_avg_max_pool"]))
+        library=POOL_LIBRARY)
+    fused["share_of_bound"] = bound_ms / fused["device_ms"]
+    log("fused_avg_max_pool", json.dumps(fused))
     return out, cases
+
+
+POOL_LIBRARY = "channels_last x.mean((2,3)) + x.amax((2,3))"
+
+
+def time_pool_levels(dev, gen) -> list:
+    """`avg_max_pool` at each of the five `LEVEL_SHAPES` in bf16: CUDA events
+    ms over back-to-back calls (`ms`, the wrapper's host path included),
+    device ms (`device_ms`), the plain version, the library yardstick and
+    the byte bound; the kernel's geometry (`cbam.pool_geometry`)."""
+    levels = []
+    for shape in LEVEL_SHAPES:
+        b, h, w, c = shape
+        x = _cbam_inputs(shape, torch.bfloat16, dev, gen)[0]
+        xl = x.permute(0, 3, 1, 2)  # the channels_last NCHW view
+        n = x.numel()
+        bound_ms, bound_by = bound(2 * n + 2 * b * c * 2, 2 * n, PEAK_F32_OPS)
+        row = dict(shape=list(shape), dtype="bfloat16",
+                   ms=cuda_ms(lambda: cbam.avg_max_pool(x), 20),
+                   device_ms=device_ms(lambda: cbam.avg_max_pool(x), 20),
+                   plain_ms=cuda_ms(lambda: cbam.avg_max_pool_plain(x), 5, 1),
+                   library_ms=cuda_ms(lambda: (xl.mean((2, 3)), xl.amax((2, 3))), 20),
+                   bound_ms=bound_ms, bound_by=bound_by, library=POOL_LIBRARY,
+                   geometry=cbam.pool_geometry(b, h * w, c, cbam._vec(c, x),
+                                               cbam._sm_count(x.device.index))._asdict())
+        row["share_of_bound"] = bound_ms / row["device_ms"]
+        row["gb_per_s"] = (2 * n + 4 * b * c) / row["device_ms"] / 1e6
+        log("avg_max_pool_level", json.dumps(row))
+        levels.append(row)
+        del x, xl
+    return levels
 
 
 def _tie_input(shape, dt, dev, gen, nonfinite=False):
@@ -942,17 +977,25 @@ SEGNET_COUNTERS = {"max_pool_with_indices": unpool.max_pool_with_indices,
 
 def robust_unet_path(dev, **kw):
     """The Robust U-Net eval path: 9 pool, stats and tail launches a forward
-    and, in bf16, 2 fused convs. Same weights and tiles: the recorded runs
-    (PERF.md) moved the loss by 1.5e-3 and each mean metric by at most
-    1.1e-3 between the dtypes; the 5e-3 limit leaves room for another cuDNN
-    algorithm and catches a shift that flips few masks."""
-    return eval_path(
+    and, in bf16, 2 fused convs; the bf16 forward's profile must show 9
+    kernels of class `avg_max_pool (ours)` (one a pool call). Same weights
+    and tiles: the recorded runs (PERF.md) moved the loss by 1.5e-3 and each
+    mean metric by at most 1.1e-3 between the dtypes; the 5e-3 limit leaves
+    room for another cuDNN algorithm and catches a shift that flips few
+    masks."""
+    result = eval_path(
         "Robust UNet", robust_unet_state_dict(random_robust_unet_variables(seed=0)), dev,
         ROBUST_UNET_PARAMS, ROBUST_COUNTERS,
         lambda dt: {"avg_max_pool": 9, "gated_spatial_stats": 9, "cbam_tail": 9,
                     "fused_conv3x3_bn_relu": 2 if dt == torch.bfloat16 else 0,
                     "fused_avg_max_pool": 0},
         limits={"f32": (1.0, 0.0), "bf16": (1.0, 0.95)}, min_mask_agree=0.95, **kw)
+    pool = result["profile"]["classes"].get("avg_max_pool (ours)", {})
+    result["pool_launches_profiled"] = pool.get("launches_per_forward", 0)
+    if result["pool_launches_profiled"] != 9:
+        raise AssertionError(f"avg_max_pool ran {result['pool_launches_profiled']} kernels a "
+                             "profiled bf16 Robust U-Net forward, want 9 (one a call)")
+    return result
 
 
 def segnet_code_flips(sd, dev):
@@ -2736,6 +2779,9 @@ def main(argv=None) -> int:
                      bound_ms=t["bound_ms"], bound_by=t["bound_by"],
                      library_ms=t["library_ms"], shape=t["shape"], library=t["library"])
         if name == "avg_max_pool":
+            entry.update(device_ms=t["device_ms"], share_of_bound=t["share_of_bound"],
+                         levels=t["levels"],
+                         launches_per_robust_unet_forward_profiled=robust["pool_launches_profiled"])
             entry["fused_avg_max_pool_launches_residual_block"] = block["fused_avg_max_pool_launches"]
             entry["fused_avg_max_pool_waternet"] = cbam_times["fused_avg_max_pool"]
         kernels.append(entry)

@@ -23,6 +23,15 @@ bounds at 3.35 TB/s are 0.080 ms (pool: one read), 0.083 ms (stats: one
 read, a 2/C-sized write) and 0.243 ms (tail: two reads, one write); each
 source says how its design keeps to one pass.
 
+The pool is one launch a call: a thread block cluster per (image, channel
+chunk) splits the pixels, and its CTAs fold their partials through
+distributed shared memory in a fixed order, so two calls give the same
+bits; `pool_geometry` picks the chunk, the cluster and the grid per shape
+and SM count. At the deep levels the kernel is shorter than a launch, so
+its wrapper's host path is kept short: one (2, B, C) output, the C entry
+point bound once (`_fn`), the raw stream handle, the device context only
+when x is not on the current device.
+
 Layout: activations are NHWC (the JAX package's layout, and the NHWC view
 of the port's channels_last tensors); a wrapper raises on a CUDA tensor
 whose NHWC view is not contiguous rather than copy it. The TPU dispatch
@@ -35,6 +44,8 @@ Each wrapper launches its kernel for a CUDA tensor (or raises) and runs its
 only for a tensor on the CPU. `.launches` counts kernel launches.
 """
 
+import collections
+import contextlib
 import ctypes
 import functools
 
@@ -44,7 +55,6 @@ import torch.nn.functional as F
 from coastline_torch.kernels import _build
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
-THREADS = 256  # threads a block in every CBAM kernel (`cbam_common.cuh`)
 
 
 # ---------------------------------------------------------------------------
@@ -141,61 +151,102 @@ def _sm_count(index: int) -> int:
 
 
 _SIGNATURES = {  # C entry point -> (pointer args, int args)
-    "avg_max_pool": (5, 8),
+    "avg_max_pool": (2, 9),
     "gated_spatial_stats": (3, 5),
     "cbam_tail": (6, 6),
 }
 
 
+@functools.cache
 def _fn(name):
+    """The C entry point of `csrc/<name>.cu`, built, loaded and bound once."""
     fn = getattr(_build.library(name), f"coastline_{name}")
-    if fn.argtypes is None:
-        n_ptr, n_int = _SIGNATURES[name]
-        fn.argtypes = [ctypes.c_void_p] * n_ptr + [ctypes.c_int] * n_int + [ctypes.c_void_p]
-        fn.restype = ctypes.c_int
+    n_ptr, n_int = _SIGNATURES[name]
+    fn.argtypes = [ctypes.c_void_p] * n_ptr + [ctypes.c_int] * n_int + [ctypes.c_void_p]
+    fn.restype = ctypes.c_int
     return fn
 
 
 def _stream(t):
-    return torch.cuda.current_stream(t.device).cuda_stream
+    """The raw handle of the current stream on t's device: the launch's
+    stream. `torch.cuda.current_stream(dev).cuda_stream` gives the same
+    handle but builds a Stream object, 3-9 us of host time a call on the
+    H100's host (`scripts/torch_avg_max_pool_vs_earlier.py --host`), as
+    long as the pool kernel at its deep levels."""
+    return torch._C._cuda_getCurrentRawStream(t.device.index)
 
 
-def pool_geometry(b, hw, c, vec, sms):
-    """(channel groups a block, pixel slices, pixels a slice) of the pool
-    kernel: a block's 256 threads are channel groups of `vec` channels times
-    pixel lanes; the slices give about 8 blocks an SM over the whole grid, and
-    each thread at least 4 loads."""
+def _on_device(dev):
+    """`dev` as the current CUDA device for a launch; no context when it already is."""
+    return contextlib.nullcontext() if dev.index == torch.cuda.current_device() \
+        else torch.cuda.device(dev)
+
+
+POOL_THREADS = 256  # threads a CTA of the pool kernel
+POOL_UNROLL = 8  # independent loads a thread issues before it adds them (`UNROLL`)
+MAX_CLUSTER = 16  # above 8 the non-portable cluster size, which an H100 allows
+
+PoolGeometry = collections.namedtuple("PoolGeometry", "groups cluster px threads grid")
+
+
+def _ceil(a, b):
+    return -(-a // b)
+
+
+@functools.lru_cache(maxsize=256)
+def pool_geometry(b, hw, c, vec, sms) -> PoolGeometry:
+    """The pool kernel's launch geometry for x (b, hw, c) read `vec`
+    channels a load on a card of `sms` SMs: `groups` channel groups a chunk
+    (a power of two), `cluster` CTAs per (image, chunk) splitting the
+    pixels, `px` pixels a CTA, `threads` a CTA, `grid` CTAs in all (b x
+    chunks x cluster).
+
+    A chunk is one 128-byte line of a pixel on the 16-byte path (8 groups)
+    and one warp of channels on the scalar one (32). The cluster doubles
+    while the grid stays within one CTA an SM, every thread keeps a full
+    round of `POOL_UNROLL` loads and no CTA is left without pixels. On the
+    H100 this grid came within 8% of the fastest geometry at every level
+    shape, and grids of more than one CTA an SM (a second CTA on some SMs)
+    were up to 8% slower in bf16 at 512^2 x 64 and 64^2 x 512 (PERF.md;
+    `scripts/torch_avg_max_pool_vs_earlier.py --scan`). Where even the
+    largest cluster fills less than half the card (few images of few
+    channels), the chunk halves, down to one 32-byte sector a pixel."""
     groups = c // vec
-    gb = min(groups, THREADS)
-    chunks = -(-groups // gb)
-    lanes = THREADS // gb
-    slices = max(1, min(-(-8 * sms // (b * chunks)), -(-hw // (4 * lanes)), 65535))
-    px = -(-hw // slices)
-    return gb, -(-hw // px), px
+    width = min(1 << (groups - 1).bit_length(), 8 if vec > 1 else 32)
+    while True:
+        chunks = _ceil(groups, width)
+        lanes = POOL_THREADS // width
+        cluster = 1
+        while (cluster < MAX_CLUSTER and 2 * b * chunks * cluster <= sms
+               and _ceil(hw, 2 * cluster) >= lanes * POOL_UNROLL):
+            cluster *= 2
+        grid = b * chunks * cluster
+        if cluster < MAX_CLUSTER or 2 * grid > sms or width <= (2 if vec > 1 else 32):
+            return PoolGeometry(width, cluster, _ceil(hw, cluster), POOL_THREADS, grid)
+        width //= 2
 
 
 def run_avg_max_pool(x, wrapper):
     """The body of `avg_max_pool` and of `kernels.pools.fused_avg_max_pool`,
     which launch the same kernel under their own counts: checks `x`, runs
-    the plain version for a CPU tensor, else launches the pool kernel and
-    adds one to `wrapper.launches`."""
+    the plain version for a CPU tensor, else launches the pool kernel once
+    and adds one to `wrapper.launches`. avg and max are the two rows of one
+    (2, B, C) tensor."""
     _check("x", x, 4)
     if not _on_card(wrapper.__name__, x):
         return avg_max_pool_plain(x)
     b, h, w, c = x.shape
     vec = _vec(c, x)
-    gb, slices, px = pool_geometry(b, h * w, c, vec, _sm_count(x.device.index))
-    psum = torch.empty((b, slices, c), dtype=torch.float32, device=x.device)
-    pmax = torch.empty_like(psum)
-    avg = torch.empty((b, c), dtype=x.dtype, device=x.device)
-    mx = torch.empty_like(avg)
-    with torch.cuda.device(x.device):
-        status = _fn("avg_max_pool")(x.data_ptr(), psum.data_ptr(), pmax.data_ptr(),
-                                     avg.data_ptr(), mx.data_ptr(), b, h * w, c,
-                                     _DTYPES[x.dtype], vec, gb, slices, px, _stream(x))
+    dev = x.device
+    geo = pool_geometry(b, h * w, c, vec, _sm_count(dev.index))
+    out = x.new_empty((2, b, c))
+    with _on_device(dev):
+        status = _fn("avg_max_pool")(x.data_ptr(), out.data_ptr(), b, h * w, c, _DTYPES[x.dtype],
+                                     vec, geo.groups, geo.cluster, geo.px, geo.threads,
+                                     _stream(x))
     _build.check(status, "avg_max_pool launch")
     wrapper.launches += 1
-    return avg, mx
+    return out.unbind(0)
 
 
 def avg_max_pool(x):

@@ -2,10 +2,12 @@
 
 Replaces the TPU kernel `coastline/pallas/pools.py:56` `fused_avg_max_pool`,
 which computes the same function as `coastline/pallas/cbam.py:141`
-`avg_max_pool`. Both launch one CUDA kernel, `csrc/avg_max_pool.cu` (its
-design and bound are in `kernels/cbam.py` and the source); this name is the
-one `ChannelAttention` calls at eval (`coastline/ops/blocks.py:103-108`), and
-it keeps its own launch count.
+`avg_max_pool`. Both run `kernels.cbam.run_avg_max_pool`: one launch of one
+CUDA kernel, `csrc/avg_max_pool.cu` (a thread block cluster per image and
+channel chunk, folded in distributed shared memory; its design and bound
+are in the source and `kernels/cbam.py`), at the same geometry, so the two
+give the same bits. This name is the one `ChannelAttention` calls at eval
+(`coastline/ops/blocks.py:103-108`), and it keeps its own launch count.
 """
 
 from coastline_torch.kernels.cbam import run_avg_max_pool

@@ -32,6 +32,8 @@ Tolerances:
     2^-5, the bound tests/test_torch_unet.py holds ConvBNAct to.
 """
 
+from pathlib import Path
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -246,14 +248,69 @@ def test_wrappers_check_their_inputs():
         avg_max_pool(x.to("meta"))
 
 
-@pytest.mark.parametrize("b,hw,c,vec", [(8, 512 * 512, 64, 8), (8, 32 * 32, 1024, 8),
-                                        (8, 512 * 512, 64, 4), (2, 16, 1024, 4),
-                                        (3, 37 * 53, 48, 8), (1, 1, 3, 1), (5, 7, 5000, 1)])
+# the Robust U-Net's ResidualBlock outputs at batch 8, 512^2 as (B, H * W, C),
+# read 8 (bf16) or 4 (f32) channels a load; the fourth is WaterNet's bottleneck
+LEVELS = [(8, 512 * 512, 64), (8, 256 * 256, 128), (8, 128 * 128, 256), (8, 64 * 64, 512),
+          (8, 32 * 32, 1024)]
+GEOMETRY_CASES = [(8, 512 * 512, 64, 8), (8, 32 * 32, 1024, 8), (8, 512 * 512, 64, 4),
+                  (2, 16, 1024, 4), (3, 37 * 53, 48, 8), (1, 1, 3, 1), (5, 7, 5000, 1)]
+
+
+@pytest.mark.parametrize("b,hw,c,vec", GEOMETRY_CASES + [
+    (b, hw, c, vec) for vec in (8, 4) for b, hw, c in LEVELS])
 def test_pool_geometry_covers_every_pixel_once(b, hw, c, vec):
-    gb, slices, px = pool_geometry(b, hw, c, vec, sms=132)
-    assert 1 <= gb <= cbam.THREADS and gb <= c // vec
-    assert 1 <= slices <= 65535
-    assert slices * px >= hw > (slices - 1) * px  # every pixel, no empty slice
+    """Every channel in one chunk and every pixel in one CTA of its cluster,
+    none empty; the launch within the kernel's and CUDA's limits. At each
+    level the grid fills a 132-SM H100 with one CTA an SM (128 of 132):
+    measured there, that grid came within 8% of the fastest geometry at
+    every level and beat every larger grid in bf16 at 512^2 and 64^2
+    (PERF.md), so it exceeds one an SM only where even one-CTA clusters give
+    more (float32 at 32^2 x 1024: 256 chunks)."""
+    geo = pool_geometry(b, hw, c, vec, sms=132)
+    groups = c // vec
+    chunks = -(-groups // geo.groups)
+    assert geo.groups & (geo.groups - 1) == 0 and geo.threads % geo.groups == 0
+    assert geo.threads % 32 == 0 and geo.threads <= 512
+    src = (Path(cbam.__file__).parents[1] / "csrc" / "avg_max_pool.cu").read_text()
+    assert 1 <= geo.cluster <= 8 or (  # 8: CUDA's portable cluster size
+        geo.cluster <= cbam.MAX_CLUSTER == 16  # the H100's non-portable limit, set on launch
+        and "cudaFuncAttributeNonPortableClusterSizeAllowed" in src)
+    assert geo.grid == b * chunks * geo.cluster <= 2 ** 31 - 1
+    assert (chunks - 1) * geo.groups < groups <= chunks * geo.groups
+    assert (geo.cluster - 1) * geo.px < hw <= geo.cluster * geo.px
+    if (b, hw, c) in LEVELS:
+        assert 0.95 * 132 <= geo.grid and (geo.grid <= 132 or geo.cluster == 1)
+
+
+@pytest.mark.parametrize("b,hw,c,vec", [(3, 37 * 53, 48, 8), (2, 16, 1024, 4), (1, 1, 3, 1),
+                                        (5, 7, 5000, 1), (2, 300, 200, 4), (8, 32 * 32, 1024, 8),
+                                        (1, 64 * 64, 64, 8)])
+def test_pool_geometry_index_map_reads_and_writes_each_element_once(b, hw, c, vec):
+    """The kernel's index arithmetic (`csrc/avg_max_pool.cu`) replayed on the
+    geometry: each (image, pixel, channel group) is read by one thread of one
+    CTA, and each (image, channel) written by one thread of one cluster rank."""
+    geo = pool_geometry(b, hw, c, vec, sms=132)
+    groups, gw, k = c // vec, geo.groups, geo.cluster
+    chunks, lanes, width = -(-groups // gw), geo.threads // gw, gw * vec
+    share = -(-width // k)
+    tid = np.arange(geo.threads)
+    gl, lane = tid % gw, tid // gw
+    reads = np.zeros((b, hw, groups), np.int64)
+    writes = np.zeros((b, c), np.int64)
+    for cta in range(geo.grid):
+        cid, rank = divmod(cta, k)
+        img, chunk = divmod(cid, chunks)
+        p0 = rank * geo.px
+        p1 = min(p0 + geo.px, hw)
+        steps = np.arange(-(-max(p1 - p0, 0) // lanes))
+        p = p0 + lane[:, None] + steps[None, :] * lanes
+        g = np.broadcast_to((chunk * gw + gl)[:, None], p.shape)
+        hit = (p < p1) & (g < groups)
+        np.add.at(reads, (img, p[hit], g[hit]), 1)
+        kk = rank * share + np.arange(share)
+        ch = chunk * width + kk
+        np.add.at(writes, (img, ch[(kk < width) & (ch < c)]), 1)
+    assert np.all(reads == 1) and np.all(writes == 1)
 
 
 def test_plain_pool_is_the_float32_sum_over_hw():

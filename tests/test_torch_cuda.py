@@ -166,8 +166,22 @@ def _cbam_case(shape, dtype, dev, seed=0):
     return x, gate
 
 
+# the pool also at the Robust U-Net's five levels at batch 8, 512^2 (the fourth,
+# (8, 64, 64, 512), is WaterNet's bottleneck), and one image of one pixel
+LEVEL_SHAPES = [(8, 512, 512, 64), (8, 256, 256, 128), (8, 128, 128, 256), (8, 64, 64, 512),
+                (8, 32, 32, 1024)]
+POOL_SHAPES = CBAM_SHAPES + LEVEL_SHAPES + [(1, 1, 1, 64)]
+
+
+def _pool_ok(x, avg, mx, dtype):
+    ref_avg, ref_mx = cbam.avg_max_pool_plain(x)
+    assert avg.dtype == dtype and avg.shape == (x.shape[0], x.shape[3]) == mx.shape
+    assert torch.equal(mx, ref_mx)
+    assert _mean_ok(avg, ref_avg, x.float().abs().mean((1, 2)), dtype)
+
+
 @pytest.mark.parametrize("dtype", DTYPES)
-@pytest.mark.parametrize("shape", CBAM_SHAPES)
+@pytest.mark.parametrize("shape", POOL_SHAPES)
 def test_avg_max_pool_kernel_matches_plain(dev, shape, dtype):
     x, _ = _cbam_case(shape, dtype, dev)
     x[0, 0, 0, 0] = -100.0  # a channel whose max is far from its mean
@@ -176,10 +190,56 @@ def test_avg_max_pool_kernel_matches_plain(dev, shape, dtype):
         avg, mx = fn(x)
         torch.cuda.synchronize()
         assert fn.launches == before + 1
-        ref_avg, ref_mx = cbam.avg_max_pool_plain(x)
-        assert avg.dtype == dtype and avg.shape == (shape[0], shape[3])
-        assert torch.equal(mx, ref_mx)
-        assert _mean_ok(avg, ref_avg, x.float().abs().mean((1, 2)), dtype)
+        _pool_ok(x, avg, mx, dtype)
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("shape", [(3, 37, 53, 48), (2, 64, 64, 512), (1, 1, 1, 64)])
+def test_avg_max_pool_kernel_unaligned_takes_the_scalar_path(dev, shape, dtype):
+    """x one element past a 16-byte boundary: the scalar (vec = 1) path."""
+    b, h, w, c = shape
+    flat, _ = _cbam_case((b * h * w * c + 1, 1, 1, 1), dtype, dev)
+    x = flat.view(-1)[1:].view(shape)
+    assert x.data_ptr() % 16 != 0 and cbam._vec(c, x) == 1
+    avg, mx = cbam.avg_max_pool(x)
+    torch.cuda.synchronize()
+    _pool_ok(x, avg, mx, dtype)
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("shape", LEVEL_SHAPES + [(3, 37, 53, 48), (5, 3, 7, 5000)])
+def test_avg_max_pool_kernel_is_deterministic_and_both_wrappers_agree(dev, shape, dtype):
+    """Two calls give the same bits (no atomics, every fold in a fixed
+    order), and `fused_avg_max_pool` is `avg_max_pool` bit for bit."""
+    x, _ = _cbam_case(shape, dtype, dev, 5)
+    first = [t.clone() for t in cbam.avg_max_pool(x)]
+    again = cbam.avg_max_pool(x)
+    fused = fused_avg_max_pool(x)
+    torch.cuda.synchronize()
+    for a, b, f in zip(first, again, fused):
+        assert torch.equal(a, b) and torch.equal(a, f)
+
+
+def test_avg_max_pool_is_one_kernel_launch(dev):
+    """One call launches exactly one CUDA kernel, the class `chip_smoke.py`'s
+    profiles count as `avg_max_pool (ours)`."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from chip_smoke import _KERNEL_CLASSES
+
+    keys = dict(_KERNEL_CLASSES)["avg_max_pool (ours)"]
+    for shape in ((8, 64, 64, 512), (8, 512, 512, 64)):
+        x, _ = _cbam_case(shape, torch.bfloat16, dev)
+        cbam.avg_max_pool(x)
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            cbam.avg_max_pool(x)
+            torch.cuda.synchronize()
+        kernels = [e for e in prof.key_averages()
+                   if e.device_type == torch.autograd.DeviceType.CUDA
+                   and e.self_device_time_total > 0]
+        assert [e.count for e in kernels] == [1], [(e.key, e.count) for e in kernels]
+        assert any(k in kernels[0].key for k in keys), kernels[0].key
 
 
 def test_avg_max_pool_kernel_keeps_nan_and_negative_max(dev):
