@@ -105,14 +105,17 @@ Needs one NVIDIA H100 and the CUDA toolkit; builds the kernels from
      band call), `from_quantized` serving the same masks bit for bit, the
      card against the CPU path at 128^2 (>= 99.5% of mask pixels), int8 and
      bf16 forward times; an int8 2048^2 scene equal to the host tiling path;
-     the Robust U-Net's and SegNet's int8 forwards at batch 8, 512^2 (38 and
-     18 int8 convs, SegNet's 4 pools and unpools on codes) against the CPU
-     at 128^2 layer by layer (>= 99% of mask pixels, <= 1e-5 of any site's
-     codes, a limit that a control, the site multiplying by the step's
-     reciprocal, must exceed; `forced_card_vs_cpu` says why); then the int8
-     conv at every configuration those three forwards take, bit for bit
-     against its plain version, timed against its bound and cuDNN's bf16
-     conv. The int8 CLIs (predict --int8
+     the Robust U-Net's, SegNet's, WaterNet's, MSWNet's, HRNet-Water's,
+     PSPNet's and DeepLabV3+'s int8 forwards at batch 8, 512^2, full width
+     (`INT8_CONVS`: 38, 18, 16, 18, 6, 8 and 10 int8 convs, stride 2, the
+     4x4 transposed conv and C_in = 144 among them; SegNet's 4 pools and
+     unpools on codes; no plain conv on the card) beside the bf16 models'
+     forwards, against the CPU at 128^2 layer by layer (>= 99% of mask
+     pixels, <= 1e-5 of any site's codes, a limit that a control, the site
+     multiplying by the step's reciprocal, must exceed; `forced_card_vs_cpu`
+     says why); then the int8 conv at every configuration those eight
+     forwards take, bit for bit against its plain version, timed against
+     its bound and cuDNN's bf16 conv. The int8 CLIs (predict --int8
      --save-quantized, predict --batch --quantized, export --quantized-out
      --calib-images) run in phase 11's subprocess pool;
   13. a `kernels` JSON line, the card line and the last line:
@@ -144,6 +147,7 @@ from coastline_torch.infer.extract import CoastlineExtractor
 from coastline_torch.infer.morphology import coastline_band, elliptical_kernel
 from coastline_torch.infer.scene import build_scene_fn
 from coastline_torch.kernels import _build, cbam, unpool
+from coastline_torch.kernels import int8_conv as int8_conv_module
 from coastline_torch.kernels.fused_conv import (fused_conv3x3_bn_relu,
                                                 fused_conv3x3_bn_relu_plain)
 from coastline_torch.kernels.int8_conv import (int8_conv, int8_conv_plain, normalize_padding,
@@ -2149,28 +2153,37 @@ def extraction_path(dev, save_dir=TRAIN_DIR, size=GRANULE, tile=512, batch=8, di
 INT8_DIR = os.path.join(REPO, "build", "int8_path")  # listed in .gitignore
 PEAK_INT8_OPS = 1979e12  # dense int8 tensor-core rate
 # int8 conv launches a forward under the default policy (`infer/quant.py`)
-INT8_CONVS = {"unet": 21, "robust_unet": 38, "segnet": 18}
+INT8_CONVS = {"unet": 21, "robust_unet": 38, "segnet": 18, "waternet": 16, "mswnet": 18,
+              "hrnet_water": 6, "pspnet": 8, "deeplabv3p": 10}
 # sites a forward quantizes in an int8 conv's epilogue and eagerly (`site_counts`)
 INT8_SITES = {"unet": dict(fused=21, eager=6), "robust_unet": dict(fused=28, eager=25),
-              "segnet": dict(fused=18, eager=2)}
+              "segnet": dict(fused=18, eager=2), "waternet": dict(fused=16, eager=8),
+              "mswnet": dict(fused=10, eager=9), "hrnet_water": dict(fused=6, eager=6),
+              "pspnet": dict(fused=4, eager=7), "deeplabv3p": dict(fused=6, eager=5)}
+# the int8 eval forwards of `int8_path` (the UNet's is its serving path), by
+# registry name, with the card-vs-CPU mask limit of `int8_eval`
+INT8_EVAL = {"robust_unet": ("Robust UNet", 0.99), "segnet": ("SegNet", 0.99),
+             "waternet": ("WaterNet", 0.99), "mswnet": ("MSWNet", 0.99),
+             "hrnet_water": ("HRNet-Water", 0.99), "pspnet": ("PSPNet", 0.99),
+             "deeplabv3p": ("DeepLabV3+", 0.99)}
 
 
 def int8_conv_configs(forwards):
     """{config: {arch: calls a forward}} over one call of each `forwards[arch]`:
     the distinct (input shape, weight shape, padding, dilation, lhs dilation,
-    output dtype, relu, codes) the int8 forwards hand the kernel; codes is
-    True where the kernel quantizes to a site's codes (`out_step`)."""
+    output dtype, relu, codes, stride) the int8 forwards hand the kernel;
+    codes is True where the kernel quantizes to a site's codes (`out_step`)."""
     configs, real = {}, quant.int8_conv
 
     def spy(x, w, x_step, w_step, bias, padding=0, dilation=1, lhs_dilation=None,
-            out_dtype=torch.float32, relu=False, out_step=None):
+            out_dtype=torch.float32, relu=False, out_step=None, stride=1):
         key = (tuple(x.shape), tuple(w.hwio.shape), json.dumps(padding), dilation,
                None if lhs_dilation is None else tuple(lhs_dilation), str(out_dtype),
-               bool(relu), out_step is not None)
+               bool(relu), out_step is not None, stride)
         per = configs.setdefault(key, {})
         per[arch] = per.get(arch, 0) + 1
         return real(x, w, x_step, w_step, bias, padding, dilation, lhs_dilation, out_dtype,
-                    relu=relu, out_step=out_step)
+                    relu=relu, out_step=out_step, stride=stride)
 
     quant.int8_conv = spy
     try:
@@ -2196,10 +2209,11 @@ def check_int8_conv(dev, configs, iters=10):
     transposed convs' parity sub-GEMMs) `torch._int_mm` at (M, K) x (K, N)
     is timed too, the int8 tensor-core yardstick. Bound: each input byte
     read once, the output written once (1 byte a code), against 2 * M * N *
-    K int8 operations."""
+    K int8 operations (a transposed conv's K is that of its parity
+    sub-problems, (k / 2)^2 * C_in: the taps that reach an output pixel)."""
     rng = np.random.default_rng(9)
     cases, failures = [], []
-    for (xs, ws, pad_json, dil, lhs, dt_name, relu, codes), per in configs.items():
+    for (xs, ws, pad_json, dil, lhs, dt_name, relu, codes, stride), per in configs.items():
         dt = torch.bfloat16 if dt_name == "torch.bfloat16" else torch.float32
         pad = json.loads(pad_json)
         pad = pad if isinstance(pad, int) else tuple(tuple(p) for p in pad)
@@ -2212,16 +2226,17 @@ def check_int8_conv(dev, configs, iters=10):
         step = 0.0371
         out_steps = [None]
         if codes:
-            ymax = float(int8_conv_plain(x, wq, step, wstep, bias, pad, dil, lhs, dt).abs().max())
+            ymax = float(int8_conv_plain(x, wq, step, wstep, bias, pad, dil, lhs, dt,
+                                         stride=stride).abs().max())
             out_steps = [2.0 ** math.floor(math.log2(ymax / 100)), float(np.float32(ymax / 127))]
 
         def kernel(out_step):
             return int8_conv(x, wp, step, wstep, bias, pad, dil, lhs, dt, relu=relu,
-                             out_step=out_step)
+                             out_step=out_step, stride=stride)
 
         def plain(out_step):
             return int8_conv_plain(x, wq, step, wstep, bias, pad, dil, lhs, dt, relu=relu,
-                                   out_step=out_step)
+                                   out_step=out_step, stride=stride)
 
         equal, err = True, 0.0
         for out_step in out_steps:  # the last one is timed
@@ -2252,28 +2267,31 @@ def check_int8_conv(dev, configs, iters=10):
 
         if lhs is not None:
             wt = wf.flip(0, 1).permute(2, 3, 0, 1).contiguous()
+            tpad = kh - 1 - normalize_padding(pad)[0][0]
 
             def library():
-                return finish(F.conv_transpose2d(xb, wt, stride=2))
+                return finish(F.conv_transpose2d(xb, wt, stride=2, padding=tpad))
         else:
             (pt, pb), (pl, pr) = normalize_padding(pad)
             wo = wf.permute(3, 2, 0, 1).contiguous(memory_format=torch.channels_last)
 
             def library():
-                return finish(F.conv2d(F.pad(xb, (pl, pr, pt, pb)), wo, dilation=dil))
+                return finish(F.conv2d(F.pad(xb, (pl, pr, pt, pb)), wo, stride=stride,
+                                       dilation=dil))
         m = got.shape[0] * got.shape[1] * got.shape[2]
-        k = (cin if lhs is not None else kh * kw * cin)
+        k = ((kh // 2) * (kw // 2) * cin if lhs is not None else kh * kw * cin)
         ops = 2.0 * m * cout * k
         nbytes = x.numel() + wq.numel() + 8 * cout + got.numel() * got.element_size()
         b_ms, b_by = bound(nbytes, ops, PEAK_INT8_OPS)
-        case = dict(x=list(xs), w=list(ws), padding=pad, dilation=dil,
+        case = dict(x=list(xs), w=list(ws), padding=pad, dilation=dil, stride=stride,
                     lhs_dilation=None if lhs is None else list(lhs), out=dt_name, relu=relu,
                     codes=codes, out_steps=out_steps, per_forward=per, bit_equal=equal,
                     max_abs_err=err, ms=cuda_ms(timed, iters), device_ms=device_ms(timed, iters),
                     plain_ms=cuda_ms(lambda: plain(out_step), 1, 0),
                     library_ms=cuda_ms(library, iters), bound_ms=b_ms, bound_by=b_by,
                     gop=ops / 1e9, int_mm_ms=None)
-        if lhs is not None or (kh, kw) == (1, 1):  # a plain GEMM: time cuBLASLt's int8 GEMM
+        if (lhs is not None and kh == 2) or ((kh, kw) == (1, 1) and stride == 1):
+            # a plain GEMM (a 1x1, the 2x2 transposed conv's parities): cuBLASLt's int8 GEMM
             a_mat = x.view(-1, cin)
             # (K, N) column-major, N = sub-GEMMs x C_out
             b_mat = pack_weights(wq, lhs is not None).view(-1, cin).t()
@@ -2317,6 +2335,26 @@ def reciprocal_site(ctx, name, t, optional=False):
         return out
     inv = 1.0 / ctx.steps[(name, t.device)][1]
     return quant._QT((t.float() * inv).round_().clamp_(-127, 127).to(torch.int8), out.step)
+
+
+# Archs whose calibrated steps make `reciprocal_site` round as the true
+# division at every site, so that control cannot show the check's
+# sensitivity there (PERF.md, Findings): DeepLabV3+'s eleven steps come from
+# absmax values whose bf16 mantissas have large odd factors (43, 139, 251,
+# ...), so no bf16 value lands on a half-integer code; the CPU against
+# itself moves 0 codes at each of them. `float32_epilogue_conv` holds them.
+RECIPROCAL_BLIND = {"deeplabv3p"}
+
+
+def float32_epilogue_conv(*args, out_step=None, **kw):
+    """A second control for `forced_card_vs_cpu`: a fused site's codes
+    quantized from the kernel's float32 values, an epilogue that skips the
+    rounding to the compute dtype before the quantization (args as
+    `_Ctx.conv_site` passes them: out_dtype is the ninth)."""
+    if out_step is None:
+        return int8_conv(*args, **kw)
+    y = int8_conv(*args[:8], torch.float32, *args[9:], **kw)
+    return quantize_codes(y, torch.tensor(out_step, dtype=torch.float32, device=y.device))
 
 
 def reciprocal_conv(*args, out_step=None, **kw):
@@ -2419,14 +2457,17 @@ def forced_card_vs_cpu(arch, card, cpu, x, card_site=_SITE, card_conv=None):
 
 def int8_eval(arch, dev, size, batch, check_size, check_batch, limit):
     """One int8 model at (batch, size, size), bf16: launches of one counted
-    forward, its device and events ms beside the bf16 float model's on the
-    same weights, and its masks on the card against the CPU path (the same
-    tree and scales) at (check_batch, check_size, check_size): layer by layer
+    forward (and no call of the plain conv on the card), its device and
+    events ms beside the bf16 float model's on the same weights, and its
+    masks on the card against the CPU path (the same tree and scales) at
+    (check_batch, check_size, check_size): layer by layer
     (`forced_card_vs_cpu`) within `limit` of the masks and `SITE_CODES_LIMIT`
-    of every site's codes, which the control `reciprocal_site` must exceed,
-    and free-running beside the bf16 float model's own card-vs-CPU
-    agreement (reported)."""
-    name = {"robust_unet": "Robust UNet", "segnet": "SegNet"}[arch]
+    of every site's codes, which the controls `float32_epilogue_conv` and
+    (but for `RECIPROCAL_BLIND`) `reciprocal_site` must exceed, and
+    free-running beside the bf16 float model's own card-vs-CPU agreement
+    (reported). `s`: the seconds it took."""
+    t0 = time.perf_counter()
+    name = INT8_EVAL[arch][0]
     sd = zoo_state_dict(name)  # seeded init, BN statistics from one forward
     qm = quant.QuantizedModel.from_state_dict(sd, quant.default_calibration(size, device=dev),
                                               arch=arch, device=dev)
@@ -2436,8 +2477,11 @@ def int8_eval(arch, dev, size, batch, check_size, check_batch, limit):
     sync(dev)
     for fn in ALL_COUNTERS.values():
         fn.launches = 0
-    probs = qm(x)
-    sync(dev)
+    plain_calls = []
+    with patched(int8_conv_module, int8_conv_plain=lambda *a, **k: plain_calls.append(1)
+                 or int8_conv_plain(*a, **k)):
+        probs = qm(x)
+        sync(dev)
     launches = {k: n for k, n in launch_counts().items() if n}
     want = {"int8_conv": INT8_CONVS[arch]}
     if arch == "segnet":
@@ -2461,6 +2505,8 @@ def int8_eval(arch, dev, size, batch, check_size, check_batch, limit):
     site_share, site_name, card_vs_cpu, fused_held = forced_card_vs_cpu(arch, qm, cpu, small)
     control_share, control_site, _, _ = forced_card_vs_cpu(
         arch, qm, cpu, small, card_site=reciprocal_site, card_conv=reciprocal_conv)
+    f32_share, f32_site, _, _ = forced_card_vs_cpu(arch, qm, cpu, small,
+                                                   card_conv=float32_epilogue_conv)
     sites = site_counts(lambda: qm(x))
     bf16_cpu = create_model(name, dtype=torch.bfloat16)
     bf16_cpu.load_state_dict(sd, strict=True)
@@ -2473,13 +2519,18 @@ def int8_eval(arch, dev, size, batch, check_size, check_batch, limit):
                card_vs_cpu_worst_site=site_name, site_codes_limit=SITE_CODES_LIMIT,
                card_vs_cpu_fused_sites=fused_held, sites=sites,
                control_reciprocal_site_codes=control_share, control_worst_site=control_site,
+               control_float32_epilogue_site_codes=f32_share,
+               control_float32_epilogue_worst_site=f32_site,
                card_vs_cpu_free_running=free,
                bf16_card_vs_cpu_free_running=bf16_free, check=[check_batch, check_size],
-               finite=bool(torch.isfinite(probs).all()), profile=profile)
+               plain_conv_calls_on_card=len(plain_calls),
+               finite=bool(torch.isfinite(probs).all()), s=time.perf_counter() - t0,
+               profile=profile)
     log(f"int8_eval_{arch}", json.dumps({k: v for k, v in out.items() if k != "profile"}))
     failures = []
-    if launches != want:
-        failures.append(f"{arch} int8 forward launched {launches}, want {want}")
+    if launches != want or plain_calls:
+        failures.append(f"{arch} int8 forward launched {launches}, want {want}; the plain "
+                        f"conv ran {len(plain_calls)} times on the card")
     if sites != INT8_SITES[arch] or fused_held != INT8_SITES[arch]["fused"]:
         failures.append(f"{arch} int8 sites {sites} (layer by layer {fused_held} fused), want "
                         f"{INT8_SITES[arch]}")
@@ -2487,9 +2538,12 @@ def int8_eval(arch, dev, size, batch, check_size, check_batch, limit):
         failures.append(f"{arch} int8 on the card against the CPU, layer by layer: masks "
                         f"{card_vs_cpu:.5f} (limit {limit}), codes {site_share:.2e} at {site_name} "
                         f"(limit {SITE_CODES_LIMIT})")
-    if control_share <= SITE_CODES_LIMIT:
+    if control_share <= SITE_CODES_LIMIT and arch not in RECIPROCAL_BLIND:
         failures.append(f"{arch}: the layer-by-layer check does not see a reciprocal site "
                         f"({control_share:.2e} at {control_site}, limit {SITE_CODES_LIMIT})")
+    if f32_share <= SITE_CODES_LIMIT:
+        failures.append(f"{arch}: the layer-by-layer check does not see a float32 epilogue "
+                        f"({f32_share:.2e} at {f32_site}, limit {SITE_CODES_LIMIT})")
     return out, qm, failures
 
 
@@ -2625,8 +2679,8 @@ def int8_forwards(result) -> dict:
     device ms, its `int8_conv` and elementwise ms and launches (profiler),
     and the sites quantized in the conv epilogue and eagerly."""
     out = {}
-    for arch, r in (("unet", result["serving"]), ("robust_unet", result["robust_unet"]),
-                    ("segnet", result["segnet"])):
+    for arch in INT8_CONVS:
+        r = result["serving" if arch == "unet" else arch]
         classes = r["profile"].get("classes", {})
         conv = classes.get("int8_conv (ours)", {})
         elem = classes.get("elementwise: bias, BN affine, ReLU, casts", {})
@@ -2645,9 +2699,9 @@ def int8_forwards(result) -> dict:
 def int8_path(dev, save_dir=TRAIN_DIR, size=512, batch=8, check_size=128, check_batch=2,
               scene_size=2048):
     """The int8 PTQ path on the card: the int8 conv at every configuration
-    of the three int8 forwards at (batch, size, size), the UNet's int8
-    serving from `train_path`'s checkpoint, the Robust U-Net's and SegNet's
-    int8 eval forwards, and an int8 scene."""
+    of the eight int8 forwards at (batch, size, size), the UNet's int8
+    serving from `train_path`'s checkpoint, the other seven's int8 eval
+    forwards (`INT8_EVAL`), and an int8 scene."""
     t0 = time.perf_counter()
     root = fresh_dir(INT8_DIR)
     result, failures = {}, []
@@ -2657,11 +2711,11 @@ def int8_path(dev, save_dir=TRAIN_DIR, size=512, batch=8, check_size=128, check_
     result["scene"], fails = int8_scene(ex, dev, scene_size, batch)
     failures += fails
     models = {"unet": ex.quantized}
-    for arch, limit in (("robust_unet", 0.99), ("segnet", 0.99)):
+    for arch, (_, limit) in INT8_EVAL.items():
         result[arch], models[arch], fails = int8_eval(arch, dev, size, batch, check_size,
                                                       check_batch, limit)
         failures += fails
-    # every conv configuration of the three forwards, from one forward each
+    # every conv configuration of the eight forwards, from one forward each
     x = normalize_images(torch.from_numpy(coast_tiles(batch, size, 32)[0]).to(dev))
     configs = int8_conv_configs({a: (lambda m=m: m(x)) for a, m in models.items()})
     del models, ex, x
@@ -2798,9 +2852,9 @@ def main(argv=None) -> int:
                             library_ms=t["library_ms"], shape=t["shape"], library=t["library"],
                             int8=t["int8"]))
     int8_by_path = {"int8_serving": int8["serving"]["launches"].get("int8_conv", 0),
-                    "int8_scene": int8["scene"]["launches"].get("int8_conv", 0),
-                    "robust_unet_int8_eval": int8["robust_unet"]["launches"].get("int8_conv", 0),
-                    "segnet_int8_eval": int8["segnet"]["launches"].get("int8_conv", 0)}
+                    "int8_scene": int8["scene"]["launches"].get("int8_conv", 0)}
+    int8_by_path.update({f"{arch}_int8_eval": int8[arch]["launches"].get("int8_conv", 0)
+                         for arch in INT8_EVAL})
     cases = int8["conv_cases"]
     main_case = next((c for c in cases if c["x"] == [8, 512, 512, 64] and c["w"] == [3, 3, 64, 64]
                       and c["codes"] and c["relu"]), cases[0])  # the UNet's dc0.c2 (and dc8)
@@ -2814,6 +2868,12 @@ def main(argv=None) -> int:
         device_ms=main_case["device_ms"], share_of_bound=main_case["share_of_bound"],
         shape=main_case["x"], weights=main_case["w"], mode="codes, relu",
         configurations=len(cases),
+        # the stride-2, 4x4-transposed and C_in = 144 configurations
+        extended=[{k: c[k] for k in ("x", "w", "stride", "lhs_dilation", "codes", "ms", "device_ms",
+                                     "bound_ms", "bound_by", "library_ms", "plain_ms",
+                                     "share_of_bound", "per_forward")}
+                  for c in cases if c["stride"] == 2 or c["w"][2] == 144
+                  or (c["lhs_dilation"] and c["w"][0] == 4)],
         library="cuDNN bf16 conv (channels_last) + float32 epilogue + ReLU + the site's "
                 "eager quantization"))
     if args.out:

@@ -16,8 +16,10 @@ PTQ serving artifact (`infer/deploy.py`): BN fold, calibration (on up to
 eight images of `--calib-images`, resized BILINEAR to `--image-size`, or
 on the synthetic coastal scenes) and quantization in one command, served
 by the predict CLI's `--quantized` and `CoastlineExtractor.from_quantized`
-of either package. Its int8 fold exists for `unet`, `robust_unet` and
-`segnet`; any other `--arch` exits non-zero.
+of either package. Its int8 fold exists for `unet`, `robust_unet`,
+`segnet`, `waternet`, `mswnet`, `hrnet_water`, `pspnet` and `deeplabv3p`
+(any registry name or alias of them); YOLO-SEG, Fast-SCNN, ENet and
+SegFormer-Lite exit 2, naming the ported ones.
 """
 
 import argparse
@@ -30,8 +32,8 @@ def main(argv=None):
                    help="save dir written by coastline_torch.cli.train")
     p.add_argument("--out", default=None, help="output .pth path")
     p.add_argument("--quantized-out", default=None, metavar="NPZ",
-                   help="also write the int8 PTQ serving artifact (unet, robust_unet or "
-                        "segnet)")
+                   help="also write the int8 PTQ serving artifact (unet, robust_unet, "
+                        "segnet, waternet, mswnet, hrnet_water, pspnet or deeplabv3p)")
     p.add_argument("--calib-images", default=None,
                    help="directory of representative images for activation calibration "
                         "(default: synthetic coastal scenes)")

@@ -4,9 +4,10 @@
 // No Pallas counterpart: the JAX package runs these convs as XLA s8 x s8 -> s32
 // convolutions with the epilogue and the site's quantization fused by XLA
 // (coastline/infer/quant.py:573-578, the int8 branch of `_conv`, and `_Ctx.site`
-// at :546-548). It computes, stride 1, NHWC:
+// at :546-548). It computes, at stride s (1 or 2), NHWC:
 //   acc[n, oy, ox, co] = sum over (ky, kx, ci) of
-//       x[n, oy - pad_t + ky * dil, ox - pad_l + kx * dil, ci] * w[co][(ky * KW + kx) * Cin + ci]
+//       x[n, s * oy - pad_t + ky * dil, s * ox - pad_l + kx * dil, ci]
+//       * w[co][(ky * KW + kx) * Cin + ci]
 //   v = cast(RN(RN(float(acc) * RN(x_step * w_step[co])) + bias[co])), then max(v, 0) if relu
 //   values mode: out = v (float32 or bf16)
 //   codes mode:  out = int8(clamp(rint(float(v) / out_step), -127, 127))
@@ -20,11 +21,19 @@
 // rounds half to even. The kernel is then bit-equal to its plain version and
 // to `_Ctx.site(relu(conv))`.
 //
-// A transposed conv of the UNets' decoders (lhs dilation 2, 2x2 kernel, padding
-// 1) runs as its four output-parity sub-problems: output pixel (2a + py, 2b +
-// px) is the 1x1 product of input pixel (a, b) with tap (1 - py, 1 - px), so
-// each is a dense GEMM over the input grid with no zero taps, written at output
-// stride 2 (the sub-problem is part of the tile index).
+// A transposed conv (lhs dilation 2, a 2h x 2h kernel, padding h: the UNets'
+// 2x2 decoders, h = 1, and DeepLabV3+'s 4x4 ones, h = 2) runs as its four
+// output-parity sub-problems. Output row 2a + p sums the stored (flipped) taps
+// t = t0 + 2j, t0 = (h - p) mod 2, over input rows a - ((h - p) >> 1) + j, j <
+// h: a dense h x h conv over the input grid with leading padding (h - p) >> 1
+// (pack_weights gathers its taps), written at output stride 2 (the sub-problem
+// is part of the tile index). For h = 1 that is a 1x1 GEMM with tap 1 - p; for
+// h = 2 a 2x2 conv, padded by one row and column at parity 0. No sub-problem
+// multiplies the zeros a tap loop over the zero-inserted input would.
+//
+// Stride 2 (PSPNet's, DeepLabV3+'s and HRNet-Water's downsampling 3x3s) is in
+// the A tensor map: its element strides are 2 on W and H, so a box of 2 TW x 2
+// TH pixels lands as the TW x TH pixels of the strided grid, one tap a stage.
 //
 // What bounds it on an H100: bytes at the full-resolution levels (at (8, 512,
 // 512, 64 -> 64) 3x3: 134.2 MB in; out 268.4 MB as bf16, 0.120 ms at 3.35 TB/s,
@@ -54,14 +63,19 @@
 //     taller box reads it (TH + 2) / TH times, which is what bounds the
 //     full-resolution levels: the L2-to-shared traffic. Where a tile is
 //     narrower than 8 pixels a stage is one tap (a box of TH rows at y0 -
-//     pad_t + ky * dil). TMA zero-fills what lies outside the tensor: the
+//     pad_t + ky * dil), as at stride 2, where tap ky's rows are not rows of
+//     the strided grid of tap 0 (for odd ky * dil). TMA zero-fills what lies
+//     outside the tensor: the
 //     padding (uneven too), the dilations, the ragged right and bottom edges,
 //     and the channels past Cin when Cin % 64 != 0 (a zero A value cancels
 //     whatever B holds there). Both land in the 64-byte swizzle a wgmma
 //     descriptor reads (a pixel's 64 channels are one swizzle row), so no
 //     thread computes an address. Im2col-mode TMA would fetch one box a tap;
 //     the tiled mode shares the rows between taps and keeps the dilations and
-//     per-side padding in plain coordinates.
+//     per-side padding in plain coordinates. A C_in that is a multiple of 16 but
+//     not of 64 (HRNet-Water's 144) leaves its last chunk part zero-filled; the
+//     B tile there reads the next tap's rows (or TMA's zeros past the last),
+//     which the zero A columns cancel.
 //   * the consumer warpgroups, each 64 or 128 rows of the tile, issue
 //     wgmma.mma_async m64nBNk32 s8 x s8 -> s32 with both operands in shared
 //     memory (SS, K-major), two K steps a tap, and hand a stage back once
@@ -97,8 +111,8 @@ __host__ __device__ constexpr int blocks_per_sm(int cons) { return cons == 1 ? 2
 constexpr int smem_limit(int cons) { return SMEM_SM / blocks_per_sm(cons) - 1024; }
 
 struct Geometry {
-  int Cin, Cout, KW, chunks;  // chunks: 64-channel K steps a tap
-  int pad_t, pad_l, dil;
+  int Cin, Cout, KH, KW, chunks;  // chunks: 64-channel K steps a tap
+  int pad_t, pad_l, dil, stride;  // a transposed conv's pads are per parity (`lead_pad`)
   int R, row_groups;       // ky taps a stage (KH or 1), KH / R
   int a_box_bytes, a_bytes, stage_bytes;  // a stage: the A box (rounded to 1 KB), then R B tiles
   int Mh, Mw;              // the grid of output pixels of one sub-problem
@@ -131,6 +145,12 @@ __device__ __forceinline__ Tile decode(long long t, const Geometry& g) {
   r.ty = int(t % g.tiles_y);
   r.b = int(t / g.tiles_y);
   return r;
+}
+
+// the leading padding of sub-problem parity p (0 or 1) along an axis: a plain
+// conv's own; in a transposed conv's h x h sub-problem (h - p) >> 1
+__device__ __forceinline__ int lead_pad(const Geometry& g, int pad, int h, int p) {
+  return g.subs == 4 ? (h - p) >> 1 : pad;
 }
 
 __device__ __forceinline__ uint32_t smem_u32(const void* p) {
@@ -413,7 +433,8 @@ int8_conv_kernel(const __grid_constant__ CUtensorMap amap,
       uint32_t ph = 0;
       for (long long t = blockIdx.x; t < g.n_tiles; t += gridDim.x) {
         const Tile T = decode(t, g);
-        const int x0 = T.tx * g.TW - g.pad_l, y0 = T.ty * g.TH - g.pad_t;
+        const int x0 = T.tx * g.TW * g.stride - lead_pad(g, g.pad_l, g.KW, T.sub & 1);
+        const int y0 = T.ty * g.TH * g.stride - lead_pad(g, g.pad_t, g.KH, T.sub >> 1);
         const int brow = T.sub * g.Cout + T.nt * BN;
         for (int c = 0; c < g.chunks; ++c)
           for (int kx = 0; kx < g.KW; ++kx)
@@ -509,10 +530,11 @@ EncodeTiled encode_tiled() {
   return fn;
 }
 
-// an int8 map with a 64-byte swizzle, zero fill outside the tensor
+// an int8 map with a 64-byte swizzle, zero fill outside the tensor; `elem` the
+// traversal strides (a box of b elements at stride e loads ceil(b / e) of them)
 bool make_map(EncodeTiled encode, CUtensorMap* map, const void* ptr, int rank,
-              const cuuint64_t* dims, const cuuint64_t* strides, const cuuint32_t* box) {
-  const cuuint32_t elem[4] = {1, 1, 1, 1};
+              const cuuint64_t* dims, const cuuint64_t* strides, const cuuint32_t* box,
+              const cuuint32_t* elem) {
   return encode(map, CU_TENSOR_MAP_DATA_TYPE_UINT8, cuuint32_t(rank), const_cast<void*>(ptr),
                 dims, strides, box, elem, CU_TENSOR_MAP_INTERLEAVE_NONE,
                 CU_TENSOR_MAP_SWIZZLE_64B, CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
@@ -554,26 +576,29 @@ int launch(const CUtensorMap& amap, const CUtensorMap& bmap, const float* w_step
 
 // x int8 (N, H, W, Cin); w int8 packed (subs, Cout, KH * KW * Cin); w_step, bias
 // float (Cout); out (N, Ho, Wo, Cout) float32 or bf16 (values) or int8 (codes).
-// For a plain conv (transposed 0) the M grid is (Mh, Mw) = (Ho, Wo); for a
-// transposed one (transposed 1, KH = KW = 1, pad 0, dil 1) it is the input grid
-// (H, W) and the output is (2H, 2W).
+// For a plain conv (transposed 0) the M grid is (Mh, Mw) = (Ho, Wo), stride 1 or
+// 2; for a transposed one (transposed 1: KH = KW = h, the sub-problems' kernel,
+// 1 or 2; pad 0, which the parities replace; dil 1, stride 1) it is the input
+// grid (H, W) and the output is (2H, 2W).
 extern "C" int coastline_int8_conv(const void* x, const void* w, const void* w_step,
                                    const void* bias, void* out, int N, int H, int W, int Cin,
                                    int Cout, int KH, int KW, int pad_t, int pad_l, int dil,
-                                   int Mh, int Mw, int transposed, float x_step, int out_bf16,
-                                   int relu, int codes, float out_step, void* stream) {
+                                   int stride, int Mh, int Mw, int transposed, float x_step,
+                                   int out_bf16, int relu, int codes, float out_step,
+                                   void* stream) {
   if (N <= 0 || H <= 0 || W <= 0 || Cin <= 0 || Cout <= 0 || KH <= 0 || KW <= 0 || dil <= 0 ||
-      Mh <= 0 || Mw <= 0 || Cin % 32 || Cout % 8)
+      Mh <= 0 || Mw <= 0 || Cin % 16 || Cout % 8 || (stride != 1 && stride != 2))
     return int(cudaErrorInvalidValue);
-  if (transposed && (KH != 1 || KW != 1 || pad_t || pad_l || dil != 1 || Mh != H || Mw != W))
+  if (transposed && (KH != KW || KH > 2 || pad_t || pad_l || dil != 1 || stride != 1 ||
+                     Mh != H || Mw != W))
     return int(cudaErrorInvalidValue);
   const EncodeTiled encode = encode_tiled();
   if (encode == nullptr) return int(cudaErrorSymbolNotFound);
   const bool wide = Cout > 64;  // 128 x 128 tiles, two consumers; else 128 x 64, one
   const int BN = wide ? 128 : 64, BM = 128, cons = wide ? 2 : 1;
   Geometry g;
-  g.Cin = Cin; g.Cout = Cout; g.KW = KW; g.chunks = (Cin + BK - 1) / BK;
-  g.pad_t = pad_t; g.pad_l = pad_l; g.dil = dil;
+  g.Cin = Cin; g.Cout = Cout; g.KH = KH; g.KW = KW; g.chunks = (Cin + BK - 1) / BK;
+  g.pad_t = pad_t; g.pad_l = pad_l; g.dil = dil; g.stride = stride;
   g.Mh = Mh; g.Mw = Mw;
   // with KH > 1 a tile row is at most 32 pixels, so a tile spans 4-8 rows and
   // its box of TH + 2 dil rows loads each row 1.25-1.5 times a kx, not 3
@@ -596,8 +621,9 @@ extern "C" int coastline_int8_conv(const void* x, const void* w, const void* w_s
   g.stage_out_bytes = BM / cons * g.out_row_stride;
   // Merge the KH row taps of a (chunk, kx) into one stage when a tap's rows
   // start on a swizzle atom (TW % 8 == 0: j * dil * TW pixels of 64 bytes is
-  // a multiple of 512) and the box and the ring fit; else one tap a stage.
-  for (g.R = KH; ; g.R = 1) {
+  // a multiple of 512) and the box and the ring fit; else, and at stride 2,
+  // one tap a stage.
+  for (g.R = stride == 1 ? KH : 1; ; g.R = 1) {
     const int a_rows = g.TH + (g.R - 1) * dil;
     g.a_box_bytes = a_rows * g.TW * BK;
     g.a_bytes = (g.a_box_bytes + 1023) / 1024 * 1024;
@@ -612,19 +638,24 @@ extern "C" int coastline_int8_conv(const void* x, const void* w, const void* w_s
   g.out_inv_d = codes ? 1.0 / double(out_step) : 1.0;
   const int mode = (codes ? 2 : 0) + (out_bf16 ? 1 : 0);
 
-  // A: the input, (C, W, H, N); a box is one 64-channel chunk of TH + (R - 1) dil rows
+  // A: the input, (C, W, H, N); a box is one 64-channel chunk of TH + (R - 1) dil
+  // rows; at stride 2 the map steps by 2 on W and H, and a box of 2 TW x 2 TH
+  // pixels loads the TW x TH of the strided grid (R is 1 there)
   const cuuint64_t a_dims[4] = {cuuint64_t(Cin), cuuint64_t(W), cuuint64_t(H), cuuint64_t(N)};
   const cuuint64_t a_strides[3] = {cuuint64_t(Cin), cuuint64_t(W) * Cin,
                                    cuuint64_t(H) * cuuint64_t(W) * Cin};
-  const cuuint32_t a_box[4] = {BK, cuuint32_t(g.TW), cuuint32_t(g.TH + (g.R - 1) * dil), 1};
+  const cuuint32_t a_box[4] = {BK, cuuint32_t(g.TW * stride),
+                               cuuint32_t((g.TH + (g.R - 1) * dil) * stride), 1};
+  const cuuint32_t a_elem[4] = {1, cuuint32_t(stride), cuuint32_t(stride), 1};
   // B: the packed weights, (K, rows): rows = Cout, or 4 * Cout for the sub-problems
-  const int kdim = transposed ? Cin : KH * KW * Cin;
+  const int kdim = KH * KW * Cin;
   const cuuint64_t b_dims[2] = {cuuint64_t(kdim), cuuint64_t(Cout) * g.subs};
   const cuuint64_t b_strides[1] = {cuuint64_t(kdim)};
   const cuuint32_t b_box[2] = {BK, cuuint32_t(BN)};
   CUtensorMap amap, bmap;
-  if (!make_map(encode, &amap, x, 4, a_dims, a_strides, a_box) ||
-      !make_map(encode, &bmap, w, 2, b_dims, b_strides, b_box))
+  const cuuint32_t b_elem[2] = {1, 1};
+  if (!make_map(encode, &amap, x, 4, a_dims, a_strides, a_box, a_elem) ||
+      !make_map(encode, &bmap, w, 2, b_dims, b_strides, b_box, b_elem))
     return int(cudaErrorInvalidValue);
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   const float* sp = static_cast<const float*>(w_step);

@@ -8,7 +8,9 @@ for key: `q/<path>/<leaf>` arrays, a `q/<path>/__none__` marker for an
 absent entry (a Robust U-Net block without a shortcut), and `__meta__`, the
 UTF-8 bytes of a JSON object with `arch`, `policy`, `slim` and `scales`; a
 slim artifact drops the float32 `w` of every conv the saved policy runs on
-the int8 path. An artifact written by either package serves in the other.
+the int8 path but those its arch's forward reads elsewhere (`SLIM_KEEP`:
+DeepLabV3+'s `aspp_b4`). An artifact written by either package serves in the
+other.
 
 Not ported: the JAX package's `export_serving` / `load_serving` /
 `save_serving_bundle` (an AOT `jax.export` program of the forward).
@@ -19,7 +21,7 @@ from typing import Dict
 
 import numpy as np
 
-from coastline_torch.infer.quant import DEFAULT_POLICY, QuantizedModel, int8_eligible
+from coastline_torch.infer.quant import DEFAULT_POLICY, SLIM_KEEP, QuantizedModel, int8_eligible
 from coastline_torch.utils.device import resolve_device
 
 _NONE = "__none__"  # npz marker key suffix for absent entries (e.g. rb shortcuts)
@@ -59,17 +61,20 @@ def save_quantized(path, qm: QuantizedModel, slim: bool = True) -> None:
     """Write `qm` as one .npz (weights, scales, metadata).
 
     With `slim=True` the float32 `w` is dropped for every conv the model's
-    policy runs on the int8 path (which reads only wq, wstep and b).
+    policy runs on the int8 path (which reads only wq, wstep and b), unless
+    the arch's forward reads it elsewhere (`SLIM_KEEP`).
     Loading a slim artifact under another policy rebuilds those `w` as
     wq * wstep; under the saved policy the forward is bit-exact either way."""
     policy = dict(DEFAULT_POLICY, **(qm.policy or {}))
+    keep = SLIM_KEEP.get(qm.arch, set())
 
     def maybe_slim(prefix, node):
         if not (isinstance(node, dict) and "wq" in node):
             return node
         kh, kw, cin, cout = node["w"].shape
-        transposed = prefix.rsplit("/", 1)[-1].startswith("up")  # as `quant.to_device`
-        if not int8_eligible(cin, cout, transposed, policy):
+        key = prefix.rsplit("/", 1)[-1]
+        transposed = key.startswith("up")  # as `quant.to_device`
+        if key in keep or not int8_eligible(cin, cout, transposed, policy):
             return node
         return {k: v for k, v in node.items() if k != "w"}
 

@@ -1,12 +1,14 @@
-"""Int8 post-training quantization of the UNet, the Robust U-Net and SegNet
-(counterpart of `coastline/infer/quant.py`).
+"""Int8 post-training quantization of eight architectures of the zoo: the
+UNet, the Robust U-Net, SegNet, WaterNet, MSWNet, HRNet-Water, PSPNet and
+DeepLabV3+ (counterpart of `coastline/infer/quant.py`).
 
   * Eval only. Every BatchNorm folds into its conv (weights and bias in
-    float32) before quantization; a transposed conv has no BN and keeps its
-    bias. The folds read the port's `state_dict` (reference names) and give
-    the JAX package's folded tree: the same keys (`dc0/c1`, `rb3/short`,
-    `db/b2`, `ag1/psi`, `up2`, `head`, ...), HWIO weights, float32, bit for
-    bit (`fold_unet`, `fold_robust_unet`, `fold_segnet`).
+    float32) before quantization; a transposed conv keeps its bias and
+    takes the BN that follows it where there is one (DeepLabV3+'s decoder).
+    The folds read the port's `state_dict` (reference names) and give the
+    JAX package's folded tree: the same keys (`dc0/c1`, `rb3/short`,
+    `db/b2`, `ag1/psi`, `ms2/b3`, `aspp_fuse`, `up2`, `head`, ...), HWIO
+    weights, float32, bit for bit (`fold_*`).
   * Weights: symmetric per-output-channel int8, step = absmax / 127.
   * Activations: symmetric per-tensor int8 at named sites (conv inputs and
     the tensors the CBAM and gate epilogues read again), scaled by the
@@ -16,20 +18,25 @@
     the int8 mode, in which a conv whose input is int8 and whose channel
     counts are both >= `conv_min_ch` runs as an int8 x int8 -> int32
     implicit GEMM with the dequantizing epilogue fused
-    (`kernels/int8_conv.py`, the CUDA kernel on the card); a smaller conv
-    (the RGB stem, the gates' psi and spatial-attention convs, the heads)
-    dequantizes its int8 input and runs in the compute dtype.
+    (`kernels/int8_conv.py`, the CUDA kernel on the card: stride 1 or 2,
+    the 2x2 and 4x4 transposed convs); a smaller conv (the RGB stems, the
+    gates' psi and spatial-attention convs, MSWNet's first two blocks,
+    HRNet-Water's narrow branch, the heads) dequantizes its int8 input and
+    runs in the compute dtype.
   * Where one such int8 conv feeds a site (`_Ctx.conv_site`: the double
-    convs, the up-convs, SegNet's convs, the residual blocks' shortcut, t1
-    and mid), the kernel's epilogue also applies the ReLU and quantizes to
-    the site's codes, so on the card the site's float tensor is never
-    written; the codes are those `_Ctx.site` would give, bit for bit.
+    convs, the up-convs, the strided stems, the fusion convs, the residual
+    blocks' shortcut, t1 and mid), the kernel's epilogue also applies the
+    ReLU and quantizes to the site's codes, so on the card the site's float
+    tensor is never written; the codes are those `_Ctx.site` would give,
+    bit for bit. The sites after a concat, a resize or a pool stay eager.
 
 Everything is a function on tensors in the JAX package's NHWC layout; the
 float convs hand cuDNN the NCHW views of the same (channels_last) memory.
 SegNet's indexed pool and unpool run on the int8 codes through the kernels
-of `kernels/unpool.py`. `ARCHS` holds the three ported architectures;
-`quant_arch_for` returns None for the other nine of the registry.
+of `kernels/unpool.py`; the other max pools run on the codes too
+(`_maxpool`). `ARCHS` holds the eight ported architectures; `quant_arch_for`
+returns None for the other four of the registry (YOLO-SEG, Fast-SCNN, ENet,
+SegFormer-Lite).
 """
 
 import dataclasses
@@ -40,11 +47,18 @@ import torch
 import torch.nn.functional as F
 
 from coastline_torch.kernels import unpool
+from coastline_torch.ops.primitives import adaptive_avg_pool, bilinear_resize
 from coastline_torch.kernels.int8_conv import (PackedWeights, int8_conv, normalize_padding,
                                                packed, quantize_codes)
 from coastline_torch.utils.device import resolve_device
 from coastline_torch.utils.torch_import import (ROBUST_BLOCKS, ROBUST_GATES, ROBUST_UPCONVS,
                                                 SEGNET_STAGES, UNET_BLOCKS, UNET_UPCONVS)
+
+#: Entries whose float32 `w` an arch's forward reads whatever the policy
+#: (not through `_conv`): DeepLabV3+'s global ASPP branch is a matmul of the
+#: pooled codes with it. `to_device` keeps their `w` on the device and a slim
+#: artifact keeps it on disk (the JAX package's `deploy._SLIM_KEEP`).
+SLIM_KEEP = {"deeplabv3p": {"aspp_b4"}}
 
 _EPS = 1e-5  # BatchNorm epsilon (torch default)
 
@@ -149,6 +163,99 @@ def fold_segnet(sd) -> Dict:
     return out
 
 
+def _fold_t(sd, conv, bn):
+    """A transposed conv with the BN that follows it folded in (the JAX
+    kernel layout, flipped): DeepLabV3+'s decoder stages."""
+    w, b = _conv_t(sd, conv)
+    inv, shift = _bn_affine(sd, bn)
+    return w * inv[None, None, None, :], b * inv + shift
+
+
+def fold_deeplabv3p(sd) -> Dict:
+    """Fold the BNs of DeepLabV3+ (`models/deeplabv3p.py`): the four backbone
+    ConvBNActs (c0..c3; conv2 leads with its max pool), the ASPP's five
+    branches with their biases and no BN (aspp_b0..b4), its fusion conv
+    with `aspp.bn` (aspp_fuse), the four transposed convs with the BNs after
+    them (up0..up3), the 3x3 head."""
+    out: Dict = {f"c{i}": _fold(sd, f"conv{i + 1}.{j}", f"conv{i + 1}.{j + 1}")
+                 for i, j in enumerate((0, 1, 0, 0))}
+    for k in range(5):
+        out[f"aspp_b{k}"] = _fold(sd, f"aspp.conv{k + 1}")
+    out["aspp_fuse"] = _fold(sd, "aspp.conv_out", "aspp.bn")
+    for i in range(4):
+        out[f"up{i}"] = _fold_t(sd, f"decoder.{3 * i}", f"decoder.{3 * i + 1}")
+    out["head"] = _fold(sd, "decoder.12")
+    return out
+
+
+def _double_folds(sd, prefixes, first: int, out: Dict):
+    """The two ConvBNActs of each Sequential in `prefixes` as c{first}, ..."""
+    for i, prefix in enumerate(prefixes):
+        for j in range(2):
+            out[f"c{first + 2 * i + j}"] = _fold(sd, f"{prefix}.{3 * j}", f"{prefix}.{3 * j + 1}")
+
+
+def fold_waternet(sd) -> Dict:
+    """Fold the BNs of WaterNet (`models/waternet.py`): the water-index head
+    (wim1 with its BN, wim2), the 14 double-conv ConvBNActs in call order
+    (c0..c7 the encoder and bottleneck, c8..c13 the decoder), the
+    bottleneck's channel-gate MLP (`ca`, the Dense layout), the three
+    transposed convs, the 1x1 head."""
+    out: Dict = {"wim1": _fold(sd, "water_index.index_conv.0", "water_index.index_conv.1"),
+                 "wim2": _fold(sd, "water_index.index_conv.3"),
+                 "ca": {f"fc{k}": np.ascontiguousarray(
+                     _arr(sd, f"water_attention.fc.{2 * k - 2}.weight")[:, :, 0, 0].T)
+                     for k in (1, 2)}}
+    _double_folds(sd, ("enc1", "enc2", "enc3", "bottleneck", "dec3", "dec2", "dec1"), 0, out)
+    for i, level in enumerate((3, 2, 1)):
+        out[f"up{i}"] = _conv_t(sd, f"up{level}")
+    out["head"] = _fold(sd, "outc.0")
+    return out
+
+
+def fold_pspnet(sd) -> Dict:
+    """Fold the BNs of PSPNet (`models/pspnet.py`): the four strided stem
+    ConvBNActs (c0..c3), the pyramid's four branch convs (ppm0..ppm3), the
+    fusion ConvBNAct (c4), the 1x1 head."""
+    out: Dict = {f"c{i}": _fold(sd, f"conv{i + 1}.0", f"conv{i + 1}.1") for i in range(4)}
+    out["c4"] = _fold(sd, "final_conv.0", "final_conv.1")
+    for k in range(4):
+        out[f"ppm{k}"] = _fold(sd, f"ppm.convs.{k}.1", f"ppm.convs.{k}.2")
+    out["head"] = _fold(sd, "final_conv.4")
+    return out
+
+
+def fold_mswnet(sd) -> Dict:
+    """Fold the BNs of MSWNet (`models/mswnet.py`): each encoder block's four
+    branches (ms{i}/b0..b3; branch 4 leads with its max pool), the two
+    bridge convs and the four decoder convs (c0..c5), the four transposed
+    convs, the 1x1 head."""
+    out: Dict = {}
+    for i in range(4):
+        out[f"ms{i}"] = {f"b{k}": _fold(sd, f"enc{i + 1}.branch{k + 1}.{j}",
+                                        f"enc{i + 1}.branch{k + 1}.{j + 1}")
+                         for k, j in enumerate((0, 0, 0, 1))}
+    _double_folds(sd, ("bridge",), 0, out)
+    for t, level in enumerate((4, 3, 2, 1)):
+        out[f"c{t + 2}"] = _fold(sd, f"dec{level}.0", f"dec{level}.1")
+        out[f"up{t}"] = _conv_t(sd, f"up{level}")
+    out["head"] = _fold(sd, "outc.0")
+    return out
+
+
+def fold_hrnet_water(sd) -> Dict:
+    """Fold the BNs of HRNet-Water (`models/hrnet_water.py`): the stem and
+    the three branches, two ConvBNActs each (c0..c7), the head's ConvBNAct
+    (c8), the two 1x1 projections with their BNs, the 1x1 head."""
+    out: Dict = {}
+    _double_folds(sd, ("stem", "hr_branch", "mr_branch", "lr_branch"), 0, out)
+    out["c8"] = _fold(sd, "head.0", "head.1")
+    out["mr_proj"] = _fold(sd, "mr_to_hr.0", "mr_to_hr.1")
+    out["lr_proj"] = _fold(sd, "lr_to_hr.0", "lr_to_hr.1")
+    out["head"] = _fold(sd, "head.4")
+    return out
+
+
 # ---------------------------------------------------------------------------
 # Weight quantization
 # ---------------------------------------------------------------------------
@@ -213,17 +320,20 @@ class DeviceTree(dict):
     """A (folded or quantized) tree moved to one device by `to_device`."""
 
 
-def to_device(tree, device, policy: Optional[Dict] = None) -> DeviceTree:
+def to_device(tree, device, policy: Optional[Dict] = None,
+              arch: Optional[str] = None) -> DeviceTree:
     """Move a tree of numpy arrays to `device` once: every array becomes a
     tensor, a folded (w, b) entry a tuple of tensors, and a quantized entry
     a dict whose `wq` is `PackedWeights`. A conv the policy runs on the int8
     path (`int8_eligible`; a transposed conv is an `up*` entry, as in the
     JAX package's forwards) gets the kernel's layout here and leaves its
-    float32 `w`, which that path never reads, on the host."""
+    float32 `w`, which that path never reads, on the host, unless `arch`'s
+    forward reads it elsewhere (`SLIM_KEEP`)."""
     if isinstance(tree, DeviceTree):
         return tree
     device = torch.device(device)
     pol = dict(DEFAULT_POLICY, **(policy or {}))
+    keep = SLIM_KEEP.get(arch, set())
 
     def t(a):
         return a if isinstance(a, torch.Tensor) else torch.from_numpy(np.asarray(a)).to(device)
@@ -236,7 +346,8 @@ def to_device(tree, device, policy: Optional[Dict] = None) -> DeviceTree:
         if isinstance(v, dict) and "wq" in v:
             wq, transposed = t(v["wq"]), key.startswith("up")
             if int8_eligible(wq.shape[2], wq.shape[3], transposed, pol):
-                out = {k: t(a) for k, a in v.items() if k not in ("wq", "w")}
+                out = {k: t(a) for k, a in v.items()
+                       if k != "wq" and (k != "w" or key in keep)}
                 out["wq"] = packed(wq, transposed)
             else:
                 out = {k: t(a) for k, a in v.items() if k != "wq"}
@@ -307,21 +418,21 @@ class _Ctx:
         return _QT(quantize_codes(t, step_t), step)
 
     def conv_site(self, name: str, x: "_QT", entry, relu: bool = False, padding=0,
-                  dilation=1, lhs_dilation=None) -> "_QT":
+                  dilation=1, lhs_dilation=None, stride: int = 1) -> "_QT":
         """`site(name, relu(_conv(x, entry, ...)))` with the quantization in
         the conv's epilogue where the int8 path applies (`_int8_path`): on the
         card one `int8_conv` launch in codes mode, whose codes go through
         `fused_codes`; on the CPU the kernel's plain version in values mode,
         then `site`, so a site sees its own float input there."""
         if not _int8_path(self, x, entry):
-            y = _conv(self, x, entry, padding, dilation, lhs_dilation)
-            return self.site(name, torch.relu(y) if relu else y)
+            return self.site(name, _conv(self, x, entry, padding, dilation, lhs_dilation,
+                                         stride, relu))
         args = (x.q.contiguous(), entry["wq"], x.step, entry["wstep"], entry["b"],
                 normalize_padding(padding), dilation, lhs_dilation, self.dtype, relu)
         if not _codes_in_kernel(x.q):
-            return self.fused_codes(name, self.site(name, int8_conv(*args)))
+            return self.fused_codes(name, self.site(name, int8_conv(*args, stride=stride)))
         step = self.step_of(name)
-        return self.fused_codes(name, _QT(int8_conv(*args, out_step=step), step))
+        return self.fused_codes(name, _QT(int8_conv(*args, out_step=step, stride=stride), step))
 
     def step_of(self, name: str) -> float:
         """Site `name`'s step, float32(scale / 127), as a float."""
@@ -342,23 +453,28 @@ def _sigmoid(t):
     return torch.sigmoid(t)
 
 
-def _float_conv(x, w, b, pads, dilation, lhs_dilation, dtype):
+def _float_conv(x, w, b, pads, dilation, lhs_dilation, dtype, stride: int = 1):
     """The float path: `x` NHWC in `dtype`, `w` HWIO -> NHWC + bias, in dtype.
-    A transposed conv (lhs dilation 2, 2x2 kernel, padding 1) is torch's
-    stride-2 transposed conv with the stored (flipped) kernel flipped back."""
+    A transposed conv (lhs dilation 2, a k x k kernel, padding p on every
+    side, p <= k - 1: the 2x2 ones at p = 1, DeepLabV3+'s 4x4 at p = 2) is
+    torch's stride-2 transposed conv, padding k - 1 - p, with the stored
+    (flipped) kernel flipped back."""
     wt = w.to(dtype)
     xc = x.permute(0, 3, 1, 2)
     if lhs_dilation is not None:
-        if (tuple(lhs_dilation) != (2, 2) or tuple(wt.shape[:2]) != (2, 2)
-                or pads != ((1, 1), (1, 1))):
+        k, p = wt.shape[0], pads[0][0]
+        if (tuple(lhs_dilation) != (2, 2) or wt.shape[1] != k or pads != ((p, p), (p, p))
+                or not 0 <= k - 1 - p or stride != 1 or dilation != 1):
             raise ValueError(f"unsupported transposed conv: lhs_dilation {lhs_dilation}, "
-                             f"kernel {tuple(wt.shape[:2])}, padding {pads}")
-        y = F.conv_transpose2d(xc, wt.flip(0, 1).permute(2, 3, 0, 1), stride=2)
+                             f"kernel {tuple(wt.shape[:2])}, padding {pads}, stride {stride}")
+        y = F.conv_transpose2d(xc, wt.flip(0, 1).permute(2, 3, 0, 1), stride=2,
+                               padding=k - 1 - p)
     else:
         (pt, pb), (pl, pr) = pads
         if pt != pb or pl != pr:
             xc, pt, pl = F.pad(xc, (pl, pr, pt, pb)), 0, 0
-        y = F.conv2d(xc, wt.permute(3, 2, 0, 1), padding=(pt, pl), dilation=dilation)
+        y = F.conv2d(xc, wt.permute(3, 2, 0, 1), stride=stride, padding=(pt, pl),
+                     dilation=dilation)
     return y.permute(0, 2, 3, 1) + b.to(dtype)
 
 
@@ -378,23 +494,25 @@ def _int8_path(ctx: _Ctx, x: _QT, entry) -> bool:
     return int8_eligible(wq.hwio.shape[2], wq.hwio.shape[3], wq.transposed, ctx.policy)
 
 
-def _conv(ctx: _Ctx, x: _QT, entry, padding=0, dilation=1, lhs_dilation=None) -> torch.Tensor:
-    """Conv on a site tensor -> NHWC in the compute dtype, bias added.
-
-    The int8 path where `_int8_path` says so (stride 1)."""
+def _conv(ctx: _Ctx, x: _QT, entry, padding=0, dilation=1, lhs_dilation=None,
+          stride: int = 1, relu: bool = False) -> torch.Tensor:
+    """Conv on a site tensor -> NHWC in the compute dtype, bias added, then
+    ReLU'd if `relu` (in the kernel's epilogue on the int8 path, where
+    `_int8_path` says so)."""
     pads = normalize_padding(padding)
     if isinstance(entry, dict):
         w, b, wq, wstep = entry.get("w"), entry["b"], entry["wq"], entry["wstep"]
         if _int8_path(ctx, x, entry):
             return int8_conv(x.q.contiguous(), wq, x.step, wstep, b, pads, dilation,
-                             lhs_dilation, out_dtype=ctx.dtype)
+                             lhs_dilation, out_dtype=ctx.dtype, relu=relu, stride=stride)
         if w is None:
             raise KeyError("a conv without float weights on the float path: an int8-path conv "
                            "leaves them on the host, and a slim artifact restores them only "
                            "through `load_quantized`")
     else:
         w, b = entry
-    return _float_conv(x.f(ctx.dtype), w, b, pads, dilation, lhs_dilation, ctx.dtype)
+    y = _float_conv(x.f(ctx.dtype), w, b, pads, dilation, lhs_dilation, ctx.dtype, stride)
+    return torch.relu(y) if relu else y
 
 
 def _conv_cat(ctx: _Ctx, a: _QT, b: _QT, entry, padding=0) -> torch.Tensor:
@@ -422,12 +540,16 @@ def _conv_cat(ctx: _Ctx, a: _QT, b: _QT, entry, padding=0) -> torch.Tensor:
     return (y1 + y2 + bias).to(ctx.dtype)
 
 
-def _maxpool(x: _QT) -> _QT:
-    """2x2 / stride-2 max pool directly on the codes (monotonic under dequant)."""
+def _maxpool(x: _QT, window: int = 2, stride: int = 2, padding: int = 0) -> _QT:
+    """A window x window max pool at `stride` directly on the codes (monotonic
+    under dequant), as `lax.reduce_window`: `padding` on each side of H and
+    W holds -128 for codes and -inf for a float tensor, never the maximum of
+    a window that reaches the input (every window does)."""
     q = x.q
-    n, h, w, c = q.shape
-    q = q[:, :h // 2 * 2, :w // 2 * 2].reshape(n, h // 2, 2, w // 2, 2, c).amax((2, 4))
-    return _QT(q, x.step)
+    if padding:
+        fill = -128 if x.step is not None else float("-inf")
+        q = F.pad(q, (0, 0, padding, padding, padding, padding), value=fill)
+    return _QT(q.unfold(1, window, stride).unfold(2, window, stride).amax((-2, -1)), x.step)
 
 
 def _residual_block(ctx: _Ctx, name: str, x: Optional[_QT], p, pair=None) -> _QT:
@@ -443,16 +565,7 @@ def _residual_block(ctx: _Ctx, name: str, x: Optional[_QT], p, pair=None) -> _QT
         t1 = ctx.conv_site(f"{name}.t1", x, p["c1"], relu=True, padding=1)
     mid = ctx.conv_site(f"{name}.mid", t1, p["c2"], padding=1)
 
-    # CBAM channel gate: mean (float32 sum) and max of the raw codes, the
-    # pooled vectors dequantized exactly (mean and max commute with the step)
-    hw = mid.q.shape[1] * mid.q.shape[2]
-    avg = mid.q.sum((1, 2), dtype=torch.float32) / hw
-    mx = mid.q.amax((1, 2)).float()
-    if mid.step is not None:
-        avg, mx = avg * mid.step, mx * mid.step
-    fc1, fc2 = p["fc1"].float(), p["fc2"].float()
-    gate = torch.relu(avg @ fc1) @ fc2 + torch.relu(mx @ fc1) @ fc2
-    gc = torch.sigmoid(gate).to(dt)  # (N, C)
+    gc = _channel_gate(mid, p["fc1"], p["fc2"], dt)  # (N, C)
 
     # CBAM spatial gate on the channel-gated tensor
     gated = mid.f(dt) * gc[:, None, None, :]
@@ -466,6 +579,30 @@ def _residual_block(ctx: _Ctx, name: str, x: Optional[_QT], p, pair=None) -> _QT
     sa = F.conv2d(att, p["sa"].to(dt).permute(3, 2, 0, 1), padding=3)
     gs = _sigmoid(sa).permute(0, 2, 3, 1)  # (N, H, W, 1), compute dtype
     return ctx.site(f"{name}.out", torch.relu(gb * gs + short.f(dt)))
+
+
+def _channel_gate(x: _QT, fc1, fc2, dtype) -> torch.Tensor:
+    """The CBAM channel gate of a site tensor, (N, C) in `dtype`: the mean
+    (`_pooled_codes`) and max of the raw codes, the pooled vectors
+    dequantized exactly (mean and max commute with the step), the shared
+    MLP and the sigmoid in float32."""
+    avg = _pooled_codes(x.q, x.step)
+    mx = x.q.amax((1, 2)).float()
+    if x.step is not None:
+        mx = mx * x.step
+    fc1, fc2 = fc1.float(), fc2.float()
+    gate = torch.relu(avg @ fc1) @ fc2 + torch.relu(mx @ fc1) @ fc2
+    return torch.sigmoid(gate).to(dtype)
+
+
+def _pooled_codes(q: torch.Tensor, step: Optional[float]) -> torch.Tensor:
+    """`jnp.mean(q, axis=(1, 2), dtype=float32)` of a site's codes (or float
+    tensor), dequantized exactly: (N, C) float32. The division is by a
+    float32 tensor, as XLA divides (a CUDA division by a host scalar
+    multiplies by its reciprocal)."""
+    count = torch.tensor(q.shape[1] * q.shape[2], dtype=torch.float32, device=q.device)
+    avg = q.sum((1, 2), dtype=torch.float32) / count
+    return avg if step is None else avg * step
 
 
 def _attention_gate(ctx: _Ctx, name: str, g: _QT, x: _QT, p) -> _QT:
@@ -571,11 +708,163 @@ def _forward_segnet(qp, scales, x, collect=None, dtype=torch.bfloat16, policy=No
     return _conv(ctx, cur, qp["head"], padding=1).float()
 
 
+def _resize(t, size):
+    """`bilinear_resize` of an NHWC tensor (on its NCHW view)."""
+    return bilinear_resize(t.permute(0, 3, 1, 2), size).permute(0, 2, 3, 1)
+
+
+def _forward_deeplabv3p(qp, scales, x, collect=None, dtype=torch.bfloat16, policy=None,
+                        steps=None):
+    """DeepLabV3+ on folded params: the strided stem (a 3x3/2 max pool on the
+    codes), the ASPP (dilations 6, 12, 18; the global branch pools the codes
+    and runs its 1x1 conv as a float32 matmul, broadcast back), four 4x4
+    transposed convs with their BNs folded, each then ReLU'd."""
+    ctx = _Ctx(scales, collect, dtype, policy, steps)
+    cur = ctx.site("input", x.float())
+    cur = ctx.conv_site("c0", cur, qp["c0"], relu=True, padding=3, stride=2)
+    cur = _maxpool(cur, 3, 2, 1)
+    cur = ctx.conv_site("c1", cur, qp["c1"], relu=True, padding=1)
+    cur = ctx.conv_site("c2", cur, qp["c2"], relu=True, padding=1, stride=2)
+    cur = ctx.conv_site("c3", cur, qp["c3"], relu=True, padding=1, stride=2)
+
+    n, h, w, _ = cur.q.shape
+    branches = [_conv(ctx, cur, qp["aspp_b0"])]
+    branches += [_conv(ctx, cur, qp[f"aspp_b{k}"], padding=d, dilation=d)
+                 for k, d in ((1, 6), (2, 12), (3, 18))]
+    b4 = qp["aspp_b4"]
+    wb5, bb5 = (b4["w"], b4["b"]) if isinstance(b4, dict) else b4
+    v = _pooled_codes(cur.q, cur.step) @ wb5.float()[0, 0] + bb5
+    branches.append(v[:, None, None, :].to(dtype).expand(n, h, w, v.shape[-1]))
+    cat = ctx.site("aspp.cat", torch.cat(branches, dim=-1))
+    cur = ctx.conv_site("aspp.out", cat, qp["aspp_fuse"], relu=True)
+    for i in range(4):
+        cur = ctx.conv_site(f"up{i}.out", cur, qp[f"up{i}"], relu=True, lhs_dilation=(2, 2),
+                            padding=((2, 2), (2, 2)))
+    return _conv(ctx, cur, qp["head"], padding=1).float()
+
+
+def _forward_waternet(qp, scales, x, collect=None, dtype=torch.bfloat16, policy=None,
+                      steps=None):
+    """WaterNet on folded params: the water-index head's sigmoid maps
+    concatenated to RGB (the 7-channel `in7` site), the double-conv U-Net,
+    the bottleneck's CBAM channel gate pooling the codes (as the Robust
+    U-Net's), concat skips [up, skip]."""
+    ctx = _Ctx(scales, collect, dtype, policy, steps)
+    xin = ctx.site("input", x.float())
+
+    def double(name, cur: _QT, k: int) -> _QT:
+        cur = ctx.conv_site(f"{name}.t1", cur, qp[f"c{k}"], relu=True, padding=1)
+        return ctx.conv_site(f"{name}.out", cur, qp[f"c{k + 1}"], relu=True, padding=1)
+
+    t = ctx.conv_site("wim.t", xin, qp["wim1"], relu=True)
+    idx = torch.sigmoid(_conv(ctx, t, qp["wim2"]).float()).to(dtype)
+    cur = ctx.site("in7", torch.cat([xin.f(dtype), idx], dim=-1))
+    e1 = double("e1", cur, 0)
+    e2 = double("e2", _maxpool(e1), 2)
+    e3 = double("e3", _maxpool(e2), 4)
+    b = double("b", _maxpool(e3), 6)
+
+    gate = _channel_gate(b, qp["ca"]["fc1"], qp["ca"]["fc2"], dtype)
+    cur = ctx.site("ca.out", b.f(dtype) * gate[:, None, None, :])
+
+    for i, (skip, k) in enumerate(((e3, 8), (e2, 10), (e1, 12))):
+        up = ctx.conv_site(f"up{i}.out", cur, qp[f"up{i}"], lhs_dilation=(2, 2),
+                           padding=((1, 1), (1, 1)))
+        cat = ctx.site(f"cat{i}", torch.cat([up.f(dtype), skip.f(dtype)], dim=-1))
+        cur = double(f"d{3 - i}", cat, k)
+    return _conv(ctx, cur, qp["head"]).float()
+
+
+def _forward_pspnet(qp, scales, x, collect=None, dtype=torch.bfloat16, policy=None,
+                    steps=None):
+    """PSPNet on folded params: four 3x3/2 stem convs (/16), the pyramid's
+    1x1 convs on the adaptive average pools (1, 2, 3, 6) of the map in the
+    compute dtype (`ppm{k}.in` sites, int8 convs on 1^2 to 6^2 maps), the
+    fusion conv, the 1x1 head and a float32 bilinear resize to the input."""
+    ctx = _Ctx(scales, collect, dtype, policy, steps)
+    h, w = x.shape[1], x.shape[2]
+    cur = ctx.site("input", x.float())
+    for i in range(4):
+        cur = ctx.conv_site(f"c{i}", cur, qp[f"c{i}"], relu=True, padding=1, stride=2)
+
+    size = (cur.q.shape[1], cur.q.shape[2])
+    feat = cur.f(dtype)
+    outs = [feat]
+    for k, level in enumerate((1, 2, 3, 6)):
+        pooled = adaptive_avg_pool(feat.permute(0, 3, 1, 2), level).permute(0, 2, 3, 1)
+        p = ctx.site(f"ppm{k}.in", pooled)
+        outs.append(_resize(_conv(ctx, p, qp[f"ppm{k}"], relu=True), size))
+    cat = ctx.site("ppm.cat", torch.cat(outs, dim=-1))
+    cur = ctx.conv_site("c4", cat, qp["c4"], relu=True, padding=1)
+    return _resize(_conv(ctx, cur, qp["head"]).float(), (h, w))
+
+
+def _forward_mswnet(qp, scales, x, collect=None, dtype=torch.bfloat16, policy=None,
+                    steps=None):
+    """MSWNet on folded params: the multi-scale blocks' four branches read
+    one int8 input (1x1, 3x3, 5x5, and a 3x3/1 max pool on the codes before
+    a 1x1), each ReLU'd, concatenated at the `ms{i}.out` site; the bridge;
+    transposed convs and one conv a decoder level on [up, skip]."""
+    ctx = _Ctx(scales, collect, dtype, policy, steps)
+
+    def block(name, inp: _QT, p) -> _QT:
+        branches = [_conv(ctx, inp, p["b0"], relu=True),
+                    _conv(ctx, inp, p["b1"], padding=1, relu=True),
+                    _conv(ctx, inp, p["b2"], padding=2, relu=True),
+                    _conv(ctx, _maxpool(inp, 3, 1, 1), p["b3"], relu=True)]
+        return ctx.site(f"{name}.out", torch.cat(branches, dim=-1))
+
+    cur = ctx.site("input", x.float())
+    enc = []
+    for i in range(4):
+        cur = block(f"ms{i}", cur if i == 0 else _maxpool(cur), qp[f"ms{i}"])
+        enc.append(cur)
+    cur = ctx.conv_site("c0", _maxpool(cur), qp["c0"], relu=True, padding=1)
+    cur = ctx.conv_site("c1", cur, qp["c1"], relu=True, padding=1)
+    for i in range(4):
+        up = ctx.conv_site(f"up{i}.out", cur, qp[f"up{i}"], lhs_dilation=(2, 2),
+                           padding=((1, 1), (1, 1)))
+        cat = ctx.site(f"cat{i}", torch.cat([up.f(dtype), enc[3 - i].f(dtype)], dim=-1))
+        cur = ctx.conv_site(f"c{2 + i}", cat, qp[f"c{2 + i}"], relu=True, padding=1)
+    return _conv(ctx, cur, qp["head"]).float()
+
+
+def _forward_hrnet_water(qp, scales, x, collect=None, dtype=torch.bfloat16, policy=None,
+                         steps=None):
+    """HRNet-Water on folded params: the /2 stem, three branches (/2, /4 and
+    /8: stride-2 convs), the 1x1 projections of the two lower ones resized
+    bilinearly to the high one and concatenated with it (the 144-channel
+    `fused` site), the head conv, a 2x resize (`head.in`), the 1x1 head."""
+    ctx = _Ctx(scales, collect, dtype, policy, steps)
+
+    def cba(name, cur: _QT, k: int, stride: int = 1) -> _QT:
+        return ctx.conv_site(name, cur, qp[f"c{k}"], relu=True, padding=1, stride=stride)
+
+    cur = ctx.site("input", x.float())
+    stem = cba("c1", cba("c0", cur, 0, 2), 1)
+    hr = cba("c3", cba("c2", stem, 2), 3)
+    mr = cba("c5", cba("c4", stem, 4, 2), 5)
+    lr = cba("c7", cba("c6", mr, 6, 2), 7)
+
+    size = (hr.q.shape[1], hr.q.shape[2])
+    mr_up = _resize(_conv(ctx, mr, qp["mr_proj"]), size)
+    lr_up = _resize(_conv(ctx, lr, qp["lr_proj"]), size)
+    fused = ctx.site("fused", torch.cat([hr.f(dtype), mr_up, lr_up], dim=-1))
+    h = cba("c8", fused, 8)
+    h = ctx.site("head.in", _resize(h.f(dtype), (2 * size[0], 2 * size[1])))
+    return _conv(ctx, h, qp["head"]).float()
+
+
 # arch -> (fold, forward, sigmoid head?)
 ARCHS = {
     "robust_unet": (fold_robust_unet, _forward, True),
     "unet": (fold_unet, _forward_unet, False),
     "segnet": (fold_segnet, _forward_segnet, True),
+    "deeplabv3p": (fold_deeplabv3p, _forward_deeplabv3p, True),
+    "mswnet": (fold_mswnet, _forward_mswnet, True),
+    "waternet": (fold_waternet, _forward_waternet, True),
+    "pspnet": (fold_pspnet, _forward_pspnet, True),
+    "hrnet_water": (fold_hrnet_water, _forward_hrnet_water, True),
 }
 
 
@@ -632,7 +921,8 @@ def int8_forward(qparams, scales, x, return_logits: bool = False, arch: str = "r
     _, fwd, sig = ARCHS[arch]
     x = _input(x)
     with torch.inference_mode():
-        logits = fwd(to_device(qparams, x.device, policy), scales, x, policy=policy, steps=steps)
+        logits = fwd(to_device(qparams, x.device, policy, arch), scales, x, policy=policy,
+                     steps=steps)
     return torch.sigmoid(logits) if sig and not return_logits else logits
 
 
@@ -703,7 +993,7 @@ class QuantizedModel:
         self.scales = scales
         self.arch = arch
         self.policy = policy
-        self.params = to_device(qparams, self.device, policy)
+        self.params = to_device(qparams, self.device, policy, arch)
         self._steps: Dict = {}
 
     @classmethod

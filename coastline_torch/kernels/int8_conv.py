@@ -8,6 +8,7 @@ computes the same function with its own CUDA kernel, `csrc/int8_conv.cu`:
 
     y[n, oy, ox, co] = cast( f32(acc) * (x_step * w_step[co]) + bias[co] )
     acc = sum over (ky, kx, ci) of x_q[n, iy, ix, ci] * w_q[ky, kx, ci, co]
+    iy = stride * oy - pad_top + ky * dilation (ix alike)
 
 x_q int8 NHWC, w_q int8 HWIO, acc int32 (exact: 127^2 * 9 * 1024 < 2^31),
 x_step a float32 scalar, w_step and bias float32 per output channel, the
@@ -23,12 +24,14 @@ rounded to the output dtype before the division, as the site reads it).
 Codes mode writes one byte a value and keeps the float tensor out of
 device memory.
 
-Options (stride 1 only): any kh x kw, per-side `padding` ((top, bottom),
-(left, right)) or an int, rhs `dilation`, and `lhs_dilation=(2, 2)` with a
-2x2 kernel and padding ((1, 1), (1, 1)): the transposed convs of the UNets'
-decoders. The kernel splits such a conv into its four output-parity
-sub-problems, each a dense 1x1 GEMM (a tap loop over the zero-inserted
-input would multiply zeros for 3/4 of its taps).
+Options: any kh x kw, per-side `padding` ((top, bottom), (left, right)) or
+an int, rhs `dilation`, `stride` 1 or 2, and `lhs_dilation=(2, 2)` with a
+2h x 2h kernel and padding ((h, h), (h, h)), stride 1: the transposed convs
+of the UNets' decoders (2x2, h = 1) and of DeepLabV3+'s (4x4, h = 2). The
+kernel splits such a conv into its four output-parity sub-problems, each a
+dense h x h conv over the input grid (`pack_weights`; a tap loop over the
+zero-inserted input would multiply zeros for 3/4 of its taps). The plain
+version takes any lhs dilation and padding.
 
 What bounds it on an H100: at the UNet's first level (8, 512, 512, 64 -> 64,
 3x3) the bytes (134 MB in; 268 MB out in bf16, 0.120 ms at 3.35 TB/s, or
@@ -41,8 +44,9 @@ the source).
 `int8_conv` launches the kernel for CUDA tensors (or raises) and runs
 `int8_conv_plain` only for tensors on the CPU. It takes the weights as
 `PackedWeights`, whose kernel layout `packed` builds once on the card. The
-card needs C_in % 32 == 0, C_out % 8 == 0 and a contiguous NHWC input on a
-16-byte boundary.
+card needs C_in % 16 == 0 (a row of 16-byte multiples for TMA; HRNet-Water's
+fuse conv reads 144 channels), C_out % 8 == 0 and a contiguous NHWC input on
+a 16-byte boundary.
 `.launches` counts kernel launches.
 """
 
@@ -53,8 +57,6 @@ import torch
 import torch.nn.functional as F
 
 from coastline_torch.kernels import _build
-
-_TRANSPOSED_PAD = ((1, 1), (1, 1))
 
 
 class PackedWeights(NamedTuple):
@@ -67,16 +69,28 @@ class PackedWeights(NamedTuple):
     transposed: bool
 
 
+def parity_taps(h: int, p: int):
+    """The stored taps t = t0 + 2j (j < h) that reach output parity p of a
+    transposed conv with a 2h x 2h kernel, lhs dilation 2 and padding h, and
+    the leading padding of its sub-problem: t0 = (h - p) % 2, tap j reads
+    input row a - ((h - p) >> 1) + j for output row 2a + p."""
+    return slice((h - p) % 2, None, 2), (h - p) >> 1
+
+
 def pack_weights(wq: torch.Tensor, transposed: bool = False) -> torch.Tensor:
     """int8 HWIO -> the kernel's K-major matrix: (C_out, kh * kw * C_in) with
-    k = (ky * kw + kx) * C_in + ci; for a transposed conv (2x2, lhs dilation
-    2) (4, C_out, C_in), sub-problem p = 2 * py + px holding tap (1 - py,
-    1 - px), the one that reaches output parity (py, px)."""
+    k = (ky * kw + kx) * C_in + ci; for a transposed conv (2h x 2h, lhs
+    dilation 2, padding h) (4, C_out, h * h * C_in), sub-problem p = 2 * py +
+    px holding the h x h taps that reach output parity (py, px)
+    (`parity_taps`) in the same K order: for h = 1 tap (1 - py, 1 - px)."""
     kh, kw, cin, cout = wq.shape
     if transposed:
-        if (kh, kw) != (2, 2):
-            raise ValueError(f"a transposed conv takes a 2x2 kernel, got {kh}x{kw}")
-        return wq.flip(0, 1).permute(0, 1, 3, 2).reshape(4, cout, cin).contiguous()
+        if kh != kw or kh not in (2, 4):
+            raise ValueError(f"a transposed conv takes a 2x2 or 4x4 kernel, got {kh}x{kw}")
+        h = kh // 2
+        subs = [wq[parity_taps(h, py)[0], parity_taps(h, px)[0]]
+                for py in (0, 1) for px in (0, 1)]
+        return torch.stack([pack_weights(sub) for sub in subs]).contiguous()
     return wq.permute(3, 0, 1, 2).reshape(cout, kh * kw * cin).contiguous()
 
 
@@ -94,11 +108,11 @@ def normalize_padding(padding):
     return (int(pt), int(pb)), (int(pl), int(pr))
 
 
-def _out_hw(h, w, kh, kw, pads, dilation, lhs):
+def _out_hw(h, w, kh, kw, pads, dilation, lhs, stride=1):
     (pt, pb), (pl, pr) = pads
     ly, lx = lhs or (1, 1)
-    return ((h - 1) * ly + 1 + pt + pb - dilation * (kh - 1),
-            (w - 1) * lx + 1 + pl + pr - dilation * (kw - 1))
+    return (((h - 1) * ly + pt + pb - dilation * (kh - 1)) // stride + 1,
+            ((w - 1) * lx + pl + pr - dilation * (kw - 1)) // stride + 1)
 
 
 def _epilogue(acc, x_step, w_step, bias, out_dtype):
@@ -119,11 +133,11 @@ def quantize_codes(t, step) -> torch.Tensor:
 
 def int8_conv_plain(x, wq, x_step, w_step, bias, padding=0, dilation: int = 1,
                     lhs_dilation=None, out_dtype=torch.float32, relu: bool = False,
-                    out_step: Optional[float] = None):
+                    out_step: Optional[float] = None, stride: int = 1):
     """The plain version: the conv in float64 on the codes (exact for these
-    sums, < 2^53), zero-inserted first for `lhs_dilation`, then int32 and the
-    float32 epilogue, then `relu`, then with `out_step` the site's codes
-    (`quantize_codes`). x int8 (N, H, W, C_in); wq int8 HWIO -> (N, Ho, Wo,
+    sums, < 2^53), zero-inserted first for `lhs_dilation`, at `stride`, then
+    int32 and the float32 epilogue, then `relu`, then with `out_step` the
+    site's codes (`quantize_codes`). x int8 (N, H, W, C_in); wq int8 HWIO -> (N, Ho, Wo,
     C_out) in out_dtype, or int8 codes, NHWC. Bit-equal to XLA's
     `preferred_element_type=int32` conv followed by the same epilogue (and
     the JAX package's `_Ctx.site`)."""
@@ -136,7 +150,7 @@ def int8_conv_plain(x, wq, x_step, w_step, bias, padding=0, dilation: int = 1,
         z[:, :, ::ly, ::lx] = xd
         xd = z
     xd = F.pad(xd, (pl, pr, pt, pb))
-    acc = F.conv2d(xd, wq.permute(3, 2, 0, 1).double(), dilation=dilation)
+    acc = F.conv2d(xd, wq.permute(3, 2, 0, 1).double(), stride=stride, dilation=dilation)
     acc = acc.to(torch.int32).permute(0, 2, 3, 1)
     y = _epilogue(acc, x_step, w_step, bias, out_dtype).contiguous()
     if relu:
@@ -147,7 +161,7 @@ def int8_conv_plain(x, wq, x_step, w_step, bias, padding=0, dilation: int = 1,
 def _fn():
     fn = _build.library("int8_conv").coastline_int8_conv
     if fn.argtypes is None:
-        fn.argtypes = ([ctypes.c_void_p] * 5 + [ctypes.c_int] * 13 + [ctypes.c_float]
+        fn.argtypes = ([ctypes.c_void_p] * 5 + [ctypes.c_int] * 14 + [ctypes.c_float]
                        + [ctypes.c_int] * 3 + [ctypes.c_float, ctypes.c_void_p])
         fn.restype = ctypes.c_int
     return fn
@@ -155,13 +169,13 @@ def _fn():
 
 def int8_conv(x, w: PackedWeights, x_step: float, w_step, bias, padding=0, dilation: int = 1,
               lhs_dilation=None, out_dtype=torch.float32, relu: bool = False,
-              out_step: Optional[float] = None):
+              out_step: Optional[float] = None, stride: int = 1):
     """x int8 (N, H, W, C_in) NHWC; w the conv's `PackedWeights` (`packed`
     of int8 HWIO (kh, kw, C_in, C_out), on x's device, built once); x_step a
     float (a float32 value); w_step, bias float32 (C_out,) -> (N, Ho, Wo,
     C_out) contiguous NHWC in out_dtype (float32 or bfloat16), ReLU'd if
     `relu`; with `out_step` (a float32 value) the int8 codes of that site
-    instead. Stride 1; see the module docstring for the options."""
+    instead. See the module docstring for the options."""
     if not isinstance(w, PackedWeights):
         raise TypeError(f"w must be PackedWeights (`packed` of the int8 HWIO weights, built "
                         f"once), got {type(w).__name__}")
@@ -182,7 +196,7 @@ def int8_conv(x, w: PackedWeights, x_step: float, w_step, bias, padding=0, dilat
     transposed = lhs is not None
     if w.transposed != transposed:
         raise ValueError("packed weights of a transposed conv need lhs_dilation, and only they")
-    ho, wo = _out_hw(x.shape[1], x.shape[2], kh, kw, pads, dilation, lhs)
+    ho, wo = _out_hw(x.shape[1], x.shape[2], kh, kw, pads, dilation, lhs, stride)
     if ho <= 0 or wo <= 0:
         raise ValueError(f"empty output {ho}x{wo} for input {tuple(x.shape)}")
     dev = x.device
@@ -190,16 +204,21 @@ def int8_conv(x, w: PackedWeights, x_step: float, w_step, bias, padding=0, dilat
         raise ValueError("x, w, w_step and bias must be on one device")
     if dev.type == "cpu":
         return int8_conv_plain(x, wq, x_step, w_step, bias, pads, dilation, lhs, out_dtype,
-                               relu, out_step)
+                               relu, out_step, stride)
     if dev.type != "cuda":
         raise ValueError(f"unsupported device {dev}")
     _build.refuse_grad("int8_conv", x, w_step, bias)
-    if cin % 32 or cout % 8:
-        raise ValueError(f"the int8 conv kernel needs C_in % 32 == 0 and C_out % 8 == 0, "
+    if cin % 16 or cout % 8:
+        raise ValueError(f"the int8 conv kernel needs C_in % 16 == 0 and C_out % 8 == 0, "
                          f"got C_in {cin}, C_out {cout}")
-    if transposed and (lhs != (2, 2) or (kh, kw) != (2, 2) or pads != _TRANSPOSED_PAD):
-        raise ValueError("the kernel's transposed conv is lhs_dilation (2, 2), a 2x2 kernel "
-                         f"and padding {_TRANSPOSED_PAD}; got {lhs}, {kh}x{kw}, {pads}")
+    if stride not in (1, 2):
+        raise ValueError(f"the int8 conv kernel takes stride 1 or 2, got {stride}")
+    h = kh // 2
+    if transposed and (lhs != (2, 2) or kh != kw or kh not in (2, 4)
+                       or pads != ((h, h), (h, h)) or stride != 1 or dilation != 1):
+        raise ValueError("the kernel's transposed conv is lhs_dilation (2, 2), a 2h x 2h kernel "
+                         f"(h = 1 or 2), padding h, stride 1; got {lhs}, {kh}x{kw}, {pads}, "
+                         f"stride {stride}, dilation {dilation}")
     if w.mat is None or w.mat.device != dev:
         raise ValueError("w has no kernel layout on this device: build it once with `packed` "
                          "of the weights on the card")
@@ -209,17 +228,17 @@ def int8_conv(x, w: PackedWeights, x_step: float, w_step, bias, padding=0, dilat
     mat = w.mat
     w_step = w_step.to(torch.float32).contiguous()
     bias = bias.to(torch.float32).contiguous()
-    n, h, wd, _ = x.shape
+    n, hx, wd, _ = x.shape
     codes = out_step is not None
     out = torch.empty((n, ho, wo, cout), dtype=torch.int8 if codes else out_dtype, device=dev)
     (pt, _), (pl, _) = pads
-    if transposed:  # four 1x1 sub-problems over the input grid
-        geom = (1, 1, 0, 0, 1, h, wd)
+    if transposed:  # four h x h sub-problems over the input grid
+        geom = (kh // 2, kw // 2, 0, 0, 1, 1, hx, wd)
     else:
-        geom = (kh, kw, pt, pl, dilation, ho, wo)
+        geom = (kh, kw, pt, pl, dilation, stride, ho, wo)
     with torch.cuda.device(dev):
         status = _fn()(x.data_ptr(), mat.data_ptr(), w_step.data_ptr(), bias.data_ptr(),
-                       out.data_ptr(), n, h, wd, cin, cout, *geom, int(transposed),
+                       out.data_ptr(), n, hx, wd, cin, cout, *geom, int(transposed),
                        float(x_step), int(out_dtype == torch.bfloat16), int(relu),
                        int(codes), float(out_step) if codes else 1.0,
                        torch.cuda.current_stream(dev).cuda_stream)

@@ -668,15 +668,24 @@ def test_extract_scenes_on_card_pipelined_matches_sequential(dev, tmp_path):
     assert sorted(os.listdir(tmp_path / "a")) == sorted(os.listdir(tmp_path / "b"))
 
 
-INT8_CONV_CASES = [  # (input shape, C_out, kernel, padding, dilation, lhs_dilation)
-    ((2, 9, 11, 64), 64, 3, 1, 1, None),
-    ((1, 7, 5, 32), 40, 1, 0, 1, None),          # ragged tiles in M and N
-    ((2, 16, 16, 96), 128, 3, 4, 4, None),       # the bottleneck's dilation 4
-    ((3, 13, 17, 128), 72, 3, 2, 2, None),
-    ((2, 8, 8, 64), 64, 2, ((1, 1), (1, 1)), 1, (2, 2)),  # a transposed conv
-    ((1, 3, 5, 1024), 512, 2, ((1, 1), (1, 1)), 1, (2, 2)),
-    ((1, 1, 1, 64), 64, 3, 1, 1, None),          # one pixel: every tap but one in the padding
-    ((2, 33, 130, 64), 128, 3, ((1, 0), (2, 1)), 1, None),
+INT8_CONV_CASES = [  # (input shape, C_out, kernel, padding, dilation, lhs_dilation, stride)
+    ((2, 9, 11, 64), 64, 3, 1, 1, None, 1),
+    ((1, 7, 5, 32), 40, 1, 0, 1, None, 1),          # ragged tiles in M and N
+    ((2, 16, 16, 96), 128, 3, 4, 4, None, 1),       # the bottleneck's dilation 4
+    ((3, 13, 17, 128), 72, 3, 2, 2, None, 1),
+    ((2, 8, 8, 64), 64, 2, ((1, 1), (1, 1)), 1, (2, 2), 1),  # a transposed conv
+    ((1, 3, 5, 1024), 512, 2, ((1, 1), (1, 1)), 1, (2, 2), 1),
+    ((1, 1, 1, 64), 64, 3, 1, 1, None, 1),          # one pixel: every tap but one in the padding
+    ((2, 33, 130, 64), 128, 3, ((1, 0), (2, 1)), 1, None, 1),
+    ((2, 9, 11, 64), 96, 3, 1, 1, None, 2),         # stride 2: odd H and W, C_out 96
+    ((3, 14, 18, 96), 192, 3, 1, 1, None, 2),       # HRNet-Water's c6 widths
+    ((1, 1, 1, 128), 64, 3, 1, 1, None, 2),         # stride 2 on a 1x1 map
+    ((2, 5, 7, 128), 64, 4, ((2, 2), (2, 2)), 1, (2, 2), 1),  # DeepLabV3+'s 4x4 transposed
+    ((2, 4, 4, 256), 128, 4, ((2, 2), (2, 2)), 1, (2, 2), 1),
+    ((1, 1, 1, 64), 96, 4, ((2, 2), (2, 2)), 1, (2, 2), 1),   # one pixel, C_out 96
+    ((2, 9, 7, 144), 64, 3, 1, 1, None, 1),         # HRNet-Water's C_in 144
+    ((1, 3, 1, 144), 96, 3, 1, 1, None, 1),
+    ((8, 3, 3, 512), 128, 1, 0, 1, None, 1),        # PSPNet's pyramid: a 3x3 map
 ]
 
 
@@ -689,7 +698,7 @@ def test_int8_conv_kernel_matches_plain(dev, case, dtype, mode):
     values beyond +-1.98 clamp, and 0.0371, a step whose division rounds."""
     from coastline_torch.kernels.int8_conv import int8_conv, int8_conv_plain, packed
 
-    shape, cout, k, pad, dil, lhs = INT8_CONV_CASES[case]
+    shape, cout, k, pad, dil, lhs, stride = INT8_CONV_CASES[case]
     rng = np.random.default_rng(case)
     x = torch.from_numpy(rng.integers(-127, 128, shape, dtype=np.int8)).to(dev)
     wq = torch.from_numpy(rng.integers(-127, 128, (k, k, shape[-1], cout), dtype=np.int8)).to(dev)
@@ -700,11 +709,11 @@ def test_int8_conv_kernel_matches_plain(dev, case, dtype, mode):
     for step in steps:
         before = int8_conv.launches
         got = int8_conv(x, packed(wq, lhs is not None), 0.0123, ws, b, pad, dil, lhs, dtype,
-                        relu=relu, out_step=step)
+                        relu=relu, out_step=step, stride=stride)
         torch.cuda.synchronize()
         assert int8_conv.launches == before + 1
         ref = int8_conv_plain(x.cpu(), wq.cpu(), 0.0123, ws.cpu(), b.cpu(), pad, dil, lhs, dtype,
-                              relu=relu, out_step=step)
+                              relu=relu, out_step=step, stride=stride)
         if step is None:
             assert _bits_equal(got, ref)
         else:
@@ -752,8 +761,13 @@ def test_int8_conv_wrapper_refusals_on_card(dev):
         int8_conv(x, packed(wq.cpu()), 1.0, ws, b, 1)
     with pytest.raises(ValueError, match="one device"):
         int8_conv(x.cpu(), packed(wq.cpu()), 1.0, ws, b.cpu(), 1)
-    with pytest.raises(ValueError, match="C_in % 32"):
-        int8_conv(x[..., :48].contiguous(), packed(wq[:, :, :48].contiguous()), 1.0, ws, b, 1)
+    with pytest.raises(ValueError, match="C_in % 16"):
+        int8_conv(x[..., :40].contiguous(), packed(wq[:, :, :40].contiguous()), 1.0, ws, b, 1)
+    with pytest.raises(ValueError, match="stride 1 or 2"):
+        int8_conv(x, w, 1.0, ws, b, 1, stride=3)
+    w4 = packed(torch.zeros((4, 4, 64, 64), dtype=torch.int8, device=dev), transposed=True)
+    with pytest.raises(ValueError, match="transposed"):
+        int8_conv(x, w4, 1.0, ws, b, ((1, 1), (1, 1)), lhs_dilation=(2, 2))
     with pytest.raises(ValueError, match="C_out % 8"):
         int8_conv(x, packed(wq[..., :60].contiguous()), 1.0, ws[:60], b[:60], 1)
     with pytest.raises(RuntimeError, match="int8_conv has no backward"):
@@ -784,20 +798,29 @@ def test_unpool_kernels_on_int8_codes(dev, shape):
 
 
 @pytest.mark.parametrize("arch,want,limit", [("unet", 21, 0.995), ("robust_unet", 38, 0.99),
-                                             ("segnet", 18, 0.99)])
+                                             ("segnet", 18, 0.99), ("waternet", 16, 0.99),
+                                             ("mswnet", 18, 0.99), ("hrnet_water", 6, 0.99),
+                                             ("pspnet", 8, 0.99), ("deeplabv3p", 10, 0.99)])
 def test_quantized_model_on_card_matches_cpu(dev, arch, want, limit):
     """One int8 model, its tree on the card and on the CPU, the same scales:
     the int8 conv launched for every conv on the int8 path, SegNet's pool
-    and unpool on codes, and the masks within `limit` of the CPU's."""
+    and unpool on codes, and the masks within `limit` of the CPU's. The
+    zoo models from their seeded constructors."""
     from coastline_torch.infer import quant
     from coastline_torch.kernels import unpool
     from coastline_torch.kernels.int8_conv import int8_conv
+    from coastline_torch.models.registry import create_model
     from coastline_torch.utils import torch_import as ti
 
-    make, to_sd = {"unet": (ti.random_unet_variables, ti.unet_state_dict),
-                   "robust_unet": (ti.random_robust_unet_variables, ti.robust_unet_state_dict),
-                   "segnet": (ti.random_segnet_variables, ti.segnet_state_dict)}[arch]
-    folded = quant.ARCHS[arch][0](to_sd(make(seed=0)))
+    makers = {"unet": (ti.random_unet_variables, ti.unet_state_dict),
+              "robust_unet": (ti.random_robust_unet_variables, ti.robust_unet_state_dict),
+              "segnet": (ti.random_segnet_variables, ti.segnet_state_dict)}
+    if arch in makers:
+        make, to_sd = makers[arch]
+        sd = to_sd(make(seed=0))
+    else:
+        sd = create_model(arch).state_dict()
+    folded = quant.ARCHS[arch][0](sd)
     calib = quant.default_calibration(64, device="cpu")
     scales = quant.calibrate(folded, calib, arch=arch)
     qp = quant.quantize_folded(folded)

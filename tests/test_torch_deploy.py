@@ -112,6 +112,70 @@ def test_policy_round_trips(robust, tmp_path):
     assert torch.equal(back(x), tqm(x))
 
 
+@pytest.fixture(scope="module")
+def deeplab():
+    """JAX DeepLabV3+ variables (init from PRNGKey(0)), a (1, 32, 32, 3)
+    input and JAX's calibration on it."""
+    import jax
+
+    from coastline.models.deeplabv3p import DeepLabV3Plus
+
+    key = jax.random.PRNGKey(0)
+    v = DeepLabV3Plus(dtype=jnp.float32).init({"params": key, "dropout": key},
+                                               jnp.zeros((1, 32, 32, 3), jnp.float32))
+    v = jax.tree_util.tree_map(np.asarray, {"params": v["params"],
+                                            "batch_stats": v["batch_stats"]})
+    x = np.random.default_rng(2).standard_normal((1, 32, 32, 3)).astype(np.float32)
+    scales = jq.calibrate(jq.fold_deeplabv3p(v), jnp.asarray(x), batch_size=1, arch="deeplabv3p")
+    return v, x, scales
+
+
+def _deeplab_models(v, scales):
+    jqm = jq.QuantizedModel(jq.quantize_folded(jq.fold_deeplabv3p(v)), scales, arch="deeplabv3p")
+    tqm = tq.QuantizedModel(tq.quantize_folded(tq.fold_deeplabv3p(ti.deeplabv3plus_state_dict(v))),
+                            scales, arch="deeplabv3p", device="cpu")
+    return jqm, tqm
+
+
+def test_slim_deeplabv3p_artifact_keeps_aspp_b4(deeplab, tmp_path):
+    """The global ASPP branch reads `aspp_b4`'s float32 weights as a matmul,
+    not through the int8 path: a slim artifact keeps them (and drops those of
+    the other int8-path convs), and serves bit-equal to the model it was
+    written from."""
+    v, x, scales = deeplab
+    _, tqm = _deeplab_models(v, scales)
+    path = tmp_path / "slim.npz"
+    tdeploy.save_quantized(path, tqm, slim=True)
+    flat, meta = _npz(path)
+    assert meta["slim"] and meta["arch"] == "deeplabv3p"
+    assert "q/aspp_b4/w" in flat and "q/aspp_b0/w" not in flat and "q/up1/w" not in flat
+    assert "q/up2/w" in flat and "q/c0/w" in flat  # float-path convs keep theirs
+    np.testing.assert_array_equal(flat["q/aspp_b4/w"], tqm.qparams["aspp_b4"]["w"])
+    back = tdeploy.load_quantized(path, device="cpu")
+    assert "w" in back.params["aspp_b4"]
+    assert torch.equal(back(x), tqm(x))
+
+
+def test_deeplabv3p_artifact_between_packages(deeplab, tmp_path):
+    """DeepLabV3+ both ways: the port writes JAX's keys and arrays (slim
+    rule included), JAX's artifact serves in the port bit-equal to the
+    port's own model, and the port's loads in JAX as JAX's does."""
+    v, x, scales = deeplab
+    jqm, tqm = _deeplab_models(v, scales)
+    ours, theirs = tmp_path / "port.npz", tmp_path / "jax.npz"
+    tdeploy.save_quantized(ours, tqm)
+    jdeploy.save_quantized(theirs, jqm)
+    (a, meta_a), (b, meta_b) = _npz(ours), _npz(theirs)
+    assert sorted(a) == sorted(b) and meta_a == meta_b
+    for k in a:
+        assert a[k].dtype == b[k].dtype and np.array_equal(a[k], b[k]), k
+    back = tdeploy.load_quantized(theirs, device="cpu")
+    assert back.arch == "deeplabv3p" and back.scales == scales
+    assert torch.equal(back(x), tqm(x))
+    _assert_tree_equal(jdeploy.load_quantized(theirs).qparams,
+                       jdeploy.load_quantized(ours).qparams)
+
+
 def test_jax_unet_artifact_serves_in_the_port_extractor(tmp_path):
     """A UNet artifact written by the JAX package serves in the port's
     extractor, and the port's in JAX's, with the same masks."""

@@ -172,19 +172,28 @@ def test_export_cli_quantized_out(tmp_path):
     assert got.arch == "unet" and got.scales == want.scales
 
 
-@pytest.mark.parametrize("arch,key", [("Robust UNet", "robust_unet"), ("SegNet", "segnet")])
+@pytest.mark.parametrize("arch,key", [("Robust UNet", "robust_unet"), ("SegNet", "segnet"),
+                                      ("WaterNet", "waternet"), ("MSWNet", "mswnet"),
+                                      ("HRNet-Water", "hrnet_water"), ("PSPNet", "pspnet"),
+                                      ("DeepLabV3+", "deeplabv3p")])
 def test_export_cli_quantized_out_other_archs(tmp_path, arch, key):
+    """Every ported arch by its registry name: the artifact is written and
+    loads in the port and in the JAX package."""
+    from coastline.infer import deploy as jdeploy
+
     ckpt, _ = _checkpoint_dir(tmp_path / "models", arch)
     npz = str(tmp_path / "e.npz")
     assert export_main(["--checkpoint-dir", ckpt, "--arch", arch, "--quantized-out", npz,
                         "--image-size", "32", "--device", "cpu"]) == 0
     assert deploy.load_quantized(npz, device="cpu").arch == key
+    assert jdeploy.load_quantized(npz).arch == key
 
 
-def test_export_cli_refuses_an_unported_arch(tmp_path, capsys):
-    rc = export_main(["--checkpoint-dir", str(tmp_path), "--arch", "DeepLabV3+",
+@pytest.mark.parametrize("arch", ["YOLO-SEG", "Fast-SCNN", "ENet", "SegFormer-Lite"])
+def test_export_cli_refuses_an_unported_arch(tmp_path, capsys, arch):
+    rc = export_main(["--checkpoint-dir", str(tmp_path), "--arch", arch,
                       "--quantized-out", str(tmp_path / "q.npz"), "--device", "cpu"])
     err = capsys.readouterr().err
-    assert rc != 0 and all(a in err for a in ("robust_unet", "segnet", "unet"))
+    assert rc == 2 and all(a in err for a in sorted(quant.ARCHS)) and len(quant.ARCHS) == 8
     with pytest.raises(SystemExit):
         export_main(["--checkpoint-dir", str(tmp_path), "--device", "cpu"])

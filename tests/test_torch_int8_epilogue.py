@@ -32,7 +32,7 @@ SCALE = float(STEP) * 127.0   # the site's absmax: float32(SCALE / 127) == STEP
 def _crafted(case):
     """The conv's int8 inputs, with image 0 all zeros so its outputs are the
     bias, set to exact ties (k + 0.5) * STEP and to values past +-127 steps."""
-    shape, cout, k, pad, dil, lhs = CONV_CASES[case]
+    shape, cout, k, pad, dil, lhs, stride = CONV_CASES[case]
     rng = np.random.default_rng(len(case) + 7)
     x = rng.integers(-127, 128, shape, dtype=np.int8)
     x[0] = 0
@@ -41,7 +41,7 @@ def _crafted(case):
     ties[::7] = 300.0 * np.sign(ties[::7])  # beyond the clamp
     b = (ties * STEP).astype(np.float32)
     wq, wstep = jq._quant_w(w)
-    return x, w, b, wq, wstep, pad, dil, lhs
+    return x, w, b, wq, wstep, pad, dil, lhs, stride
 
 
 @pytest.mark.parametrize("relu", [False, True])
@@ -49,12 +49,12 @@ def _crafted(case):
 @pytest.mark.parametrize("case", sorted(CONV_CASES))
 def test_codes_mode_bit_equal_to_jax_conv_then_site(case, dtype, relu):
     jdt, tdt = DTYPES[dtype]
-    x, w, b, wq, wstep, pad, dil, lhs = _crafted(case)
+    x, w, b, wq, wstep, pad, dil, lhs, stride = _crafted(case)
     x_step = np.float32(3.7 / 127.0)
     ctx = jq._Ctx({"s": SCALE}, dtype=jdt)
     y = jq._conv(ctx, jq._QT(jnp.asarray(x), jnp.float32(x_step)),
                  {"w": w, "b": b, "wq": wq, "wstep": wstep},
-                 padding=pad, dilation=dil, lhs_dilation=lhs)
+                 stride=stride, padding=pad, dilation=dil, lhs_dilation=lhs)
     if relu:
         y = jax.nn.relu(y)
     ref = ctx.site("s", y)
@@ -63,7 +63,7 @@ def test_codes_mode_bit_equal_to_jax_conv_then_site(case, dtype, relu):
     args = (torch.from_numpy(x), float(x_step), torch.from_numpy(wstep), torch.from_numpy(b),
             pad, dil, lhs, tdt)
     got = int8_conv_plain(args[0], torch.from_numpy(wq), *args[1:], relu=relu,
-                          out_step=float(STEP))
+                          out_step=float(STEP), stride=stride)
     assert got.dtype == torch.int8 and got.is_contiguous()
     assert np.array_equal(ref_q, got.numpy())
     # the crafted image holds exact ties of both parities and clamped codes
@@ -72,9 +72,9 @@ def test_codes_mode_bit_equal_to_jax_conv_then_site(case, dtype, relu):
     assert (np.abs(y0) > 127).any() and (np.abs(ref_q) == 127).any()
     # the wrapper on CPU tensors is the plain version, and values mode is relu(_conv)
     wrapped = int8_conv(args[0], packed(torch.from_numpy(wq), lhs is not None), *args[1:],
-                        relu=relu, out_step=float(STEP))
+                        relu=relu, out_step=float(STEP), stride=stride)
     assert torch.equal(wrapped, got)
-    values = int8_conv_plain(args[0], torch.from_numpy(wq), *args[1:], relu=relu)
+    values = int8_conv_plain(args[0], torch.from_numpy(wq), *args[1:], relu=relu, stride=stride)
     assert np.array_equal(np.asarray(y.astype(jnp.float32)).view(np.int32),
                           values.float().numpy().view(np.int32))
 

@@ -305,7 +305,7 @@ def test_export_refusals(trained, tmp_path, capsys):
     """--quantized-out now writes the int8 artifact (tests/test_torch_int8_cli.py);
     it refuses an arch without a ported int8 fold."""
     assert export_main(["--checkpoint-dir", trained, "--quantized-out", "q.npz", "--arch",
-                        "DeepLabV3+", "--device", "cpu"]) == 2
+                        "ENet", "--device", "cpu"]) == 2
     assert "no int8 fold" in capsys.readouterr().err
     with pytest.raises(SystemExit):
         export_main(["--checkpoint-dir", str(tmp_path), "--out", str(tmp_path / "x.pth"),

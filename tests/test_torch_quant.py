@@ -5,10 +5,12 @@
 Tolerance: none. The folds and `quantize_folded` are bit-equal on the same
 variables passed through the weight bridge; `int8_conv_plain` is bit-equal
 to the int8 branch of JAX's `_conv` (the same int32 sums, the same float32
-epilogue in the same order) for every option the three forwards use, in a
-float32 and a bfloat16 context; a site's codes and its dequantized values
-are bit-equal; the pool and unpool on codes equal the JAX primitives, ties
-included. JAX runs op by op here (no jit): under jit XLA contracts the
+epilogue in the same order) for every option the eight forwards use (stride
+2, the 2x2 and 4x4 transposed convs, C_in = 144 among them), in a float32
+and a bfloat16 context; a site's codes and its dequantized values are
+bit-equal; the pools and unpool on codes equal the JAX primitives, ties
+included. The float path's 4x4 transposed conv is held within float32
+rounding (rtol and atol 1e-5) of JAX's lhs-dilated conv. JAX runs op by op here (no jit): under jit XLA contracts the
 epilogue's multiply and add into an FMA, a rounding the JAX package's own
 op-by-op path does not make.
 """
@@ -22,7 +24,8 @@ from coastline.infer import quant as jq
 from coastline.ops import primitives as jax_primitives
 from coastline_torch.infer import quant as tq
 from coastline_torch.kernels import unpool
-from coastline_torch.kernels.int8_conv import int8_conv, int8_conv_plain, pack_weights, packed
+from coastline_torch.kernels.int8_conv import (int8_conv, int8_conv_plain, pack_weights, packed,
+                                               parity_taps)
 from coastline_torch.utils import torch_import as ti
 
 torch.set_num_threads(1)
@@ -34,7 +37,15 @@ POLICIES = {"default": None,
             "split_cat": {"split_cat": True},
             "gated_int8_split_cat": {"gated_int8": True, "split_cat": True}}
 STATE_DICTS = {"unet": ti.unet_state_dict, "robust_unet": ti.robust_unet_state_dict,
-               "segnet": ti.segnet_state_dict}
+               "segnet": ti.segnet_state_dict, "waternet": ti.waternet_state_dict,
+               "mswnet": ti.mswnet_state_dict, "hrnet_water": ti.hrnet_water_state_dict,
+               "pspnet": ti.pspnet_state_dict, "deeplabv3p": ti.deeplabv3plus_state_dict}
+#: the JAX model classes of the zoo architectures, by ARCHS key
+ZOO_MODELS = {"waternet": ("coastline.models.waternet", "WaterNet"),
+              "mswnet": ("coastline.models.mswnet", "MSWNet"),
+              "hrnet_water": ("coastline.models.hrnet_water", "HRNetWater"),
+              "pspnet": ("coastline.models.pspnet", "PSPNet"),
+              "deeplabv3p": ("coastline.models.deeplabv3p", "DeepLabV3Plus")}
 
 ARCHS = {"unet": (ti.random_unet_variables, ti.unet_state_dict),
          "robust_unet": (ti.random_robust_unet_variables, ti.robust_unet_state_dict),
@@ -86,20 +97,24 @@ def test_fold_reads_a_model_state_dict():
     assert a["up0"][0].shape == (2, 2, 1024, 512) and a["db"]["b3"][0].shape == (3, 3, 512, 256)
 
 
-CONV_CASES = {  # (input shape, C_out, kernel, padding, dilation, lhs_dilation)
-    "3x3": ((2, 9, 11, 64), 64, 3, 1, 1, None),
-    "1x1 widen": ((2, 7, 6, 64), 128, 1, 0, 1, None),
-    "dilation 2": ((2, 12, 10, 64), 64, 3, 2, 2, None),
-    "dilation 4": ((1, 16, 16, 96), 64, 3, 4, 4, None),
-    "transposed": ((2, 5, 7, 128), 64, 2, ((1, 1), (1, 1)), 1, (2, 2)),
-    "uneven pad": ((1, 8, 9, 64), 64, 3, ((1, 0), (2, 1)), 1, None),
+CONV_CASES = {  # (input shape, C_out, kernel, padding, dilation, lhs_dilation, stride)
+    "3x3": ((2, 9, 11, 64), 64, 3, 1, 1, None, 1),
+    "1x1 widen": ((2, 7, 6, 64), 128, 1, 0, 1, None, 1),
+    "dilation 2": ((2, 12, 10, 64), 64, 3, 2, 2, None, 1),
+    "dilation 4": ((1, 16, 16, 96), 64, 3, 4, 4, None, 1),
+    "transposed": ((2, 5, 7, 128), 64, 2, ((1, 1), (1, 1)), 1, (2, 2), 1),
+    "uneven pad": ((1, 8, 9, 64), 64, 3, ((1, 0), (2, 1)), 1, None, 1),
+    "stride 2": ((2, 9, 11, 64), 96, 3, 1, 1, None, 2),
+    "stride 2 even": ((1, 8, 12, 128), 64, 3, 1, 1, None, 2),
+    "transposed 4x4": ((2, 5, 7, 128), 64, 4, ((2, 2), (2, 2)), 1, (2, 2), 1),
+    "C_in 144": ((2, 8, 10, 144), 64, 3, 1, 1, None, 1),
 }
 
 
 @pytest.mark.parametrize("dtype", sorted(DTYPES))
 @pytest.mark.parametrize("case", sorted(CONV_CASES))
 def test_int8_conv_plain_bit_equal_to_jax(case, dtype):
-    shape, cout, k, pad, dil, lhs = CONV_CASES[case]
+    shape, cout, k, pad, dil, lhs, stride = CONV_CASES[case]
     jdt, tdt = DTYPES[dtype]
     rng = np.random.default_rng(len(case))
     x = rng.integers(-127, 128, shape, dtype=np.int8)
@@ -110,15 +125,16 @@ def test_int8_conv_plain_bit_equal_to_jax(case, dtype):
     ctx = jq._Ctx({"s": 1.0}, dtype=jdt)
     ref = jq._conv(ctx, jq._QT(jnp.asarray(x), jnp.float32(step)),
                    {"w": w, "b": b, "wq": wq, "wstep": wstep},
-                   padding=pad, dilation=dil, lhs_dilation=lhs)
+                   stride=stride, padding=pad, dilation=dil, lhs_dilation=lhs)
     args = (torch.from_numpy(x), float(step), torch.from_numpy(wstep), torch.from_numpy(b),
             pad, dil, lhs, tdt)
-    got = int8_conv_plain(args[0], torch.from_numpy(wq), *args[1:])
+    got = int8_conv_plain(args[0], torch.from_numpy(wq), *args[1:], stride=stride)
     ref = np.asarray(ref.astype(jnp.float32))
-    assert got.dtype == tdt and got.is_contiguous()
+    assert got.dtype == tdt and got.is_contiguous() and got.shape == ref.shape
     assert np.array_equal(ref.view(np.int32), got.float().numpy().view(np.int32))
     # the wrapper on CPU tensors is the plain version
-    wrapped = int8_conv(args[0], packed(torch.from_numpy(wq), lhs is not None), *args[1:])
+    wrapped = int8_conv(args[0], packed(torch.from_numpy(wq), lhs is not None), *args[1:],
+                        stride=stride)
     assert torch.equal(wrapped, got)
 
 
@@ -135,6 +151,74 @@ def test_pack_weights_layouts():
     for py in (0, 1):
         for px in (0, 1):
             assert torch.equal(sub[2 * py + px], wt[1 - py, 1 - px].T)
+
+
+@pytest.mark.parametrize("k", [2, 4])
+def test_pack_weights_transposed_parities_equal_jax(k):
+    """The kernel's split of a transposed conv (lhs dilation 2, a k x k
+    kernel, padding k / 2): parity (py, px) is the dense h x h conv (h = k /
+    2) of the packed sub-matrix over the input grid, with leading padding
+    `parity_taps`, written at output stride 2. Replayed here in float64 from
+    the packed layout, it equals JAX's int32 lhs-dilated conv bit for bit."""
+    import jax
+
+    h = k // 2
+    rng = np.random.default_rng(k)
+    x = rng.integers(-127, 128, (2, 5, 7, 32), dtype=np.int8)
+    wq = rng.integers(-127, 128, (k, k, 32, 8), dtype=np.int8)
+    ref = jax.lax.conv_general_dilated(
+        jnp.asarray(x), jnp.asarray(wq), (1, 1), ((h, h), (h, h)), lhs_dilation=(2, 2),
+        dimension_numbers=("NHWC", "HWIO", "NHWC"), preferred_element_type=jnp.int32)
+    mat = pack_weights(torch.from_numpy(wq), transposed=True)
+    assert mat.shape == (4, 8, h * h * 32)
+    got = torch.zeros(ref.shape, dtype=torch.int32)
+    xt = torch.from_numpy(x).permute(0, 3, 1, 2).double()
+    for py in (0, 1):
+        for px in (0, 1):
+            sub = mat[2 * py + px].reshape(8, h, h, 32).permute(0, 3, 1, 2).double()
+            lt, ll = parity_taps(h, py)[1], parity_taps(h, px)[1]
+            acc = torch.nn.functional.conv2d(
+                torch.nn.functional.pad(xt, (ll, h - 1 - ll, lt, h - 1 - lt)), sub)
+            got[:, py::2, px::2] = acc.permute(0, 2, 3, 1).to(torch.int32)
+    assert np.array_equal(np.asarray(ref), got.numpy())
+
+
+def test_float_conv_transposed_4x4_matches_jax():
+    """DeepLabV3+'s float-path decoder convs (up2, up3): the 4x4 transposed
+    conv as torch's transposed conv, against JAX's lhs-dilated conv in
+    float32 (the same products, summed in another order)."""
+    rng = np.random.default_rng(4)
+    x = rng.standard_normal((2, 6, 5, 64)).astype(np.float32)
+    w = (rng.standard_normal((4, 4, 64, 32)) * 0.1).astype(np.float32)
+    b = rng.standard_normal(32).astype(np.float32)
+    pads = ((2, 2), (2, 2))
+    ctx = jq._Ctx(None, dtype=jnp.float32)
+    ref = jq._conv(ctx, jq._QT(jnp.asarray(x)), (w, b), padding=pads, lhs_dilation=(2, 2))
+    got = tq._float_conv(torch.from_numpy(x), torch.from_numpy(w), torch.from_numpy(b), pads, 1,
+                         (2, 2), torch.float32)
+    assert got.shape == (2, 12, 10, 32)
+    np.testing.assert_allclose(np.asarray(ref), got.numpy(), rtol=1e-5, atol=1e-5)
+
+
+@pytest.mark.parametrize("window,stride,padding", [(3, 2, 1), (3, 1, 1), (2, 2, 0)])
+@pytest.mark.parametrize("codes", [True, False])
+def test_maxpool_equals_jax(window, stride, padding, codes):
+    """`_maxpool` against JAX's `_maxpool` (`lax.reduce_window`), on int8
+    codes (padded with -128) and on a bf16 tensor (padded with -inf), odd
+    sizes, ties and the extremes included: DeepLabV3+'s 3x3/2/1 and
+    MSWNet's 3x3/1/1 pools, and the 2x2/2 of the U-Nets."""
+    rng = np.random.default_rng(window * 10 + stride)
+    x = rng.integers(-127, 128, (2, 9, 7, 16), dtype=np.int8)
+    x[0, :3, :3] = -127
+    x[1, 4:6, 2:4] = 5
+    step = 0.25 if codes else None
+    jt = jnp.asarray(x) if codes else jnp.asarray(x, jnp.bfloat16)
+    tt = torch.from_numpy(x) if codes else torch.from_numpy(x).to(torch.bfloat16)
+    ref = jq._maxpool(jq._QT(jt, None if step is None else jnp.float32(step)), window, stride,
+                      padding)
+    got = tq._maxpool(tq._QT(tt, step), window, stride, padding)
+    assert got.step == step and got.q.dtype == tt.dtype
+    assert np.array_equal(np.asarray(ref.q.astype(jnp.float32)), got.q.float().numpy())
 
 
 def test_int8_conv_wrapper_refusals():
@@ -210,16 +294,27 @@ def test_pool_and_unpool_on_codes_equal_jax(shape):
     assert mp.step == 0.5 and np.array_equal(mp.q.numpy(), np.asarray(rv))
 
 
-def test_quant_arch_for_names_the_ported_three():
-    assert tq.quant_arch_for("UNet") == "unet"
-    assert tq.quant_arch_for("Robust UNet") == "robust_unet"
-    assert tq.quant_arch_for("robustunet") == "robust_unet"
-    assert tq.quant_arch_for("SegNet") == "segnet"
-    for name in ("DeepLabV3+", "enet", "segformer_lite", "not_a_model"):
+PORTED = {"UNet": "unet", "Robust UNet": "robust_unet", "robustunet": "robust_unet",
+          "SegNet": "segnet", "WaterNet": "waternet", "MSWNet": "mswnet",
+          "HRNet-Water": "hrnet_water", "PSPNet": "pspnet", "DeepLabV3+": "deeplabv3p",
+          "deeplab": "deeplabv3p"}
+
+
+@pytest.mark.parametrize("name", sorted(PORTED))
+def test_quant_arch_for_names_the_ported_eight(name):
+    """Registry names and aliases of the eight ported architectures resolve
+    to their `ARCHS` keys, as in the JAX package."""
+    assert tq.quant_arch_for(name) == PORTED[name] == jq.quant_arch_for(name)
+
+
+def test_quant_arch_for_leaves_out_the_other_four():
+    for name in ("YOLO-SEG", "Fast-SCNN", "ENet", "SegFormer-Lite", "not_a_model"):
         assert tq.quant_arch_for(name) is None
-    assert sorted(tq.ARCHS) == ["robust_unet", "segnet", "unet"]
+    assert sorted(tq.ARCHS) == sorted(set(PORTED.values()))
+    assert sorted(set(jq.ARCHS) - set(tq.ARCHS)) == ["enet", "fastscnn", "segformer_lite",
+                                                     "yoloseg"]
     with pytest.raises(ValueError, match="ported"):
-        tq.QuantizedModel({}, {}, arch="deeplabv3p", device="cpu")
+        tq.QuantizedModel({}, {}, arch="yoloseg", device="cpu")
 
 
 def test_quantized_robust_unet_alias():
@@ -261,6 +356,18 @@ def test_to_device_packs_only_int8_path_convs():
     assert all("w" in all_float[k][c] for k in ("dc1", "dc4") for c in ("c1", "c2"))
 
 
+def test_to_device_keeps_the_float_weights_its_arch_reads():
+    """DeepLabV3+'s global ASPP branch multiplies its pooled codes by the
+    float `w` of `aspp_b4` (512 -> 256, int8-eligible): `to_device` keeps it
+    for that arch (`SLIM_KEEP`) and drops the other eligible convs' `w`."""
+    from coastline_torch.models.registry import create_model
+
+    qp = tq.quantize_folded(tq.fold_deeplabv3p(create_model("DeepLabV3+").state_dict()))
+    tree = tq.to_device(qp, "cpu", arch="deeplabv3p")
+    assert "w" in tree["aspp_b4"] and "w" not in tree["aspp_b0"] and "w" not in tree["up0"]
+    assert "w" in tree["up2"] and "w" in tree["c0"]
+    assert "w" not in tq.to_device(qp, "cpu")["aspp_b4"]  # no arch: nothing to keep
+
 def test_int8_eligible_is_the_jax_rule():
     pol = dict(tq.DEFAULT_POLICY)
     assert tq.int8_eligible(64, 64, False, pol) and tq.int8_eligible(1024, 512, True, pol)
@@ -277,22 +384,69 @@ def test_int8_eligible_is_the_jax_rule():
 def jax_fixture(arch):
     """tests/test_quant.py's fixture: the JAX model at float32, initialised
     from PRNGKey(0), its BN statistics from one train-mode pass over a
-    (2, 64, 64, 3) normal input from PRNGKey(1); -> (numpy variables, x)."""
+    (2, 64, 64, 3) normal input from PRNGKey(1); -> (numpy variables, x).
+    The zoo architectures as tests/test_quant.py's `test_more_archs_fold_and_int8`
+    builds them."""
+    import importlib
+
     import jax
 
     from coastline.models.robust_unet import RobustUNet
     from coastline.models.segnet import SegNet
     from coastline.models.unet import UNet
 
-    m = {"unet": lambda: UNet(n_classes=2, dtype=jnp.float32),
-         "robust_unet": lambda: RobustUNet(dtype=jnp.float32),
-         "segnet": lambda: SegNet(dtype=jnp.float32)}[arch]()
+    if arch in ZOO_MODELS:
+        module, cls = ZOO_MODELS[arch]
+        m = getattr(importlib.import_module(module), cls)(dtype=jnp.float32)
+    else:
+        m = {"unet": lambda: UNet(n_classes=2, dtype=jnp.float32),
+             "robust_unet": lambda: RobustUNet(dtype=jnp.float32),
+             "segnet": lambda: SegNet(dtype=jnp.float32)}[arch]()
     key = jax.random.PRNGKey(0)
     x = jax.random.normal(jax.random.PRNGKey(1), (2, 64, 64, 3), jnp.float32)
     v = m.init({"params": key, "dropout": key}, x)
     _, upd = m.apply(v, x, train=True, mutable=["batch_stats"], rngs={"dropout": key})
     v = jax.tree_util.tree_map(np.asarray, {"params": v["params"], "batch_stats": upd["batch_stats"]})
     return v, np.array(x)  # writable: torch.from_numpy shares it
+
+
+def fold_checks(arch, v):
+    """The port's fold of the bridged state_dict and JAX's fold of the same
+    variables: bit-equal, and so are their quantized trees."""
+    ref = jq.ARCHS[arch][0](v)
+    got = tq.ARCHS[arch][0](STATE_DICTS[arch](v))
+    _assert_tree_equal(ref, got)
+    _assert_tree_equal(jq.quantize_folded(ref), tq.quantize_folded(got))
+
+
+def conv_census(arch, v, x, scales):
+    """One default-policy int8 forward of the port on the CPU: its int8 conv
+    calls by kind (all, stride 2, transposed 2x2 and 4x4, C_in = 144), and
+    the convs it ran on the float path although JAX's rule (`jq._conv`:
+    both channel counts >= 64, groups 1) takes them to the int8 path."""
+    qp = tq.quantize_folded(tq.ARCHS[arch][0](STATE_DICTS[arch](v)))
+    calls, missed = [], []
+    real_int8, real_float = tq.int8_conv, tq._float_conv
+
+    def spy_int8(xq, w, *args, stride=1, **kw):
+        calls.append((tuple(w.hwio.shape), w.transposed, stride))
+        return real_int8(xq, w, *args, stride=stride, **kw)
+
+    def spy_float(xf, w, *args, **kw):
+        if min(w.shape[2], w.shape[3]) >= tq.DEFAULT_POLICY["conv_min_ch"]:
+            missed.append(tuple(w.shape))
+        return real_float(xf, w, *args, **kw)
+
+    tq.int8_conv, tq._float_conv = spy_int8, spy_float
+    try:
+        out = tq.int8_forward(qp, scales, torch.from_numpy(x), arch=arch)
+    finally:
+        tq.int8_conv, tq._float_conv = real_int8, real_float
+    assert torch.isfinite(out).all()
+    return dict(int8=len(calls), stride2=sum(s == 2 for _, _, s in calls),
+                transposed2x2=sum(t and w[0] == 2 for w, t, _ in calls),
+                transposed4x4=sum(t and w[0] == 4 for w, t, _ in calls),
+                cin144=sum(w[2] == 144 for w, _, _ in calls), missed=missed)
 
 
 def masks(arch, logits):
