@@ -106,16 +106,19 @@ Needs one NVIDIA H100 and the CUDA toolkit; builds the kernels from
      card against the CPU path at 128^2 (>= 99.5% of mask pixels), int8 and
      bf16 forward times; an int8 2048^2 scene equal to the host tiling path;
      the Robust U-Net's, SegNet's, WaterNet's, MSWNet's, HRNet-Water's,
-     PSPNet's and DeepLabV3+'s int8 forwards at batch 8, 512^2, full width
-     (`INT8_CONVS`: 38, 18, 16, 18, 6, 8 and 10 int8 convs, stride 2, the
-     4x4 transposed conv and C_in = 144 among them; SegNet's 4 pools and
-     unpools on codes; no plain conv on the card) beside the bf16 models'
-     forwards, against the CPU at 128^2 layer by layer (>= 99% of mask
-     pixels, <= 1e-5 of any site's codes, a limit that a control, the site
-     multiplying by the step's reciprocal, must exceed; `forced_card_vs_cpu`
-     says why); then the int8 conv at every configuration those eight
-     forwards take, bit for bit against its plain version, timed against
-     its bound and cuDNN's bf16 conv. The int8 CLIs (predict --int8
+     PSPNet's, DeepLabV3+'s, YOLO-SEG's, Fast-SCNN's, ENet's and
+     SegFormer-Lite's int8 forwards at batch 8, 512^2, full width
+     (`INT8_CONVS`: 38, 18, 16, 18, 6, 8, 10, 8, 13, 2 and 19 int8 convs;
+     stride 2 and 4, the 3x3 and 4x4 transposed convs, the leaky-ReLU
+     epilogue, C_in = 144 and 1024 among them; SegNet's 4 pools and unpools
+     on codes; no plain conv on the card; the sites fused and eager,
+     `INT8_SITES`) beside the bf16 models' forwards, against the CPU at
+     128^2 layer by layer (>= 99% of mask pixels, <= 1e-5 of any site's
+     codes, a limit that two controls must exceed; `forced_card_vs_cpu`
+     says why); then the int8 conv at every configuration those twelve
+     forwards take and at the modes none takes (`EXTRA_INT8_CONFIGS`), bit
+     for bit against its plain version, timed against its bound and
+     cuDNN's bf16 conv. The int8 CLIs (predict --int8
      --save-quantized, predict --batch --quantized, export --quantized-out
      --calib-images) run in phase 11's subprocess pool;
   13. a `kernels` JSON line, the card line and the last line:
@@ -2154,36 +2157,61 @@ INT8_DIR = os.path.join(REPO, "build", "int8_path")  # listed in .gitignore
 PEAK_INT8_OPS = 1979e12  # dense int8 tensor-core rate
 # int8 conv launches a forward under the default policy (`infer/quant.py`)
 INT8_CONVS = {"unet": 21, "robust_unet": 38, "segnet": 18, "waternet": 16, "mswnet": 18,
-              "hrnet_water": 6, "pspnet": 8, "deeplabv3p": 10}
+              "hrnet_water": 6, "pspnet": 8, "deeplabv3p": 10, "yoloseg": 8, "fastscnn": 13,
+              "enet": 2, "segformer_lite": 19}
 # sites a forward quantizes in an int8 conv's epilogue and eagerly (`site_counts`)
 INT8_SITES = {"unet": dict(fused=21, eager=6), "robust_unet": dict(fused=28, eager=25),
               "segnet": dict(fused=18, eager=2), "waternet": dict(fused=16, eager=8),
               "mswnet": dict(fused=10, eager=9), "hrnet_water": dict(fused=6, eager=6),
-              "pspnet": dict(fused=4, eager=7), "deeplabv3p": dict(fused=6, eager=5)}
+              "pspnet": dict(fused=4, eager=7), "deeplabv3p": dict(fused=6, eager=5),
+              "yoloseg": dict(fused=8, eager=5), "fastscnn": dict(fused=11, eager=23),
+              "enet": dict(fused=1, eager=44), "segformer_lite": dict(fused=6, eager=20)}
 # the int8 eval forwards of `int8_path` (the UNet's is its serving path), by
 # registry name, with the card-vs-CPU mask limit of `int8_eval`
 INT8_EVAL = {"robust_unet": ("Robust UNet", 0.99), "segnet": ("SegNet", 0.99),
              "waternet": ("WaterNet", 0.99), "mswnet": ("MSWNet", 0.99),
              "hrnet_water": ("HRNet-Water", 0.99), "pspnet": ("PSPNet", 0.99),
-             "deeplabv3p": ("DeepLabV3+", 0.99)}
+             "deeplabv3p": ("DeepLabV3+", 0.99), "yoloseg": ("YOLO-SEG", 0.99),
+             "fastscnn": ("Fast-SCNN", 0.99), "enet": ("ENet", 0.99),
+             "segformer_lite": ("SegFormer-Lite", 0.99)}
+
+
+def _config(x, w, padding, lhs, dtype, act, codes, stride=1, dilation=1):
+    """A key of `int8_conv_configs`."""
+    return (x, w, json.dumps(normalize_padding(padding)), dilation, lhs, str(dtype), act, codes,
+            stride)
+
+
+# modes of the kernel that no forward takes, held beside the forwards' own
+# configurations (at the shapes of the forward whose conv they vary): the
+# leaky epilogue in values mode (YOLO-SEG's c2, bf16 and float32), ENet's 3x3
+# transposed conv and SegFormer-Lite's stride-4 reduction in values mode
+EXTRA_INT8_CONFIGS = [
+    _config((8, 128, 128, 64), (3, 3, 64, 128), 1, None, torch.bfloat16, "leaky", False),
+    _config((8, 128, 128, 64), (3, 3, 64, 128), 1, None, torch.float32, "leaky", False),
+    _config((8, 64, 64, 128), (3, 3, 128, 64), ((1, 2), (1, 2)), (2, 2), torch.bfloat16,
+            "relu", False),
+    _config((8, 64, 64, 64), (4, 4, 64, 64), 0, None, torch.bfloat16, "none", False, stride=4),
+]
 
 
 def int8_conv_configs(forwards):
     """{config: {arch: calls a forward}} over one call of each `forwards[arch]`:
     the distinct (input shape, weight shape, padding, dilation, lhs dilation,
-    output dtype, relu, codes, stride) the int8 forwards hand the kernel;
-    codes is True where the kernel quantizes to a site's codes (`out_step`)."""
+    output dtype, activation, codes, stride) the int8 forwards hand the
+    kernel; codes is True where the kernel quantizes to a site's codes
+    (`out_step`)."""
     configs, real = {}, quant.int8_conv
 
     def spy(x, w, x_step, w_step, bias, padding=0, dilation=1, lhs_dilation=None,
-            out_dtype=torch.float32, relu=False, out_step=None, stride=1):
-        key = (tuple(x.shape), tuple(w.hwio.shape), json.dumps(padding), dilation,
-               None if lhs_dilation is None else tuple(lhs_dilation), str(out_dtype),
-               bool(relu), out_step is not None, stride)
+            out_dtype=torch.float32, act="none", out_step=None, stride=1):
+        key = _config(tuple(x.shape), tuple(w.hwio.shape), padding,
+                      None if lhs_dilation is None else tuple(lhs_dilation), out_dtype, act,
+                      out_step is not None, stride, dilation)
         per = configs.setdefault(key, {})
         per[arch] = per.get(arch, 0) + 1
         return real(x, w, x_step, w_step, bias, padding, dilation, lhs_dilation, out_dtype,
-                    relu=relu, out_step=out_step, stride=stride)
+                    act=act, out_step=out_step, stride=stride)
 
     quant.int8_conv = spy
     try:
@@ -2196,12 +2224,12 @@ def int8_conv_configs(forwards):
 
 def check_int8_conv(dev, configs, iters=10):
     """The int8 conv at every configuration of `configs`, in its mode
-    (values, or codes of a site: ReLU'd or not): bit-equal to its plain
-    version (float64 cuDNN on the codes, then the same epilogue, ReLU and
-    site arithmetic); events ms, device ms, the plain version's ms, and the
-    library yardstick: the same conv in bf16 through cuDNN with the float32
-    epilogue, what the float path runs there, and in codes mode the eager
-    ReLU and site chain it replaces. Codes mode is held at two steps: a
+    (values, or codes of a site; no activation, ReLU or leaky ReLU):
+    bit-equal to its plain version (float64 cuDNN on the codes, then the
+    same epilogue, activation and site arithmetic); events ms, device ms,
+    the plain version's ms, and the library yardstick: the same conv in bf16
+    through cuDNN with the float32 epilogue, what the float path runs there,
+    and the eager activation and, in codes mode, site chain it replaces. Codes mode is held at two steps: a
     power of two near max|y| / 100, where bf16 values land on exact .5 ties
     (the kernel's exact path) and past the clamp, and float32(max|y| / 127),
     a step as calibration makes it, at which it is timed. Where the
@@ -2209,11 +2237,11 @@ def check_int8_conv(dev, configs, iters=10):
     transposed convs' parity sub-GEMMs) `torch._int_mm` at (M, K) x (K, N)
     is timed too, the int8 tensor-core yardstick. Bound: each input byte
     read once, the output written once (1 byte a code), against 2 * M * N *
-    K int8 operations (a transposed conv's K is that of its parity
-    sub-problems, (k / 2)^2 * C_in: the taps that reach an output pixel)."""
+    K int8 operations (a transposed conv's K is the taps that reach an
+    output pixel, k^2 / 4 * C_in on average: not the 3x3's zero taps)."""
     rng = np.random.default_rng(9)
     cases, failures = [], []
-    for (xs, ws, pad_json, dil, lhs, dt_name, relu, codes, stride), per in configs.items():
+    for (xs, ws, pad_json, dil, lhs, dt_name, act, codes, stride), per in configs.items():
         dt = torch.bfloat16 if dt_name == "torch.bfloat16" else torch.float32
         pad = json.loads(pad_json)
         pad = pad if isinstance(pad, int) else tuple(tuple(p) for p in pad)
@@ -2231,11 +2259,11 @@ def check_int8_conv(dev, configs, iters=10):
             out_steps = [2.0 ** math.floor(math.log2(ymax / 100)), float(np.float32(ymax / 127))]
 
         def kernel(out_step):
-            return int8_conv(x, wp, step, wstep, bias, pad, dil, lhs, dt, relu=relu,
+            return int8_conv(x, wp, step, wstep, bias, pad, dil, lhs, dt, act=act,
                              out_step=out_step, stride=stride)
 
         def plain(out_step):
-            return int8_conv_plain(x, wq, step, wstep, bias, pad, dil, lhs, dt, relu=relu,
+            return int8_conv_plain(x, wq, step, wstep, bias, pad, dil, lhs, dt, act=act,
                                    out_step=out_step, stride=stride)
 
         equal, err = True, 0.0
@@ -2250,7 +2278,7 @@ def check_int8_conv(dev, configs, iters=10):
                 equal &= bool(torch.equal(got.view(bits), ref.view(bits)))
             err = max(err, float((got.float() - ref.float()).abs().max()))
         # the library yardstick: the float path's bf16 cuDNN conv + float32
-        # epilogue, then the ReLU and the site's eager quantization it replaces
+        # epilogue, then the activation and the site's eager quantization it replaces
         xb = x.to(torch.bfloat16).permute(0, 3, 1, 2)
         wf = wq.to(torch.bfloat16)
         scale = (torch.tensor(step, device=dev) * wstep)[:, None, None]
@@ -2260,17 +2288,16 @@ def check_int8_conv(dev, configs, iters=10):
             return kernel(out_step)
 
         def finish(y):
-            v = (y.float() * scale + bias[:, None, None]).to(dt)
-            if relu:
-                v = torch.relu(v)
+            v = int8_conv_module.activation((y.float() * scale + bias[:, None, None]).to(dt), act)
             return quantize_codes(v, step_t) if codes else v
 
         if lhs is not None:
             wt = wf.flip(0, 1).permute(2, 3, 0, 1).contiguous()
-            tpad = kh - 1 - normalize_padding(pad)[0][0]
+            lo, hi = normalize_padding(pad)[0]
 
             def library():
-                return finish(F.conv_transpose2d(xb, wt, stride=2, padding=tpad))
+                return finish(F.conv_transpose2d(xb, wt, stride=2, padding=kh - 1 - lo,
+                                                 output_padding=hi - lo))
         else:
             (pt, pb), (pl, pr) = normalize_padding(pad)
             wo = wf.permute(3, 2, 0, 1).contiguous(memory_format=torch.channels_last)
@@ -2279,12 +2306,12 @@ def check_int8_conv(dev, configs, iters=10):
                 return finish(F.conv2d(F.pad(xb, (pl, pr, pt, pb)), wo, stride=stride,
                                        dilation=dil))
         m = got.shape[0] * got.shape[1] * got.shape[2]
-        k = ((kh // 2) * (kw // 2) * cin if lhs is not None else kh * kw * cin)
+        k = kh * kw * cin / 4 if lhs is not None else kh * kw * cin
         ops = 2.0 * m * cout * k
         nbytes = x.numel() + wq.numel() + 8 * cout + got.numel() * got.element_size()
         b_ms, b_by = bound(nbytes, ops, PEAK_INT8_OPS)
         case = dict(x=list(xs), w=list(ws), padding=pad, dilation=dil, stride=stride,
-                    lhs_dilation=None if lhs is None else list(lhs), out=dt_name, relu=relu,
+                    lhs_dilation=None if lhs is None else list(lhs), out=dt_name, act=act,
                     codes=codes, out_steps=out_steps, per_forward=per, bit_equal=equal,
                     max_abs_err=err, ms=cuda_ms(timed, iters), device_ms=device_ms(timed, iters),
                     plain_ms=cuda_ms(lambda: plain(out_step), 1, 0),
@@ -2719,6 +2746,8 @@ def int8_path(dev, save_dir=TRAIN_DIR, size=512, batch=8, check_size=128, check_
     x = normalize_images(torch.from_numpy(coast_tiles(batch, size, 32)[0]).to(dev))
     configs = int8_conv_configs({a: (lambda m=m: m(x)) for a, m in models.items()})
     del models, ex, x
+    for key in EXTRA_INT8_CONFIGS:
+        configs.setdefault(key, {})
     if dev.type == "cuda":
         torch.cuda.empty_cache()
     per_arch = {a: sum(per.get(a, 0) for per in configs.values()) for a in INT8_CONVS}
@@ -2745,6 +2774,8 @@ def main(argv=None) -> int:
         return 2
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cuda.matmul.allow_tf32 = False
+    # bf16 GEMMs reduce split-K partials in float32, as the CPU does
+    torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = False
     dev = torch.device("cuda")
     card = card_line()
     log(card)
@@ -2857,7 +2888,7 @@ def main(argv=None) -> int:
                          for arch in INT8_EVAL})
     cases = int8["conv_cases"]
     main_case = next((c for c in cases if c["x"] == [8, 512, 512, 64] and c["w"] == [3, 3, 64, 64]
-                      and c["codes"] and c["relu"]), cases[0])  # the UNet's dc0.c2 (and dc8)
+                      and c["codes"] and c["act"] == "relu"), cases[0])  # the UNet's dc0.c2 (and dc8)
     kernels.append(dict(
         name="int8_conv", route="cuda", source="coastline_torch/csrc/int8_conv.cu",
         replaces="coastline/infer/quant.py:573",  # XLA's s8 conv: no Pallas kernel
@@ -2868,12 +2899,13 @@ def main(argv=None) -> int:
         device_ms=main_case["device_ms"], share_of_bound=main_case["share_of_bound"],
         shape=main_case["x"], weights=main_case["w"], mode="codes, relu",
         configurations=len(cases),
-        # the stride-2, 4x4-transposed and C_in = 144 configurations
-        extended=[{k: c[k] for k in ("x", "w", "stride", "lhs_dilation", "codes", "ms", "device_ms",
-                                     "bound_ms", "bound_by", "library_ms", "plain_ms",
-                                     "share_of_bound", "per_forward")}
-                  for c in cases if c["stride"] == 2 or c["w"][2] == 144
-                  or (c["lhs_dilation"] and c["w"][0] == 4)],
+        # the configurations beyond stride 1 and the 2x2 transposed conv: stride
+        # 2 and 4, the 3x3 and 4x4 transposed convs, C_in = 144 and 1024, leaky
+        extended=[{k: c[k] for k in ("x", "w", "stride", "lhs_dilation", "act", "codes", "out",
+                                     "ms", "device_ms", "bound_ms", "bound_by", "library_ms",
+                                     "plain_ms", "share_of_bound", "per_forward")}
+                  for c in cases if c["stride"] > 1 or c["w"][2] in (144, 1024)
+                  or (c["lhs_dilation"] and c["w"][0] > 2) or c["act"] == "leaky"],
         library="cuDNN bf16 conv (channels_last) + float32 epilogue + ReLU + the site's "
                 "eager quantization"))
     if args.out:

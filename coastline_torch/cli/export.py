@@ -16,10 +16,9 @@ PTQ serving artifact (`infer/deploy.py`): BN fold, calibration (on up to
 eight images of `--calib-images`, resized BILINEAR to `--image-size`, or
 on the synthetic coastal scenes) and quantization in one command, served
 by the predict CLI's `--quantized` and `CoastlineExtractor.from_quantized`
-of either package. Its int8 fold exists for `unet`, `robust_unet`,
-`segnet`, `waternet`, `mswnet`, `hrnet_water`, `pspnet` and `deeplabv3p`
-(any registry name or alias of them); YOLO-SEG, Fast-SCNN, ENet and
-SegFormer-Lite exit 2, naming the ported ones.
+of either package. Its int8 fold exists for all twelve architectures of
+the registry (`--arch`: any registry name or alias); a name with no int8
+fold exits 2, naming the ones that have one.
 """
 
 import argparse
@@ -32,8 +31,8 @@ def main(argv=None):
                    help="save dir written by coastline_torch.cli.train")
     p.add_argument("--out", default=None, help="output .pth path")
     p.add_argument("--quantized-out", default=None, metavar="NPZ",
-                   help="also write the int8 PTQ serving artifact (unet, robust_unet, "
-                        "segnet, waternet, mswnet, hrnet_water, pspnet or deeplabv3p)")
+                   help="also write the int8 PTQ serving artifact (any architecture of the "
+                        "registry)")
     p.add_argument("--calib-images", default=None,
                    help="directory of representative images for activation calibration "
                         "(default: synthetic coastal scenes)")
@@ -53,8 +52,8 @@ def main(argv=None):
 
         qarch = quant_arch_for(args.arch)
         if qarch is None:
-            print(f"--quantized-out: {args.arch!r} has no int8 fold in the port yet "
-                  f"(ported: {sorted(ARCHS)})", file=sys.stderr)
+            print(f"--quantized-out: {args.arch!r} has no int8 fold "
+                  f"(int8 folds: {sorted(ARCHS)})", file=sys.stderr)
             return 2
 
     import torch

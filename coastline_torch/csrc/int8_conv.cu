@@ -1,14 +1,18 @@
 // Int8 convolution with a fused epilogue for the PTQ serving path: dequantize,
-// bias, optional ReLU and, in codes mode, the next site's int8 quantization.
+// bias, an optional ReLU or leaky ReLU and, in codes mode, the next site's int8
+// quantization.
 //
 // No Pallas counterpart: the JAX package runs these convs as XLA s8 x s8 -> s32
 // convolutions with the epilogue and the site's quantization fused by XLA
 // (coastline/infer/quant.py:573-578, the int8 branch of `_conv`, and `_Ctx.site`
-// at :546-548). It computes, at stride s (1 or 2), NHWC:
+// at :546-548). It computes, at stride s (1, 2 or 4), NHWC:
 //   acc[n, oy, ox, co] = sum over (ky, kx, ci) of
 //       x[n, s * oy - pad_t + ky * dil, s * ox - pad_l + kx * dil, ci]
 //       * w[co][(ky * KW + kx) * Cin + ci]
-//   v = cast(RN(RN(float(acc) * RN(x_step * w_step[co])) + bias[co])), then max(v, 0) if relu
+//   v = cast(RN(RN(float(acc) * RN(x_step * w_step[co])) + bias[co])), then the activation:
+//       relu: max(v, 0); leaky: v >= 0 ? v : cast(v * cast(0.1)), jax.nn.leaky_relu(v, 0.1)
+//       in the output dtype (in bf16 the product of two bf16 values is exact in float,
+//       so one RN to bf16 is JAX's bf16 multiply)
 //   values mode: out = v (float32 or bf16)
 //   codes mode:  out = int8(clamp(rint(float(v) / out_step), -127, 127))
 //                (the float division's result, found without a division: `quantize`)
@@ -19,21 +23,28 @@
 // once (RN) and codes mode divides that bf16 value widened, with the result of
 // a true float division (never the float product with a reciprocal); rint
 // rounds half to even. The kernel is then bit-equal to its plain version and
-// to `_Ctx.site(relu(conv))`.
+// to `_Ctx.site(act(conv))`.
 //
-// A transposed conv (lhs dilation 2, a 2h x 2h kernel, padding h: the UNets'
-// 2x2 decoders, h = 1, and DeepLabV3+'s 4x4 ones, h = 2) runs as its four
-// output-parity sub-problems. Output row 2a + p sums the stored (flipped) taps
-// t = t0 + 2j, t0 = (h - p) mod 2, over input rows a - ((h - p) >> 1) + j, j <
-// h: a dense h x h conv over the input grid with leading padding (h - p) >> 1
-// (pack_weights gathers its taps), written at output stride 2 (the sub-problem
-// is part of the tile index). For h = 1 that is a 1x1 GEMM with tap 1 - p; for
-// h = 2 a 2x2 conv, padded by one row and column at parity 0. No sub-problem
-// multiplies the zeros a tap loop over the zero-inserted input would.
+// A transposed conv (lhs dilation 2, a k x k kernel, padding (lo, k - lo), lo =
+// k / 2 rounded down: the UNets' 2x2 decoders, DeepLabV3+'s and YOLO-SEG's 4x4
+// ones, ENet's 3x3 with output padding, pads (1, 2)) runs as its four
+// output-parity sub-problems. Output row 2a + p sums the stored (flipped) taps t
+// with p + t - lo even, over input rows a + (p + t - lo) / 2: taps t0 + 2j, t0 =
+// (lo - p) mod 2, at rows a - ((lo - p) >> 1) + j, j < n = (k + 1) / 2, a dense
+// n x n conv over the input grid with leading padding (lo - p) >> 1
+// (pack_weights gathers its taps, and pads a 3x3's parity 0 with zero taps to
+// 2x2), written at output stride 2 (the sub-problem is part of the tile index).
+// For k = 2 that is a 1x1 GEMM with tap 1 - p; for k = 4 a 2x2 conv, padded by
+// one row and column at parity 0; for k = 3 a 2x2 conv over rows a and a + 1
+// (9 of its 16 tap products are not zero; TMA zero-fills row H). Only the 3x3
+// multiplies zeros, and fewer than a tap loop over the zero-inserted input
+// would.
 //
-// Stride 2 (PSPNet's, DeepLabV3+'s and HRNet-Water's downsampling 3x3s) is in
-// the A tensor map: its element strides are 2 on W and H, so a box of 2 TW x 2
-// TH pixels lands as the TW x TH pixels of the strided grid, one tap a stage.
+// Stride 2 (PSPNet's, DeepLabV3+'s, HRNet-Water's and SegFormer-Lite's
+// downsampling convs) and 4 (SegFormer-Lite's 4x4 spatial reduction) are in the
+// A tensor map: its element strides are s on W and H, so a box of s TW x s TH
+// pixels lands as the TW x TH pixels of the strided grid, one tap a stage (TMA
+// boxes are at most 256 wide: TW <= 256 / s).
 //
 // What bounds it on an H100: bytes at the full-resolution levels (at (8, 512,
 // 512, 64 -> 64) 3x3: 134.2 MB in; out 268.4 MB as bf16, 0.120 ms at 3.35 TB/s,
@@ -112,7 +123,7 @@ constexpr int smem_limit(int cons) { return SMEM_SM / blocks_per_sm(cons) - 1024
 
 struct Geometry {
   int Cin, Cout, KH, KW, chunks;  // chunks: 64-channel K steps a tap
-  int pad_t, pad_l, dil, stride;  // a transposed conv's pads are per parity (`lead_pad`)
+  int pad_t, pad_l, dil, stride;  // a transposed conv's pad is its lo (`lead_pad`)
   int R, row_groups;       // ky taps a stage (KH or 1), KH / R
   int a_box_bytes, a_bytes, stage_bytes;  // a stage: the A box (rounded to 1 KB), then R B tiles
   int Mh, Mw;              // the grid of output pixels of one sub-problem
@@ -122,7 +133,6 @@ struct Geometry {
   int out_h, out_w, os;    // output tensor H, W; output stride (2 for a transposed conv)
   int cout_pad;            // n_tiles_n * BN: the scale and bias arrays in shared memory
   int stages, stage_out_bytes, out_row_stride, vec, row_chunks_log;  // vec-byte chunks a row
-  int relu;
   float x_step;
   float out_inv;     // RN(1 / out_step): codes mode multiplies by it (see `quantize`)
   double out_inv_d;  // the same in double, for the exact path
@@ -148,9 +158,9 @@ __device__ __forceinline__ Tile decode(long long t, const Geometry& g) {
 }
 
 // the leading padding of sub-problem parity p (0 or 1) along an axis: a plain
-// conv's own; in a transposed conv's h x h sub-problem (h - p) >> 1
-__device__ __forceinline__ int lead_pad(const Geometry& g, int pad, int h, int p) {
-  return g.subs == 4 ? (h - p) >> 1 : pad;
+// conv's own; in a transposed conv, whose pad is lo, (lo - p) >> 1
+__device__ __forceinline__ int lead_pad(const Geometry& g, int pad, int p) {
+  return g.subs == 4 ? (pad - p) >> 1 : pad;
 }
 
 __device__ __forceinline__ uint32_t smem_u32(const void* p) {
@@ -300,13 +310,24 @@ __device__ __forceinline__ int quantize(float v, float inv, double inv_d) {
   return __float_as_int(t) - 0x4B400000;  // rint(qa): t's low mantissa bits
 }
 
-// MODE 0: float32 values, 1: bf16 values, 2: codes of float32 values, 3: codes
-// of bf16 values. Writes this warpgroup's accumulators, finished, to its
-// staging tile (row = the warpgroup's pixel, out_row_stride bytes a row).
+// v * 0.1 in the output dtype: in bf16, the slope is bf16(0.1) = 0.10009765625
+// and the product of two bf16 values is exact in float, then rounded once
+template <bool BF16>
+__device__ __forceinline__ float leaky(float v) {
+  if (BF16) return __bfloat162float(__float2bfloat16_rn(__fmul_rn(v, 0.10009765625f)));
+  return __fmul_rn(v, 0.1f);
+}
+
+// MODE = 4 ACT + OUT. ACT: 0 none, 1 relu, 2 leaky (kernels/int8_conv.py::ACTS);
+// OUT 0: float32 values, 1: bf16 values, 2: codes of float32 values, 3: codes of
+// bf16 values. Writes this warpgroup's accumulators, finished, to its staging
+// tile (row = the warpgroup's pixel, out_row_stride bytes a row).
 template <int BN, int MW, int MODE>
 __device__ __forceinline__ void stage_tile(const int (&acc)[MW][BN / 2], uint32_t dst,
                                            uint32_t sb, const Geometry& g, int n0, int warp,
                                            int lane) {
+  constexpr int ACT = MODE >> 2, OUT = MODE & 3;
+  constexpr bool BF16 = OUT == 1 || OUT == 3;
   const uint32_t sc_s = sb + n0 * 4, bi_s = sb + (g.cout_pad + n0) * 4;
 #pragma unroll
   for (int m = 0; m < MW; ++m)
@@ -323,19 +344,22 @@ __device__ __forceinline__ void stage_tile(const int (&acc)[MW][BN / 2], uint32_
         const int row = m * 64 + warp * 16 + (lane >> 2) + h * 8;
         float y0 = __fadd_rn(__fmul_rn(__int2float_rn(acc[m][4 * i + 2 * h]), sc.x), bi.x);
         float y1 = __fadd_rn(__fmul_rn(__int2float_rn(acc[m][4 * i + 2 * h + 1]), sc.y), bi.y);
-        if (MODE == 1 || MODE == 3) {
+        if (BF16) {
           y0 = __bfloat162float(__float2bfloat16_rn(y0));
           y1 = __bfloat162float(__float2bfloat16_rn(y1));
         }
-        if (g.relu) {  // torch.relu's choice: -0.0 stays, NaN stays
+        if (ACT == 1) {  // torch.relu's choice: -0.0 stays, NaN stays
           y0 = y0 < 0.0f ? 0.0f : y0;
           y1 = y1 < 0.0f ? 0.0f : y1;
+        } else if (ACT == 2) {  // where(v >= 0, v, v * slope): -0.0 stays, NaN stays
+          y0 = y0 >= 0.0f ? y0 : leaky<BF16>(y0);
+          y1 = y1 >= 0.0f ? y1 : leaky<BF16>(y1);
         }
         const uint32_t at = dst + row * g.out_row_stride;
-        if (MODE == 0) {
+        if (OUT == 0) {
           asm volatile("st.shared.v2.f32 [%0], {%1, %2};" ::"r"(at + col * 4), "f"(y0), "f"(y1)
                        : "memory");
-        } else if (MODE == 1) {
+        } else if (OUT == 1) {
           __nv_bfloat162 v = __floats2bfloat162_rn(y0, y1);  // exact: both are bf16 values
           asm volatile("st.shared.b32 [%0], %1;" ::"r"(at + col * 2),
                        "r"(*reinterpret_cast<uint32_t*>(&v))
@@ -384,11 +408,25 @@ template <int BN, int MW, int MODE>
 __device__ __forceinline__ void epilogue(const int (&acc)[MW][BN / 2], uint32_t staging,
                                          uint32_t sb, unsigned char* __restrict__ out,
                                          const Geometry& g, const Tile& T, int wg, int ltid) {
-  constexpr int OB = MODE == 0 ? 4 : (MODE == 1 ? 2 : 1);
+  constexpr int OB = (MODE & 3) == 0 ? 4 : ((MODE & 3) == 1 ? 2 : 1);
   named_barrier(1 + wg, 128);  // the previous tile's stores have read the staging tile
   stage_tile<BN, MW, MODE>(acc, staging, sb, g, T.nt * BN, ltid >> 5, ltid & 31);
   named_barrier(1 + wg, 128);
   store_tile<BN, MW, OB>(staging, out, g, T, wg, ltid);
+}
+
+// the epilogue of `mode` (MODE of `stage_tile`), one instantiation each, so
+// that no branch on the activation or the output is left among the values
+template <int BN, int MW, int MODE = 0>
+__device__ __forceinline__ void epilogue_of(int mode, const int (&acc)[MW][BN / 2],
+                                            uint32_t staging, uint32_t sb,
+                                            unsigned char* __restrict__ out, const Geometry& g,
+                                            const Tile& T, int wg, int ltid) {
+  if constexpr (MODE < 11) {
+    if (mode != MODE) return epilogue_of<BN, MW, MODE + 1>(mode, acc, staging, sb, out, g, T, wg,
+                                                           ltid);
+  }
+  epilogue<BN, MW, MODE>(acc, staging, sb, out, g, T, wg, ltid);
 }
 
 template <int BN, int MW, int CONS>
@@ -433,8 +471,8 @@ int8_conv_kernel(const __grid_constant__ CUtensorMap amap,
       uint32_t ph = 0;
       for (long long t = blockIdx.x; t < g.n_tiles; t += gridDim.x) {
         const Tile T = decode(t, g);
-        const int x0 = T.tx * g.TW * g.stride - lead_pad(g, g.pad_l, g.KW, T.sub & 1);
-        const int y0 = T.ty * g.TH * g.stride - lead_pad(g, g.pad_t, g.KH, T.sub >> 1);
+        const int x0 = T.tx * g.TW * g.stride - lead_pad(g, g.pad_l, T.sub & 1);
+        const int y0 = T.ty * g.TH * g.stride - lead_pad(g, g.pad_t, T.sub >> 1);
         const int brow = T.sub * g.Cout + T.nt * BN;
         for (int c = 0; c < g.chunks; ++c)
           for (int kx = 0; kx < g.KW; ++kx)
@@ -497,12 +535,7 @@ int8_conv_kernel(const __grid_constant__ CUtensorMap amap,
     }
     wgmma_wait<0>();
     if (lane == 0) mbar_arrive(empty + 8 * prev);
-    switch (mode) {
-      case 0: epilogue<BN, MW, 0>(acc, my_staging, sb, out, g, T, wg, ltid); break;
-      case 1: epilogue<BN, MW, 1>(acc, my_staging, sb, out, g, T, wg, ltid); break;
-      case 2: epilogue<BN, MW, 2>(acc, my_staging, sb, out, g, T, wg, ltid); break;
-      default: epilogue<BN, MW, 3>(acc, my_staging, sb, out, g, T, wg, ltid); break;
-    }
+    epilogue_of<BN, MW>(mode, acc, my_staging, sb, out, g, T, wg, ltid);
   }
 }
 
@@ -576,20 +609,23 @@ int launch(const CUtensorMap& amap, const CUtensorMap& bmap, const float* w_step
 
 // x int8 (N, H, W, Cin); w int8 packed (subs, Cout, KH * KW * Cin); w_step, bias
 // float (Cout); out (N, Ho, Wo, Cout) float32 or bf16 (values) or int8 (codes).
-// For a plain conv (transposed 0) the M grid is (Mh, Mw) = (Ho, Wo), stride 1 or
-// 2; for a transposed one (transposed 1: KH = KW = h, the sub-problems' kernel,
-// 1 or 2; pad 0, which the parities replace; dil 1, stride 1) it is the input
-// grid (H, W) and the output is (2H, 2W).
+// For a plain conv (transposed 0) the M grid is (Mh, Mw) = (Ho, Wo), stride 1, 2
+// or 4; for a transposed one (transposed 1: KH = KW = n, the sub-problems'
+// kernel, 1 or 2; pad_t = pad_l = lo, from which the parities' leading pads
+// come: (n, lo) = (1, 1), (2, 2) or (2, 1); dil 1, stride 1) it is the input
+// grid (H, W) and the output is (2H, 2W). act: 0 none, 1 relu, 2 leaky.
 extern "C" int coastline_int8_conv(const void* x, const void* w, const void* w_step,
                                    const void* bias, void* out, int N, int H, int W, int Cin,
                                    int Cout, int KH, int KW, int pad_t, int pad_l, int dil,
                                    int stride, int Mh, int Mw, int transposed, float x_step,
-                                   int out_bf16, int relu, int codes, float out_step,
+                                   int out_bf16, int act, int codes, float out_step,
                                    void* stream) {
   if (N <= 0 || H <= 0 || W <= 0 || Cin <= 0 || Cout <= 0 || KH <= 0 || KW <= 0 || dil <= 0 ||
-      Mh <= 0 || Mw <= 0 || Cin % 16 || Cout % 8 || (stride != 1 && stride != 2))
+      Mh <= 0 || Mw <= 0 || Cin % 16 || Cout % 8 || (stride != 1 && stride != 2 && stride != 4) ||
+      act < 0 || act > 2)
     return int(cudaErrorInvalidValue);
-  if (transposed && (KH != KW || KH > 2 || pad_t || pad_l || dil != 1 || stride != 1 ||
+  if (transposed && (KH != KW || KH > 2 || pad_t != pad_l ||
+                     !(pad_t == KH || (KH == 2 && pad_t == 1)) || dil != 1 || stride != 1 ||
                      Mh != H || Mw != W))
     return int(cudaErrorInvalidValue);
   const EncodeTiled encode = encode_tiled();
@@ -601,8 +637,10 @@ extern "C" int coastline_int8_conv(const void* x, const void* w, const void* w_s
   g.pad_t = pad_t; g.pad_l = pad_l; g.dil = dil; g.stride = stride;
   g.Mh = Mh; g.Mw = Mw;
   // with KH > 1 a tile row is at most 32 pixels, so a tile spans 4-8 rows and
-  // its box of TH + 2 dil rows loads each row 1.25-1.5 times a kx, not 3
-  const int tw_max = KH > 1 ? 32 : BM;
+  // its box of TH + 2 dil rows loads each row 1.25-1.5 times a kx, not 3; a
+  // strided box spans stride * TW <= 256 columns
+  int tw_max = KH > 1 ? 32 : BM;
+  if (tw_max * stride > 256) tw_max = 256 / stride;
   g.tw_log = 0;
   while ((1 << g.tw_log) < Mw && (1 << g.tw_log) < tw_max) ++g.tw_log;
   g.TW = 1 << g.tw_log; g.TH = BM / g.TW;
@@ -633,13 +671,13 @@ extern "C" int coastline_int8_conv(const void* x, const void* w, const void* w_s
   }
   g.row_groups = KH / g.R;
   if (g.stages < 3) return int(cudaErrorInvalidValue);  // C_out too wide for the staging
-  g.relu = relu; g.x_step = x_step;
+  g.x_step = x_step;
   g.out_inv = codes ? 1.0f / out_step : 1.0f;  // an IEEE float division: RN(1 / out_step)
   g.out_inv_d = codes ? 1.0 / double(out_step) : 1.0;
-  const int mode = (codes ? 2 : 0) + (out_bf16 ? 1 : 0);
+  const int mode = 4 * act + (codes ? 2 : 0) + (out_bf16 ? 1 : 0);
 
   // A: the input, (C, W, H, N); a box is one 64-channel chunk of TH + (R - 1) dil
-  // rows; at stride 2 the map steps by 2 on W and H, and a box of 2 TW x 2 TH
+  // rows; at stride s > 1 the map steps by s on W and H, and a box of s TW x s TH
   // pixels loads the TW x TH of the strided grid (R is 1 there)
   const cuuint64_t a_dims[4] = {cuuint64_t(Cin), cuuint64_t(W), cuuint64_t(H), cuuint64_t(N)};
   const cuuint64_t a_strides[3] = {cuuint64_t(Cin), cuuint64_t(W) * Cin,

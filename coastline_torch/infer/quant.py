@@ -1,14 +1,17 @@
-"""Int8 post-training quantization of eight architectures of the zoo: the
-UNet, the Robust U-Net, SegNet, WaterNet, MSWNet, HRNet-Water, PSPNet and
-DeepLabV3+ (counterpart of `coastline/infer/quant.py`).
+"""Int8 post-training quantization of all twelve architectures of the zoo:
+the UNet, the Robust U-Net, SegNet, WaterNet, MSWNet, HRNet-Water, PSPNet,
+DeepLabV3+, YOLO-SEG, Fast-SCNN, ENet and SegFormer-Lite (counterpart of
+`coastline/infer/quant.py`).
 
   * Eval only. Every BatchNorm folds into its conv (weights and bias in
     float32) before quantization; a transposed conv keeps its bias and
-    takes the BN that follows it where there is one (DeepLabV3+'s decoder).
-    The folds read the port's `state_dict` (reference names) and give the
-    JAX package's folded tree: the same keys (`dc0/c1`, `rb3/short`,
-    `db/b2`, `ag1/psi`, `ms2/b3`, `aspp_fuse`, `up2`, `head`, ...), HWIO
-    weights, float32, bit for bit (`fold_*`).
+    takes the BN that follows it where there is one (the decoders of
+    DeepLabV3+, YOLO-SEG and ENet); ENet's initial BN keeps its pool slice
+    as an explicit affine. The folds read the port's `state_dict`
+    (reference names) and give the JAX package's folded tree: the same keys
+    (`dc0/c1`, `rb3/short`, `db/b2`, `ag1/psi`, `ms2/b3`, `aspp_fuse`,
+    `ds4/pw`, `bn7/mid2`, `esa1/sr`, `up2`, `head`, ...), HWIO weights,
+    float32, bit for bit (`fold_*`).
   * Weights: symmetric per-output-channel int8, step = absmax / 127.
   * Activations: symmetric per-tensor int8 at named sites (conv inputs and
     the tensors the CBAM and gate epilogues read again), scaled by the
@@ -18,25 +21,31 @@ DeepLabV3+ (counterpart of `coastline/infer/quant.py`).
     the int8 mode, in which a conv whose input is int8 and whose channel
     counts are both >= `conv_min_ch` runs as an int8 x int8 -> int32
     implicit GEMM with the dequantizing epilogue fused
-    (`kernels/int8_conv.py`, the CUDA kernel on the card: stride 1 or 2,
-    the 2x2 and 4x4 transposed convs); a smaller conv (the RGB stems, the
-    gates' psi and spatial-attention convs, MSWNet's first two blocks,
-    HRNet-Water's narrow branch, the heads) dequantizes its int8 input and
-    runs in the compute dtype.
+    (`kernels/int8_conv.py`, the CUDA kernel on the card: stride 1, 2 or 4,
+    the 2x2, 3x3 and 4x4 transposed convs); a smaller or grouped conv (the
+    RGB stems, the gates' psi and spatial-attention convs, MSWNet's first
+    two blocks, HRNet-Water's narrow branch, the depthwise 3x3s, ENet's
+    bottlenecks, SegFormer-Lite's first stage, the heads) dequantizes its
+    int8 input and runs in the compute dtype.
   * Where one such int8 conv feeds a site (`_Ctx.conv_site`: the double
     convs, the up-convs, the strided stems, the fusion convs, the residual
-    blocks' shortcut, t1 and mid), the kernel's epilogue also applies the
-    ReLU and quantizes to the site's codes, so on the card the site's float
-    tensor is never written; the codes are those `_Ctx.site` would give,
-    bit for bit. The sites after a concat, a resize or a pool stay eager.
+    blocks' shortcut, t1 and mid, YOLO-SEG's leaky convs, Fast-SCNN's
+    pointwise 1x1s, SegFormer-Lite's spatial reductions and Mix-FFN inputs),
+    the kernel's epilogue also applies the ReLU or leaky ReLU and quantizes
+    to the site's codes, so on the card the site's float tensor is never
+    written; the codes are those `_Ctx.site` would give, bit for bit. The
+    sites after a concat, a resize, a pool, a residual add or a GELU stay
+    eager.
+  * The activations follow JAX's arithmetic in the compute dtype, each op
+    rounded: `_sigmoid`, `_gelu` and the leaky ReLU of the int8 conv's
+    epilogue (`kernels/int8_conv.py::leaky_relu`, the float path's too).
 
 Everything is a function on tensors in the JAX package's NHWC layout; the
 float convs hand cuDNN the NCHW views of the same (channels_last) memory.
 SegNet's indexed pool and unpool run on the int8 codes through the kernels
 of `kernels/unpool.py`; the other max pools run on the codes too
-(`_maxpool`). `ARCHS` holds the eight ported architectures; `quant_arch_for`
-returns None for the other four of the registry (YOLO-SEG, Fast-SCNN, ENet,
-SegFormer-Lite).
+(`_maxpool`). `ARCHS` holds the twelve architectures, the JAX package's
+keys; `quant_arch_for` maps any registry name or alias onto them.
 """
 
 import dataclasses
@@ -48,11 +57,13 @@ import torch.nn.functional as F
 
 from coastline_torch.kernels import unpool
 from coastline_torch.ops.primitives import adaptive_avg_pool, bilinear_resize
-from coastline_torch.kernels.int8_conv import (PackedWeights, int8_conv, normalize_padding,
-                                               packed, quantize_codes)
+from coastline_torch.kernels.int8_conv import (PackedWeights, activation, int8_conv,
+                                               normalize_padding, packed, quantize_codes)
 from coastline_torch.utils.device import resolve_device
-from coastline_torch.utils.torch_import import (ROBUST_BLOCKS, ROBUST_GATES, ROBUST_UPCONVS,
-                                                SEGNET_STAGES, UNET_BLOCKS, UNET_UPCONVS)
+from coastline_torch.utils.torch_import import (ENET_BOTTLENECKS, FASTSCNN_DSCONVS,
+                                                ROBUST_BLOCKS, ROBUST_GATES, ROBUST_UPCONVS,
+                                                SEGNET_STAGES, UNET_BLOCKS, UNET_UPCONVS,
+                                                YOLO_BACKBONE_CONVS)
 
 #: Entries whose float32 `w` an arch's forward reads whatever the policy
 #: (not through `_conv`): DeepLabV3+'s global ASPP branch is a matmul of the
@@ -256,6 +267,97 @@ def fold_hrnet_water(sd) -> Dict:
     return out
 
 
+def fold_yoloseg(sd) -> Dict:
+    """Fold the BNs of YOLO-SEG (`models/yoloseg.py`): the eight backbone
+    ConvBNActs (c0..c7, LeakyReLU 0.1 in the forward), the head's four
+    transposed convs with the BNs after them (up0..up3), the 3x3 head."""
+    out: Dict = {f"c{i}": _fold(sd, f"backbone.{ci}", f"backbone.{ci + 1}")
+                 for i, ci in enumerate(YOLO_BACKBONE_CONVS)}
+    for i in range(4):
+        out[f"up{i}"] = _fold_t(sd, f"seg_head.{3 * i}", f"seg_head.{3 * i + 1}")
+    out["head"] = _fold(sd, "seg_head.12")
+    return out
+
+
+def fold_fastscnn(sd) -> Dict:
+    """Fold the BNs of Fast-SCNN (`models/fastscnn.py`): the stem ConvBNAct
+    (c0), the 13 depthwise-separable convs in call order (ds0..ds12: the BN
+    folds into the pointwise 1x1, `pw`; the depthwise 3x3 `dw` keeps its
+    weights and a zero bias), the pyramid's four branch convs, the two
+    fusion projections with their BNs, the 1x1 head."""
+    out: Dict = {"c0": _fold(sd, "learning_to_downsample.conv1.0",
+                             "learning_to_downsample.conv1.1")}
+    for i, prefix in enumerate(FASTSCNN_DSCONVS):
+        wdw = _hwio(_arr(sd, f"{prefix}.depthwise.weight"))
+        out[f"ds{i}"] = {"dw": (wdw, np.zeros(wdw.shape[-1], np.float32)),
+                         "pw": _fold(sd, f"{prefix}.pointwise", f"{prefix}.bn")}
+    for k in range(4):
+        out[f"ppm{k}"] = _fold(sd, f"global_feature_extractor.ppm.convs.{k}.1",
+                               f"global_feature_extractor.ppm.convs.{k}.2")
+    out["low_proj"] = _fold(sd, "feature_fusion.conv_low.0", "feature_fusion.conv_low.1")
+    out["high_proj"] = _fold(sd, "feature_fusion.conv_high.0", "feature_fusion.conv_high.1")
+    out["head"] = _fold(sd, "classifier.conv3")
+    return out
+
+
+#: ENet's bottlenecks in call order (`models/enet.py`; the JAX package's
+#: `_ENET_SPECS`): (kind, dilation), beside `ENET_BOTTLENECKS`' module names
+_ENET_SPECS = (
+    ("down", 1), ("reg", 1), ("reg", 1), ("reg", 1),       # encoder1, 64 channels
+    ("down", 1), ("reg", 1), ("reg", 2), ("asym", 1),      # encoder2, 128 channels
+    ("reg", 4), ("reg", 1), ("reg", 8), ("asym", 1), ("reg", 16),
+)
+
+
+def fold_enet(sd) -> Dict:
+    """Fold the BNs of ENet (`models/enet.py`): the initial block's BN spans
+    the concat of the conv (13 channels) and the max pool (3): its conv
+    slice folds into the conv, its pool slice stays an explicit (pool_inv,
+    pool_shift) affine; each bottleneck by its kind (`_ENET_SPECS`: reduce,
+    the downsampling ones' pooled projection, mid1 (and the asymmetric
+    ones' mid2), expand); the two decoder transposed convs with the BNs
+    after them (up0, up1); the final 2x2 transposed conv with its bias."""
+    inv, shift = _bn_affine(sd, "initial.bn")
+    ncv = sd["initial.conv.weight"].shape[0]
+    out: Dict = {"init": {"conv": _fold(sd, "initial.conv", inv=inv[:ncv], shift=shift[:ncv]),
+                          "pool_inv": inv[ncv:], "pool_shift": shift[ncv:]}}
+    for i, ((prefix, _, _), (kind, _)) in enumerate(zip(ENET_BOTTLENECKS, _ENET_SPECS)):
+        entry = {"reduce": _fold(sd, f"{prefix}.conv1.0", f"{prefix}.conv1.1")}
+        if kind == "down":
+            entry["proj"] = _fold(sd, f"{prefix}.conv_down.0", f"{prefix}.conv_down.1")
+        entry["mid1"] = _fold(sd, f"{prefix}.conv2.0", f"{prefix}.conv2.1")
+        if kind == "asym":
+            entry["mid2"] = _fold(sd, f"{prefix}.conv2.3", f"{prefix}.conv2.4")
+        entry["expand"] = _fold(sd, f"{prefix}.conv3.0", f"{prefix}.conv3.1")
+        out[f"bn{i}"] = entry
+    for i in range(2):
+        out[f"up{i}"] = _fold_t(sd, f"decoder.{3 * i}", f"decoder.{3 * i + 1}")
+    out["head"] = _conv_t(sd, "decoder.6")
+    return out
+
+
+def fold_segformer_lite(sd) -> Dict:
+    """Fold the BNs of SegFormer-Lite (`models/segformer_lite.py`): the four
+    patch-embed ConvBNActs (c0..c3; the GELU stays in the forward), the
+    fusion and head ConvBNActs (c4, c5); the attention (q, sr, kv, proj)
+    and Mix-FFN (c1, dw, c2) convs of the first three stages and the four
+    decoder projections (f4..f1) keep their biases, no BN; the 1x1 head."""
+    out: Dict = {f"c{i}": _fold(sd, f"patch_embed{i + 1}.0", f"patch_embed{i + 1}.1")
+                 for i in range(4)}
+    out["c4"] = _fold(sd, "linear_fuse.0", "linear_fuse.1")
+    out["c5"] = _fold(sd, "head.0", "head.1")
+    for i in range(3):
+        out[f"esa{i}"] = {k: _fold(sd, f"attn{i + 1}.{name}")
+                          for k, name in (("q", "q"), ("sr", "reduction"), ("kv", "kv"),
+                                          ("proj", "proj"))}
+        out[f"ffn{i}"] = {k: _fold(sd, f"ffn{i + 1}.{name}")
+                          for k, name in (("c1", "fc1"), ("dw", "dwconv"), ("c2", "fc2"))}
+    for level in (4, 3, 2, 1):
+        out[f"f{level}"] = _fold(sd, f"linear_c{level}")
+    out["head"] = _fold(sd, "head.3")
+    return out
+
+
 # ---------------------------------------------------------------------------
 # Weight quantization
 # ---------------------------------------------------------------------------
@@ -417,18 +519,19 @@ class _Ctx:
         step, step_t = self.steps[key]
         return _QT(quantize_codes(t, step_t), step)
 
-    def conv_site(self, name: str, x: "_QT", entry, relu: bool = False, padding=0,
+    def conv_site(self, name: str, x: "_QT", entry, act: str = "none", padding=0,
                   dilation=1, lhs_dilation=None, stride: int = 1) -> "_QT":
-        """`site(name, relu(_conv(x, entry, ...)))` with the quantization in
-        the conv's epilogue where the int8 path applies (`_int8_path`): on the
+        """`site(name, act(_conv(x, entry, ...)))` with the activation and the
+        quantization in the conv's epilogue where the int8 path applies
+        (`_int8_path`; `act` "none", "relu" or "leaky"): on the
         card one `int8_conv` launch in codes mode, whose codes go through
         `fused_codes`; on the CPU the kernel's plain version in values mode,
         then `site`, so a site sees its own float input there."""
         if not _int8_path(self, x, entry):
             return self.site(name, _conv(self, x, entry, padding, dilation, lhs_dilation,
-                                         stride, relu))
+                                         stride, act))
         args = (x.q.contiguous(), entry["wq"], x.step, entry["wstep"], entry["b"],
-                normalize_padding(padding), dilation, lhs_dilation, self.dtype, relu)
+                normalize_padding(padding), dilation, lhs_dilation, self.dtype, act)
         if not _codes_in_kernel(x.q):
             return self.fused_codes(name, self.site(name, int8_conv(*args, stride=stride)))
         step = self.step_of(name)
@@ -453,28 +556,44 @@ def _sigmoid(t):
     return torch.sigmoid(t)
 
 
-def _float_conv(x, w, b, pads, dilation, lhs_dilation, dtype, stride: int = 1):
-    """The float path: `x` NHWC in `dtype`, `w` HWIO -> NHWC + bias, in dtype.
-    A transposed conv (lhs dilation 2, a k x k kernel, padding p on every
-    side, p <= k - 1: the 2x2 ones at p = 1, DeepLabV3+'s 4x4 at p = 2) is
-    torch's stride-2 transposed conv, padding k - 1 - p, with the stored
-    (flipped) kernel flipped back."""
+def _gelu(t):
+    """`jax.nn.gelu(t, approximate=False)`'s arithmetic, 0.5 * t * erfc(-t *
+    sqrt(0.5)) op by op in t's dtype: sqrt(0.5) rounded to the dtype, each
+    product rounded, erfc in float32 (XLA upcasts a bf16 erfc) rounded back.
+    In bf16 bit-equal to JAX but at subnormal outputs; `F.gelu` rounds once
+    (41% of bf16 values differ). In float32 torch's erfc is not XLA's
+    polynomial: a few ulps apart."""
+    sqrt_half = float(torch.tensor(0.5 ** 0.5, dtype=torch.float32).to(t.dtype))
+    erfc = torch.special.erfc((-t * sqrt_half).float()).to(t.dtype)
+    return t * 0.5 * erfc
+
+
+def _float_conv(x, w, b, pads, dilation, lhs_dilation, dtype, stride: int = 1,
+                groups: int = 1):
+    """The float path: `x` NHWC in `dtype`, `w` HWIO (C_in / groups inputs)
+    -> NHWC + bias, in dtype. A transposed conv (lhs dilation 2, a k x k
+    kernel, padding (lo, hi) on each axis, lo <= k - 1, hi - lo 0 or 1: the
+    2x2 ones at (1, 1), the 4x4 at (2, 2), ENet's 3x3 at (1, 2)) is torch's
+    stride-2 transposed conv, padding k - 1 - lo, output padding hi - lo,
+    with the stored (flipped) kernel flipped back."""
     wt = w.to(dtype)
     xc = x.permute(0, 3, 1, 2)
     if lhs_dilation is not None:
-        k, p = wt.shape[0], pads[0][0]
-        if (tuple(lhs_dilation) != (2, 2) or wt.shape[1] != k or pads != ((p, p), (p, p))
-                or not 0 <= k - 1 - p or stride != 1 or dilation != 1):
+        k = wt.shape[0]
+        (lo, hi), (lo_x, hi_x) = pads
+        if (tuple(lhs_dilation) != (2, 2) or wt.shape[1] != k or (lo, hi) != (lo_x, hi_x)
+                or not 0 <= k - 1 - lo or hi - lo not in (0, 1) or stride != 1
+                or dilation != 1 or groups != 1):
             raise ValueError(f"unsupported transposed conv: lhs_dilation {lhs_dilation}, "
                              f"kernel {tuple(wt.shape[:2])}, padding {pads}, stride {stride}")
         y = F.conv_transpose2d(xc, wt.flip(0, 1).permute(2, 3, 0, 1), stride=2,
-                               padding=k - 1 - p)
+                               padding=k - 1 - lo, output_padding=hi - lo)
     else:
         (pt, pb), (pl, pr) = pads
         if pt != pb or pl != pr:
             xc, pt, pl = F.pad(xc, (pl, pr, pt, pb)), 0, 0
         y = F.conv2d(xc, wt.permute(3, 2, 0, 1), stride=stride, padding=(pt, pl),
-                     dilation=dilation)
+                     dilation=dilation, groups=groups)
     return y.permute(0, 2, 3, 1) + b.to(dtype)
 
 
@@ -495,24 +614,26 @@ def _int8_path(ctx: _Ctx, x: _QT, entry) -> bool:
 
 
 def _conv(ctx: _Ctx, x: _QT, entry, padding=0, dilation=1, lhs_dilation=None,
-          stride: int = 1, relu: bool = False) -> torch.Tensor:
+          stride: int = 1, act: str = "none", groups: int = 1) -> torch.Tensor:
     """Conv on a site tensor -> NHWC in the compute dtype, bias added, then
-    ReLU'd if `relu` (in the kernel's epilogue on the int8 path, where
-    `_int8_path` says so)."""
+    `act` ("none", "relu" or "leaky"; in the kernel's epilogue on the int8
+    path, where `_int8_path` says so). A grouped conv (`groups` > 1: the
+    depthwise 3x3s) always takes the float path, as in the JAX package."""
     pads = normalize_padding(padding)
     if isinstance(entry, dict):
         w, b, wq, wstep = entry.get("w"), entry["b"], entry["wq"], entry["wstep"]
-        if _int8_path(ctx, x, entry):
+        if groups == 1 and _int8_path(ctx, x, entry):
             return int8_conv(x.q.contiguous(), wq, x.step, wstep, b, pads, dilation,
-                             lhs_dilation, out_dtype=ctx.dtype, relu=relu, stride=stride)
+                             lhs_dilation, out_dtype=ctx.dtype, act=act, stride=stride)
         if w is None:
             raise KeyError("a conv without float weights on the float path: an int8-path conv "
                            "leaves them on the host, and a slim artifact restores them only "
                            "through `load_quantized`")
     else:
         w, b = entry
-    y = _float_conv(x.f(ctx.dtype), w, b, pads, dilation, lhs_dilation, ctx.dtype, stride)
-    return torch.relu(y) if relu else y
+    y = _float_conv(x.f(ctx.dtype), w, b, pads, dilation, lhs_dilation, ctx.dtype, stride,
+                    groups)
+    return activation(y, act)
 
 
 def _conv_cat(ctx: _Ctx, a: _QT, b: _QT, entry, padding=0) -> torch.Tensor:
@@ -562,7 +683,7 @@ def _residual_block(ctx: _Ctx, name: str, x: Optional[_QT], p, pair=None) -> _QT
     else:
         short = ctx.conv_site(f"{name}.short", x, p["short"]) \
             if p["short"] is not None else x
-        t1 = ctx.conv_site(f"{name}.t1", x, p["c1"], relu=True, padding=1)
+        t1 = ctx.conv_site(f"{name}.t1", x, p["c1"], act="relu", padding=1)
     mid = ctx.conv_site(f"{name}.mid", t1, p["c2"], padding=1)
 
     gc = _channel_gate(mid, p["fc1"], p["fc2"], dt)  # (N, C)
@@ -618,8 +739,8 @@ def _double_conv(ctx: _Ctx, name: str, x: Optional[_QT], p, pair=None) -> _QT:
     if pair is not None:
         t1 = ctx.site(f"{name}.t1", torch.relu(_conv_cat(ctx, *pair, p["c1"], padding=1)))
     else:
-        t1 = ctx.conv_site(f"{name}.t1", x, p["c1"], relu=True, padding=1)
-    return ctx.conv_site(f"{name}.out", t1, p["c2"], relu=True, padding=1)
+        t1 = ctx.conv_site(f"{name}.t1", x, p["c1"], act="relu", padding=1)
+    return ctx.conv_site(f"{name}.out", t1, p["c2"], act="relu", padding=1)
 
 
 def _split_cat(ctx: _Ctx, a: _QT, b: _QT) -> bool:
@@ -692,7 +813,7 @@ def _forward_segnet(qp, scales, x, collect=None, dtype=torch.bfloat16, policy=No
     def convs(cur, n):
         nonlocal k
         for _ in range(n):
-            cur = ctx.conv_site(f"c{k}", cur, qp[f"c{k}"], relu=True, padding=1)
+            cur = ctx.conv_site(f"c{k}", cur, qp[f"c{k}"], act="relu", padding=1)
             k += 1
         return cur
 
@@ -721,11 +842,11 @@ def _forward_deeplabv3p(qp, scales, x, collect=None, dtype=torch.bfloat16, polic
     transposed convs with their BNs folded, each then ReLU'd."""
     ctx = _Ctx(scales, collect, dtype, policy, steps)
     cur = ctx.site("input", x.float())
-    cur = ctx.conv_site("c0", cur, qp["c0"], relu=True, padding=3, stride=2)
+    cur = ctx.conv_site("c0", cur, qp["c0"], act="relu", padding=3, stride=2)
     cur = _maxpool(cur, 3, 2, 1)
-    cur = ctx.conv_site("c1", cur, qp["c1"], relu=True, padding=1)
-    cur = ctx.conv_site("c2", cur, qp["c2"], relu=True, padding=1, stride=2)
-    cur = ctx.conv_site("c3", cur, qp["c3"], relu=True, padding=1, stride=2)
+    cur = ctx.conv_site("c1", cur, qp["c1"], act="relu", padding=1)
+    cur = ctx.conv_site("c2", cur, qp["c2"], act="relu", padding=1, stride=2)
+    cur = ctx.conv_site("c3", cur, qp["c3"], act="relu", padding=1, stride=2)
 
     n, h, w, _ = cur.q.shape
     branches = [_conv(ctx, cur, qp["aspp_b0"])]
@@ -736,9 +857,9 @@ def _forward_deeplabv3p(qp, scales, x, collect=None, dtype=torch.bfloat16, polic
     v = _pooled_codes(cur.q, cur.step) @ wb5.float()[0, 0] + bb5
     branches.append(v[:, None, None, :].to(dtype).expand(n, h, w, v.shape[-1]))
     cat = ctx.site("aspp.cat", torch.cat(branches, dim=-1))
-    cur = ctx.conv_site("aspp.out", cat, qp["aspp_fuse"], relu=True)
+    cur = ctx.conv_site("aspp.out", cat, qp["aspp_fuse"], act="relu")
     for i in range(4):
-        cur = ctx.conv_site(f"up{i}.out", cur, qp[f"up{i}"], relu=True, lhs_dilation=(2, 2),
+        cur = ctx.conv_site(f"up{i}.out", cur, qp[f"up{i}"], act="relu", lhs_dilation=(2, 2),
                             padding=((2, 2), (2, 2)))
     return _conv(ctx, cur, qp["head"], padding=1).float()
 
@@ -753,10 +874,10 @@ def _forward_waternet(qp, scales, x, collect=None, dtype=torch.bfloat16, policy=
     xin = ctx.site("input", x.float())
 
     def double(name, cur: _QT, k: int) -> _QT:
-        cur = ctx.conv_site(f"{name}.t1", cur, qp[f"c{k}"], relu=True, padding=1)
-        return ctx.conv_site(f"{name}.out", cur, qp[f"c{k + 1}"], relu=True, padding=1)
+        cur = ctx.conv_site(f"{name}.t1", cur, qp[f"c{k}"], act="relu", padding=1)
+        return ctx.conv_site(f"{name}.out", cur, qp[f"c{k + 1}"], act="relu", padding=1)
 
-    t = ctx.conv_site("wim.t", xin, qp["wim1"], relu=True)
+    t = ctx.conv_site("wim.t", xin, qp["wim1"], act="relu")
     idx = torch.sigmoid(_conv(ctx, t, qp["wim2"]).float()).to(dtype)
     cur = ctx.site("in7", torch.cat([xin.f(dtype), idx], dim=-1))
     e1 = double("e1", cur, 0)
@@ -785,7 +906,7 @@ def _forward_pspnet(qp, scales, x, collect=None, dtype=torch.bfloat16, policy=No
     h, w = x.shape[1], x.shape[2]
     cur = ctx.site("input", x.float())
     for i in range(4):
-        cur = ctx.conv_site(f"c{i}", cur, qp[f"c{i}"], relu=True, padding=1, stride=2)
+        cur = ctx.conv_site(f"c{i}", cur, qp[f"c{i}"], act="relu", padding=1, stride=2)
 
     size = (cur.q.shape[1], cur.q.shape[2])
     feat = cur.f(dtype)
@@ -793,9 +914,9 @@ def _forward_pspnet(qp, scales, x, collect=None, dtype=torch.bfloat16, policy=No
     for k, level in enumerate((1, 2, 3, 6)):
         pooled = adaptive_avg_pool(feat.permute(0, 3, 1, 2), level).permute(0, 2, 3, 1)
         p = ctx.site(f"ppm{k}.in", pooled)
-        outs.append(_resize(_conv(ctx, p, qp[f"ppm{k}"], relu=True), size))
+        outs.append(_resize(_conv(ctx, p, qp[f"ppm{k}"], act="relu"), size))
     cat = ctx.site("ppm.cat", torch.cat(outs, dim=-1))
-    cur = ctx.conv_site("c4", cat, qp["c4"], relu=True, padding=1)
+    cur = ctx.conv_site("c4", cat, qp["c4"], act="relu", padding=1)
     return _resize(_conv(ctx, cur, qp["head"]).float(), (h, w))
 
 
@@ -808,10 +929,10 @@ def _forward_mswnet(qp, scales, x, collect=None, dtype=torch.bfloat16, policy=No
     ctx = _Ctx(scales, collect, dtype, policy, steps)
 
     def block(name, inp: _QT, p) -> _QT:
-        branches = [_conv(ctx, inp, p["b0"], relu=True),
-                    _conv(ctx, inp, p["b1"], padding=1, relu=True),
-                    _conv(ctx, inp, p["b2"], padding=2, relu=True),
-                    _conv(ctx, _maxpool(inp, 3, 1, 1), p["b3"], relu=True)]
+        branches = [_conv(ctx, inp, p["b0"], act="relu"),
+                    _conv(ctx, inp, p["b1"], padding=1, act="relu"),
+                    _conv(ctx, inp, p["b2"], padding=2, act="relu"),
+                    _conv(ctx, _maxpool(inp, 3, 1, 1), p["b3"], act="relu")]
         return ctx.site(f"{name}.out", torch.cat(branches, dim=-1))
 
     cur = ctx.site("input", x.float())
@@ -819,13 +940,13 @@ def _forward_mswnet(qp, scales, x, collect=None, dtype=torch.bfloat16, policy=No
     for i in range(4):
         cur = block(f"ms{i}", cur if i == 0 else _maxpool(cur), qp[f"ms{i}"])
         enc.append(cur)
-    cur = ctx.conv_site("c0", _maxpool(cur), qp["c0"], relu=True, padding=1)
-    cur = ctx.conv_site("c1", cur, qp["c1"], relu=True, padding=1)
+    cur = ctx.conv_site("c0", _maxpool(cur), qp["c0"], act="relu", padding=1)
+    cur = ctx.conv_site("c1", cur, qp["c1"], act="relu", padding=1)
     for i in range(4):
         up = ctx.conv_site(f"up{i}.out", cur, qp[f"up{i}"], lhs_dilation=(2, 2),
                            padding=((1, 1), (1, 1)))
         cat = ctx.site(f"cat{i}", torch.cat([up.f(dtype), enc[3 - i].f(dtype)], dim=-1))
-        cur = ctx.conv_site(f"c{2 + i}", cat, qp[f"c{2 + i}"], relu=True, padding=1)
+        cur = ctx.conv_site(f"c{2 + i}", cat, qp[f"c{2 + i}"], act="relu", padding=1)
     return _conv(ctx, cur, qp["head"]).float()
 
 
@@ -838,7 +959,7 @@ def _forward_hrnet_water(qp, scales, x, collect=None, dtype=torch.bfloat16, poli
     ctx = _Ctx(scales, collect, dtype, policy, steps)
 
     def cba(name, cur: _QT, k: int, stride: int = 1) -> _QT:
-        return ctx.conv_site(name, cur, qp[f"c{k}"], relu=True, padding=1, stride=stride)
+        return ctx.conv_site(name, cur, qp[f"c{k}"], act="relu", padding=1, stride=stride)
 
     cur = ctx.site("input", x.float())
     stem = cba("c1", cba("c0", cur, 0, 2), 1)
@@ -855,6 +976,159 @@ def _forward_hrnet_water(qp, scales, x, collect=None, dtype=torch.bfloat16, poli
     return _conv(ctx, h, qp["head"]).float()
 
 
+def _forward_yoloseg(qp, scales, x, collect=None, dtype=torch.bfloat16, policy=None,
+                     steps=None):
+    """YOLO-SEG on folded params: LeakyReLU(0.1) after every conv (in the
+    int8 conv's epilogue where it runs), four 2x2 max pools on the codes,
+    four folded 4x4 transposed convs, the 3x3 head."""
+    ctx = _Ctx(scales, collect, dtype, policy, steps)
+
+    def cba(name, cur: _QT, k: int, padding: int) -> _QT:
+        return ctx.conv_site(name, cur, qp[f"c{k}"], act="leaky", padding=padding)
+
+    cur = ctx.site("input", x.float())
+    cur = _maxpool(cba("c0", cur, 0, 1))
+    cur = _maxpool(cba("c1", cur, 1, 1))
+    cur = cba("c3", cba("c2", cur, 2, 1), 3, 0)
+    cur = _maxpool(cba("c4", cur, 4, 1))
+    cur = cba("c6", cba("c5", cur, 5, 1), 6, 0)
+    cur = _maxpool(cba("c7", cur, 7, 1))
+    for i in range(4):  # ConvTranspose k4 s2 p1: lhs dilated, padding k - 1 - p = 2
+        cur = ctx.conv_site(f"up{i}.out", cur, qp[f"up{i}"], act="leaky", lhs_dilation=(2, 2),
+                            padding=((2, 2), (2, 2)))
+    return _conv(ctx, cur, qp["head"], padding=1).float()
+
+
+def _forward_fastscnn(qp, scales, x, collect=None, dtype=torch.bfloat16, policy=None,
+                      steps=None):
+    """Fast-SCNN on folded params: the depthwise 3x3s grouped on the float
+    path (dequantizing their int8 input), the pointwise 1x1s with the BN
+    folded and the ReLU in the epilogue; the (1, 2, 3, 6) pyramid on the /32
+    map; both fusion projections; a float32 bilinear resize of the logits."""
+    ctx = _Ctx(scales, collect, dtype, policy, steps)
+    h, w = x.shape[1], x.shape[2]
+
+    def ds(name, cur: _QT, k: int, stride: int = 1) -> _QT:
+        p = qp[f"ds{k}"]
+        t = ctx.site(f"{name}.mid", _conv(ctx, cur, p["dw"], padding=1, stride=stride,
+                                          groups=cur.q.shape[-1]))
+        return ctx.conv_site(f"{name}.out", t, p["pw"], act="relu")
+
+    cur = ctx.site("input", x.float())
+    cur = ctx.conv_site("c0", cur, qp["c0"], act="relu", padding=1, stride=2)
+    low = ds("ds1", ds("ds0", cur, 0, 2), 1, 2)
+    g = low
+    for k in (2, 3, 4):
+        g = ds(f"ds{k}", g, k)
+    g = ds("ds5", g, 5, 2)
+    for k in (6, 7, 8, 9, 10):
+        g = ds(f"ds{k}", g, k)
+
+    size = (g.q.shape[1], g.q.shape[2])
+    feat = g.f(dtype)
+    outs = [feat]
+    for k, level in enumerate((1, 2, 3, 6)):
+        pooled = adaptive_avg_pool(feat.permute(0, 3, 1, 2), level).permute(0, 2, 3, 1)
+        p = ctx.site(f"ppm{k}.in", pooled)
+        outs.append(_resize(_conv(ctx, p, qp[f"ppm{k}"], act="relu"), size))
+    g = ctx.site("ppm.cat", torch.cat(outs, dim=-1))
+
+    lowp = _conv(ctx, low, qp["low_proj"])
+    high = _resize(_conv(ctx, g, qp["high_proj"]), (low.q.shape[1], low.q.shape[2]))
+    cur = ctx.site("fuse.out", torch.relu(lowp + high))
+    cur = ds("ds12", ds("ds11", cur, 11), 12)
+    return _resize(_conv(ctx, cur, qp["head"]).float(), (h, w))
+
+
+def _forward_enet(qp, scales, x, collect=None, dtype=torch.bfloat16, policy=None,
+                  steps=None):
+    """ENet on folded params: the initial block (its conv slice folded, its
+    pool slice the codes' 2x2 max pool through the BN affine in the compute
+    dtype), the 13 bottlenecks of `_ENET_SPECS` (a downsampling one's
+    identity the pooled codes' 1x1 projection), two folded 3x3 transposed
+    convs with output padding (pads (1, 2)), the 2x2 transposed head."""
+    ctx = _Ctx(scales, collect, dtype, policy, steps)
+
+    def bottleneck(name, cur: _QT, spec, p) -> _QT:
+        kind, dil = spec
+        ident = _conv(ctx, _maxpool(cur), p["proj"]) if kind == "down" else cur.f(dtype)
+        t = ctx.conv_site(f"{name}.r", cur, p["reduce"], act="relu",
+                          stride=2 if kind == "down" else 1)
+        if kind == "asym":
+            t = ctx.conv_site(f"{name}.m1", t, p["mid1"], act="relu", padding=((2, 2), (0, 0)))
+            t = ctx.conv_site(f"{name}.m2", t, p["mid2"], act="relu", padding=((0, 0), (2, 2)))
+        else:
+            t = ctx.conv_site(f"{name}.m1", t, p["mid1"], act="relu", padding=dil, dilation=dil)
+        return ctx.site(f"{name}.out", torch.relu(_conv(ctx, t, p["expand"]) + ident))
+
+    cur = ctx.site("input", x.float())
+    init = qp["init"]
+    conv_part = _conv(ctx, cur, init["conv"], padding=1, stride=2)
+    pool_part = _maxpool(cur).f(dtype) * init["pool_inv"].to(dtype) + init["pool_shift"].to(dtype)
+    cur = ctx.site("init.out", torch.relu(torch.cat([conv_part, pool_part], dim=-1)))
+    for i, spec in enumerate(_ENET_SPECS):
+        cur = bottleneck(f"bn{i}", cur, spec, qp[f"bn{i}"])
+    for i in range(2):  # ConvTranspose k3 s2 p1 op1: padding (k - 1 - p, k - 1 - p + op)
+        cur = ctx.conv_site(f"up{i}.out", cur, qp[f"up{i}"], act="relu", lhs_dilation=(2, 2),
+                            padding=((1, 2), (1, 2)))
+    return _conv(ctx, cur, qp["head"], lhs_dilation=(2, 2), padding=((1, 1), (1, 1))).float()
+
+
+def _forward_segformer_lite(qp, scales, x, collect=None, dtype=torch.bfloat16, policy=None,
+                            steps=None):
+    """SegFormer-Lite on folded params (the logits upsampled, then the
+    sigmoid): GELU patch embeds (`_gelu` after the conv in values mode),
+    spatial-reduction attention whose two products run in the compute dtype
+    (`torch.matmul`, as JAX's einsums outside any kernel) with the softmax
+    in float32, Mix-FFNs with grouped depthwise 3x3s, the all-MLP decoder;
+    the convs follow the int8 policy."""
+    ctx = _Ctx(scales, collect, dtype, policy, steps)
+    h, w = x.shape[1], x.shape[2]
+
+    def esa(name, cur: _QT, p, heads: int, red: int) -> torch.Tensor:
+        n, hh, ww, c = cur.q.shape
+        dh = c // heads
+        q = _conv(ctx, cur, p["q"])
+        xr = ctx.conv_site(f"{name}.xr", cur, p["sr"], stride=red)
+        kv = _conv(ctx, xr, p["kv"])
+        keys = xr.q.shape[1] * xr.q.shape[2]
+        q = q.reshape(n, hh * ww, heads, dh).transpose(1, 2)
+        k = kv[..., :c].reshape(n, keys, heads, dh).transpose(1, 2)
+        v = kv[..., c:].reshape(n, keys, heads, dh).transpose(1, 2)
+        # the scale rounded to the dtype first (JAX's weak-typed scalar)
+        scale = float(torch.tensor(dh ** -0.5, dtype=torch.float32).to(dtype))
+        attn = torch.matmul(q, k.transpose(-1, -2)) * scale
+        attn = torch.softmax(attn.float(), dim=-1).to(dtype)
+        out = torch.matmul(attn, v).transpose(1, 2).reshape(n, hh, ww, c)
+        return _conv(ctx, ctx.site(f"{name}.o", out), p["proj"])
+
+    def ffn(name, cur: _QT, p) -> torch.Tensor:
+        t = ctx.conv_site(f"{name}.h", cur, p["c1"])
+        t = _conv(ctx, t, p["dw"], padding=1, groups=t.q.shape[-1])
+        return _conv(ctx, ctx.site(f"{name}.g", _gelu(t)), p["c2"])
+
+    def stage(i, cur: _QT, stride, pad, heads, red) -> _QT:
+        c = ctx.site(f"c{i}", _gelu(_conv(ctx, cur, qp[f"c{i}"], padding=pad, stride=stride)))
+        if heads is None:
+            return c
+        c = ctx.site(f"c{i}.a", c.f(dtype) + esa(f"esa{i}", c, qp[f"esa{i}"], heads, red))
+        return ctx.site(f"c{i}.f", c.f(dtype) + ffn(f"ffn{i}", c, qp[f"ffn{i}"]))
+
+    cur = ctx.site("input", x.float())
+    c1 = stage(0, cur, 4, 3, 1, 8)
+    c2 = stage(1, c1, 2, 1, 2, 4)
+    c3 = stage(2, c2, 2, 1, 4, 2)
+    c4 = stage(3, c3, 2, 1, None, None)
+
+    size = (c1.q.shape[1], c1.q.shape[2])
+    fs = [_resize(_conv(ctx, c, qp[f"f{level}"]), size)
+          for c, level in ((c4, 4), (c3, 3), (c2, 2))] + [_conv(ctx, c1, qp["f1"])]
+    cat = ctx.site("dec.cat", torch.cat(fs, dim=-1))
+    fused = ctx.conv_site("c4f", cat, qp["c4"], act="relu")
+    head = ctx.conv_site("c5h", fused, qp["c5"], act="relu", padding=1)
+    return _resize(_conv(ctx, head, qp["head"]).float(), (h, w))
+
+
 # arch -> (fold, forward, sigmoid head?)
 ARCHS = {
     "robust_unet": (fold_robust_unet, _forward, True),
@@ -864,7 +1138,11 @@ ARCHS = {
     "mswnet": (fold_mswnet, _forward_mswnet, True),
     "waternet": (fold_waternet, _forward_waternet, True),
     "pspnet": (fold_pspnet, _forward_pspnet, True),
+    "yoloseg": (fold_yoloseg, _forward_yoloseg, True),
     "hrnet_water": (fold_hrnet_water, _forward_hrnet_water, True),
+    "fastscnn": (fold_fastscnn, _forward_fastscnn, True),
+    "enet": (fold_enet, _forward_enet, True),
+    "segformer_lite": (fold_segformer_lite, _forward_segformer_lite, True),
 }
 
 
@@ -887,7 +1165,7 @@ def default_calibration(image_size: int, images_u8=None, n_scenes: int = 4, devi
 
 def quant_arch_for(name) -> Optional[str]:
     """Any model-registry name or alias -> its `ARCHS` key, or None for a
-    model whose int8 fold is not ported."""
+    name that is none of them."""
     from coastline_torch.models.registry import canonical_name
 
     canon = canonical_name(name)
@@ -986,8 +1264,7 @@ class QuantizedModel:
     def __init__(self, qparams, scales, arch: str = "robust_unet",
                  policy: Optional[Dict] = None, device="cuda"):
         if arch not in ARCHS:
-            raise ValueError(f"{arch!r} has no int8 forward in the port yet; ported: "
-                             f"{sorted(ARCHS)}")
+            raise ValueError(f"{arch!r} has no int8 forward; ported: {sorted(ARCHS)}")
         self.device = resolve_device(device)
         self.qparams = qparams
         self.scales = scales

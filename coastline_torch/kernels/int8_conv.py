@@ -14,7 +14,10 @@ x_q int8 NHWC, w_q int8 HWIO, acc int32 (exact: 127^2 * 9 * 1024 < 2^31),
 x_step a float32 scalar, w_step and bias float32 per output channel, the
 result in float32 or bfloat16 (one round to nearest even). The float32
 epilogue runs in that order, first x_step * w_step, then acc * that, then
-+ bias, each rounded, as XLA computes it. `relu=True` then takes max(y, 0).
++ bias, each rounded, as XLA computes it. `act` then applies, in the output
+dtype: "relu" max(y, 0); "leaky" `jax.nn.leaky_relu(y, 0.1)`, y where y >= 0
+else y * 0.1 with the slope rounded to the output dtype (a weak-typed
+scalar in JAX) and the product rounded once (`leaky_relu`).
 
 Two output modes. Values (`out_step=None`): y as above. Codes (`out_step`
 a float32 value): the int8 codes of the site that y feeds,
@@ -25,13 +28,16 @@ Codes mode writes one byte a value and keeps the float tensor out of
 device memory.
 
 Options: any kh x kw, per-side `padding` ((top, bottom), (left, right)) or
-an int, rhs `dilation`, `stride` 1 or 2, and `lhs_dilation=(2, 2)` with a
-2h x 2h kernel and padding ((h, h), (h, h)), stride 1: the transposed convs
-of the UNets' decoders (2x2, h = 1) and of DeepLabV3+'s (4x4, h = 2). The
-kernel splits such a conv into its four output-parity sub-problems, each a
-dense h x h conv over the input grid (`pack_weights`; a tap loop over the
-zero-inserted input would multiply zeros for 3/4 of its taps). The plain
-version takes any lhs dilation and padding.
+an int, rhs `dilation`, `stride` 1, 2 or 4, and `lhs_dilation=(2, 2)` with a
+k x k kernel, k = 2, 3 or 4, and padding ((lo, k - lo), (lo, k - lo)), lo =
+k // 2, stride 1: the transposed convs of the UNets' decoders (2x2),
+DeepLabV3+'s and YOLO-SEG's (4x4) and ENet's (3x3 with output padding, pads
+(1, 2)); each gives a 2H x 2W output. The kernel splits such a conv into its
+four output-parity sub-problems, each a dense n x n conv over the input
+grid, n = (k + 1) // 2 (`parity_taps`, `pack_weights`; a tap loop over the
+zero-inserted input would multiply zeros for 3/4 of its taps; the 3x3's
+sub-problems are padded with zero taps to 2x2). The plain version takes any
+lhs dilation and padding.
 
 What bounds it on an H100: at the UNet's first level (8, 512, 512, 64 -> 64,
 3x3) the bytes (134 MB in; 268 MB out in bf16, 0.120 ms at 3.35 TB/s, or
@@ -69,27 +75,68 @@ class PackedWeights(NamedTuple):
     transposed: bool
 
 
-def parity_taps(h: int, p: int):
-    """The stored taps t = t0 + 2j (j < h) that reach output parity p of a
-    transposed conv with a 2h x 2h kernel, lhs dilation 2 and padding h, and
-    the leading padding of its sub-problem: t0 = (h - p) % 2, tap j reads
-    input row a - ((h - p) >> 1) + j for output row 2a + p."""
-    return slice((h - p) % 2, None, 2), (h - p) >> 1
+ACTS = ("none", "relu", "leaky")  # the epilogue's activations, in the kernel's enum order
+LEAKY_SLOPE = 0.1
+
+
+def leaky_relu(t: torch.Tensor) -> torch.Tensor:
+    """`jax.nn.leaky_relu(t, 0.1)` bit for bit: t where t >= 0, else t times
+    0.1 rounded to t's dtype (JAX's weak-typed scalar), the product rounded
+    once (in bfloat16 it is exact in float32 first). `F.leaky_relu` rounds
+    the product of the bf16 value and float32(0.1) instead."""
+    slope = float(torch.tensor(LEAKY_SLOPE, dtype=t.dtype))
+    return torch.where(t >= 0, t, t * slope)
+
+
+def activation(y: torch.Tensor, act: str) -> torch.Tensor:
+    """The epilogue's `act` on y, in y's dtype (`ACTS`)."""
+    if act == "relu":
+        return torch.relu(y)
+    if act == "leaky":
+        return leaky_relu(y)
+    if act != "none":
+        raise ValueError(f"act must be one of {ACTS}, got {act!r}")
+    return y
+
+
+def parity_taps(k: int, p: int):
+    """A transposed conv with a k x k kernel (k = 2, 3 or 4), lhs dilation 2
+    and padding (lo, k - lo), lo = k // 2, split by output parity p: output
+    row 2a + p sums the stored taps t with p + t - lo even, reading input row
+    a + (p + t - lo) / 2. As a dense sub-problem of n = (k + 1) // 2 taps
+    over the input grid: tap j reads row a - lead + j, lead = (lo - p) >> 1,
+    and is stored tap t0 + 2j, t0 = (lo - p) % 2, or a zero tap where that
+    is past k - 1 (the 3x3's parity 0: tap 1 at row a, a zero at row a + 1).
+    -> (the n stored taps, None for a zero one; lead)."""
+    lo, n = k // 2, (k + 1) // 2
+    t0 = (lo - p) % 2
+    return [t0 + 2 * j if t0 + 2 * j < k else None for j in range(n)], (lo - p) >> 1
+
+
+def _parity_kernel(wq: torch.Tensor, py: int, px: int) -> torch.Tensor:
+    """The n x n HWIO sub-kernel of output parity (py, px) (`parity_taps`)."""
+    k = wq.shape[0]
+    rows, cols = parity_taps(k, py)[0], parity_taps(k, px)[0]
+    sub = wq.new_zeros((len(rows), len(cols)) + tuple(wq.shape[2:]))
+    for i, ty in enumerate(rows):
+        for j, tx in enumerate(cols):
+            if ty is not None and tx is not None:
+                sub[i, j] = wq[ty, tx]
+    return sub
 
 
 def pack_weights(wq: torch.Tensor, transposed: bool = False) -> torch.Tensor:
     """int8 HWIO -> the kernel's K-major matrix: (C_out, kh * kw * C_in) with
-    k = (ky * kw + kx) * C_in + ci; for a transposed conv (2h x 2h, lhs
-    dilation 2, padding h) (4, C_out, h * h * C_in), sub-problem p = 2 * py +
-    px holding the h x h taps that reach output parity (py, px)
-    (`parity_taps`) in the same K order: for h = 1 tap (1 - py, 1 - px)."""
+    k = (ky * kw + kx) * C_in + ci; for a transposed conv (k x k, k = 2, 3 or
+    4, lhs dilation 2, padding (k // 2, k - k // 2)) (4, C_out, n * n * C_in),
+    n = (k + 1) // 2, sub-problem p = 2 * py + px holding the n x n taps that
+    reach output parity (py, px) (`parity_taps`) in the same K order: for k =
+    2 tap (1 - py, 1 - px)."""
     kh, kw, cin, cout = wq.shape
     if transposed:
-        if kh != kw or kh not in (2, 4):
-            raise ValueError(f"a transposed conv takes a 2x2 or 4x4 kernel, got {kh}x{kw}")
-        h = kh // 2
-        subs = [wq[parity_taps(h, py)[0], parity_taps(h, px)[0]]
-                for py in (0, 1) for px in (0, 1)]
+        if kh != kw or kh not in (2, 3, 4):
+            raise ValueError(f"a transposed conv takes a 2x2, 3x3 or 4x4 kernel, got {kh}x{kw}")
+        subs = [_parity_kernel(wq, py, px) for py in (0, 1) for px in (0, 1)]
         return torch.stack([pack_weights(sub) for sub in subs]).contiguous()
     return wq.permute(3, 0, 1, 2).reshape(cout, kh * kw * cin).contiguous()
 
@@ -132,15 +179,15 @@ def quantize_codes(t, step) -> torch.Tensor:
 
 
 def int8_conv_plain(x, wq, x_step, w_step, bias, padding=0, dilation: int = 1,
-                    lhs_dilation=None, out_dtype=torch.float32, relu: bool = False,
+                    lhs_dilation=None, out_dtype=torch.float32, act: str = "none",
                     out_step: Optional[float] = None, stride: int = 1):
     """The plain version: the conv in float64 on the codes (exact for these
     sums, < 2^53), zero-inserted first for `lhs_dilation`, at `stride`, then
-    int32 and the float32 epilogue, then `relu`, then with `out_step` the
-    site's codes (`quantize_codes`). x int8 (N, H, W, C_in); wq int8 HWIO -> (N, Ho, Wo,
-    C_out) in out_dtype, or int8 codes, NHWC. Bit-equal to XLA's
-    `preferred_element_type=int32` conv followed by the same epilogue (and
-    the JAX package's `_Ctx.site`)."""
+    int32 and the float32 epilogue, then `act` (`activation`), then with
+    `out_step` the site's codes (`quantize_codes`). x int8 (N, H, W, C_in);
+    wq int8 HWIO -> (N, Ho, Wo, C_out) in out_dtype, or int8 codes, NHWC.
+    Bit-equal to XLA's `preferred_element_type=int32` conv followed by the
+    same epilogue (and the JAX package's `_Ctx.site`)."""
     (pt, pb), (pl, pr) = normalize_padding(padding)
     xd = x.permute(0, 3, 1, 2).double()
     if lhs_dilation is not None:
@@ -152,9 +199,7 @@ def int8_conv_plain(x, wq, x_step, w_step, bias, padding=0, dilation: int = 1,
     xd = F.pad(xd, (pl, pr, pt, pb))
     acc = F.conv2d(xd, wq.permute(3, 2, 0, 1).double(), stride=stride, dilation=dilation)
     acc = acc.to(torch.int32).permute(0, 2, 3, 1)
-    y = _epilogue(acc, x_step, w_step, bias, out_dtype).contiguous()
-    if relu:
-        y = torch.relu(y)
+    y = activation(_epilogue(acc, x_step, w_step, bias, out_dtype).contiguous(), act)
     return y if out_step is None else quantize_codes(y, out_step)
 
 
@@ -168,14 +213,14 @@ def _fn():
 
 
 def int8_conv(x, w: PackedWeights, x_step: float, w_step, bias, padding=0, dilation: int = 1,
-              lhs_dilation=None, out_dtype=torch.float32, relu: bool = False,
+              lhs_dilation=None, out_dtype=torch.float32, act: str = "none",
               out_step: Optional[float] = None, stride: int = 1):
     """x int8 (N, H, W, C_in) NHWC; w the conv's `PackedWeights` (`packed`
     of int8 HWIO (kh, kw, C_in, C_out), on x's device, built once); x_step a
     float (a float32 value); w_step, bias float32 (C_out,) -> (N, Ho, Wo,
-    C_out) contiguous NHWC in out_dtype (float32 or bfloat16), ReLU'd if
-    `relu`; with `out_step` (a float32 value) the int8 codes of that site
-    instead. See the module docstring for the options."""
+    C_out) contiguous NHWC in out_dtype (float32 or bfloat16), `act` applied
+    ("none", "relu" or "leaky"); with `out_step` (a float32 value) the int8
+    codes of that site instead. See the module docstring for the options."""
     if not isinstance(w, PackedWeights):
         raise TypeError(f"w must be PackedWeights (`packed` of the int8 HWIO weights, built "
                         f"once), got {type(w).__name__}")
@@ -191,6 +236,8 @@ def int8_conv(x, w: PackedWeights, x_step: float, w_step, bias, padding=0, dilat
                          f"and {tuple(bias.shape)}")
     if out_dtype not in (torch.float32, torch.bfloat16):
         raise TypeError(f"out_dtype must be float32 or bfloat16, got {out_dtype}")
+    if act not in ACTS:
+        raise ValueError(f"act must be one of {ACTS}, got {act!r}")
     pads = normalize_padding(padding)
     lhs = tuple(lhs_dilation) if lhs_dilation is not None else None
     transposed = lhs is not None
@@ -204,21 +251,21 @@ def int8_conv(x, w: PackedWeights, x_step: float, w_step, bias, padding=0, dilat
         raise ValueError("x, w, w_step and bias must be on one device")
     if dev.type == "cpu":
         return int8_conv_plain(x, wq, x_step, w_step, bias, pads, dilation, lhs, out_dtype,
-                               relu, out_step, stride)
+                               act, out_step, stride)
     if dev.type != "cuda":
         raise ValueError(f"unsupported device {dev}")
     _build.refuse_grad("int8_conv", x, w_step, bias)
     if cin % 16 or cout % 8:
         raise ValueError(f"the int8 conv kernel needs C_in % 16 == 0 and C_out % 8 == 0, "
                          f"got C_in {cin}, C_out {cout}")
-    if stride not in (1, 2):
-        raise ValueError(f"the int8 conv kernel takes stride 1 or 2, got {stride}")
-    h = kh // 2
-    if transposed and (lhs != (2, 2) or kh != kw or kh not in (2, 4)
-                       or pads != ((h, h), (h, h)) or stride != 1 or dilation != 1):
-        raise ValueError("the kernel's transposed conv is lhs_dilation (2, 2), a 2h x 2h kernel "
-                         f"(h = 1 or 2), padding h, stride 1; got {lhs}, {kh}x{kw}, {pads}, "
-                         f"stride {stride}, dilation {dilation}")
+    if stride not in (1, 2, 4):
+        raise ValueError(f"the int8 conv kernel takes stride 1, 2 or 4, got {stride}")
+    lo = kh // 2
+    if transposed and (lhs != (2, 2) or kh != kw or kh not in (2, 3, 4)
+                       or pads != ((lo, kh - lo), (lo, kh - lo)) or stride != 1 or dilation != 1):
+        raise ValueError("the kernel's transposed conv is lhs_dilation (2, 2), a k x k kernel "
+                         "(k = 2, 3 or 4), padding (k // 2, k - k // 2), stride 1; got "
+                         f"{lhs}, {kh}x{kw}, {pads}, stride {stride}, dilation {dilation}")
     if w.mat is None or w.mat.device != dev:
         raise ValueError("w has no kernel layout on this device: build it once with `packed` "
                          "of the weights on the card")
@@ -232,14 +279,15 @@ def int8_conv(x, w: PackedWeights, x_step: float, w_step, bias, padding=0, dilat
     codes = out_step is not None
     out = torch.empty((n, ho, wo, cout), dtype=torch.int8 if codes else out_dtype, device=dev)
     (pt, _), (pl, _) = pads
-    if transposed:  # four h x h sub-problems over the input grid
-        geom = (kh // 2, kw // 2, 0, 0, 1, 1, hx, wd)
+    if transposed:  # four n x n sub-problems over the input grid; the pads carry lo
+        n_sub = (kh + 1) // 2
+        geom = (n_sub, n_sub, lo, lo, 1, 1, hx, wd)
     else:
         geom = (kh, kw, pt, pl, dilation, stride, ho, wo)
     with torch.cuda.device(dev):
         status = _fn()(x.data_ptr(), mat.data_ptr(), w_step.data_ptr(), bias.data_ptr(),
                        out.data_ptr(), n, hx, wd, cin, cout, *geom, int(transposed),
-                       float(x_step), int(out_dtype == torch.bfloat16), int(relu),
+                       float(x_step), int(out_dtype == torch.bfloat16), ACTS.index(act),
                        int(codes), float(out_step) if codes else 1.0,
                        torch.cuda.current_stream(dev).cuda_stream)
     _build.check(status, "int8_conv launch")

@@ -73,7 +73,7 @@ def compare(dev, earlier, configs, iters: int = 10) -> list:
     rows = []
     stream = torch.cuda.current_stream(dev).cuda_stream
     # stride 1 throughout: the three forwards of `forward_configs` have no other
-    for (xs, ws, pad_json, dil, lhs, dt_name, relu, codes, _), per in configs.items():
+    for (xs, ws, pad_json, dil, lhs, dt_name, act, codes, _), per in configs.items():
         dt = torch.bfloat16 if dt_name == "torch.bfloat16" else torch.float32
         pad = json.loads(pad_json)
         pad = pad if isinstance(pad, int) else tuple(tuple(p) for p in pad)
@@ -101,7 +101,7 @@ def compare(dev, earlier, configs, iters: int = 10) -> list:
             return out
 
         def new():
-            return int8_conv(x, wp, step, wstep, bias, pad, dil, lhs, dt, relu=relu,
+            return int8_conv(x, wp, step, wstep, bias, pad, dil, lhs, dt, act=act,
                              out_step=out_step)
 
         bits = torch.int16 if dt == torch.bfloat16 else torch.int32
@@ -109,7 +109,7 @@ def compare(dev, earlier, configs, iters: int = 10) -> list:
         equal = bool(torch.equal(old().view(bits), mine.view(bits)))
         turns = [cs.device_ms(f, iters) for f in (old, new, new, old)]
         row = dict(x=list(xs), w=list(ws), padding=pad, dilation=dil,
-                   lhs_dilation=None if lhs is None else list(lhs), out=dt_name, relu=relu,
+                   lhs_dilation=None if lhs is None else list(lhs), out=dt_name, act=act,
                    codes=codes, per_forward=per, values_bit_equal=equal,
                    earlier_device_ms=(turns[0] + turns[3]) / 2,
                    device_ms=(turns[1] + turns[2]) / 2, turns=turns)

@@ -208,3 +208,60 @@ def test_extractor_refuses_a_non_unet_artifact(robust, tmp_path):
     tdeploy.save_quantized(path, tqm)
     with pytest.raises(ValueError, match="expects arch 'unet'"):
         CoastlineExtractor.from_quantized(str(path), image_size=32, device="cpu")
+
+
+#: the last four ported architectures: (JAX module, class, bridge to the port's state_dict)
+NEW_ARCHS = {"yoloseg": ("coastline.models.yoloseg", "YOLOSeg", ti.yoloseg_state_dict),
+             "fastscnn": ("coastline.models.fastscnn", "FastSCNN", ti.fastscnn_state_dict),
+             "enet": ("coastline.models.enet", "ENet", ti.enet_state_dict),
+             "segformer_lite": ("coastline.models.segformer_lite", "SegFormerLite",
+                                ti.segformer_lite_state_dict)}
+
+
+@pytest.fixture(scope="module", params=sorted(NEW_ARCHS))
+def new_arch(request):
+    """JAX variables of one of the last four architectures (init from
+    PRNGKey(0)), a (1, 64, 64, 3) input, the port's calibration on it, and
+    the two packages' quantized models of those variables and scales."""
+    import importlib
+
+    import jax
+
+    arch = request.param
+    module, cls, to_sd = NEW_ARCHS[arch]
+    key = jax.random.PRNGKey(0)
+    m = getattr(importlib.import_module(module), cls)(dtype=jnp.float32)
+    v = m.init({"params": key, "dropout": key}, jnp.zeros((1, 64, 64, 3), jnp.float32))
+    v = jax.tree_util.tree_map(np.asarray, {"params": v["params"],
+                                            "batch_stats": v["batch_stats"]})
+    x = np.random.default_rng(3).standard_normal((1, 64, 64, 3)).astype(np.float32)
+    tf = tq.ARCHS[arch][0](to_sd(v))
+    scales = tq.calibrate(tf, torch.from_numpy(x), batch_size=1, arch=arch)
+    jqm = jq.QuantizedModel(jq.quantize_folded(jq.ARCHS[arch][0](v)), scales, arch=arch)
+    tqm = tq.QuantizedModel(tq.quantize_folded(tf), scales, arch=arch, device="cpu")
+    return arch, x, scales, jqm, tqm
+
+
+@pytest.mark.parametrize("slim", [True, False])
+def test_new_arch_artifacts_between_packages(new_arch, tmp_path, slim):
+    """YOLO-SEG, Fast-SCNN, ENet and SegFormer-Lite, slim and full, both
+    ways: the port writes JAX's keys, arrays and metadata (the slim rule
+    drops only int8-path `w`s, which no forward reads elsewhere), JAX loads
+    the port's file as its own, and JAX's file serves in the port bit-equal
+    to the port's model, with the same tree and scales."""
+    arch, x, scales, jqm, tqm = new_arch
+    ours, theirs = tmp_path / "port.npz", tmp_path / "jax.npz"
+    tdeploy.save_quantized(ours, tqm, slim=slim)
+    jdeploy.save_quantized(theirs, jqm, slim=slim)
+    (a, meta_a), (b, meta_b) = _npz(ours), _npz(theirs)
+    assert sorted(a) == sorted(b) and meta_a == meta_b and meta_a["arch"] == arch
+    for k in a:
+        assert a[k].dtype == b[k].dtype and np.array_equal(a[k], b[k]), k
+    n_w, n_wq = (sum(k.endswith(leaf) for k in a) for leaf in ("/w", "/wq"))
+    assert (n_w < n_wq) if slim else (n_w == n_wq)
+    _assert_tree_equal(jdeploy.load_quantized(theirs).qparams,
+                       jdeploy.load_quantized(ours).qparams)
+    back = tdeploy.load_quantized(theirs, device="cpu")
+    assert back.arch == arch and back.scales == scales and back.policy is None
+    _assert_tree_equal(tdeploy.load_quantized(ours, device="cpu").qparams, back.qparams)
+    assert torch.equal(back(x), tqm(x))

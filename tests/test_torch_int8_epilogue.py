@@ -62,7 +62,8 @@ def test_codes_mode_bit_equal_to_jax_conv_then_site(case, dtype, relu):
     ref_q = np.asarray(ref.q)
     args = (torch.from_numpy(x), float(x_step), torch.from_numpy(wstep), torch.from_numpy(b),
             pad, dil, lhs, tdt)
-    got = int8_conv_plain(args[0], torch.from_numpy(wq), *args[1:], relu=relu,
+    act = "relu" if relu else "none"
+    got = int8_conv_plain(args[0], torch.from_numpy(wq), *args[1:], act=act,
                           out_step=float(STEP), stride=stride)
     assert got.dtype == torch.int8 and got.is_contiguous()
     assert np.array_equal(ref_q, got.numpy())
@@ -72,26 +73,71 @@ def test_codes_mode_bit_equal_to_jax_conv_then_site(case, dtype, relu):
     assert (np.abs(y0) > 127).any() and (np.abs(ref_q) == 127).any()
     # the wrapper on CPU tensors is the plain version, and values mode is relu(_conv)
     wrapped = int8_conv(args[0], packed(torch.from_numpy(wq), lhs is not None), *args[1:],
-                        relu=relu, out_step=float(STEP), stride=stride)
+                        act=act, out_step=float(STEP), stride=stride)
     assert torch.equal(wrapped, got)
-    values = int8_conv_plain(args[0], torch.from_numpy(wq), *args[1:], relu=relu, stride=stride)
+    values = int8_conv_plain(args[0], torch.from_numpy(wq), *args[1:], act=act, stride=stride)
     assert np.array_equal(np.asarray(y.astype(jnp.float32)).view(np.int32),
                           values.float().numpy().view(np.int32))
 
 
-FORWARDS = {"unet": (ti.random_unet_variables, ti.unet_state_dict),
-            "robust_unet": (ti.random_robust_unet_variables, ti.robust_unet_state_dict),
-            "segnet": (ti.random_segnet_variables, ti.segnet_state_dict)}
+@pytest.mark.parametrize("dtype", sorted(DTYPES))
+@pytest.mark.parametrize("case", sorted(CONV_CASES))
+def test_leaky_epilogue_bit_equal_to_jax_conv_then_site(case, dtype):
+    """The leaky-ReLU epilogue (YOLO-SEG's sites): `jax.nn.leaky_relu(_conv,
+    0.1)` and then `_Ctx.site` in JAX, against the plain version's values
+    and codes modes, bit for bit; the negative half lands on exact ties
+    after the slope too."""
+    jdt, tdt = DTYPES[dtype]
+    x, w, b, wq, wstep, pad, dil, lhs, stride = _crafted(case)
+    b[1::2] *= -1  # negative biases: the slope acts on image 0 too
+    x_step = np.float32(3.7 / 127.0)
+    ctx = jq._Ctx({"s": SCALE}, dtype=jdt)
+    y = jax.nn.leaky_relu(jq._conv(ctx, jq._QT(jnp.asarray(x), jnp.float32(x_step)),
+                                   {"w": w, "b": b, "wq": wq, "wstep": wstep}, stride=stride,
+                                   padding=pad, dilation=dil, lhs_dilation=lhs), 0.1)
+    ref = ctx.site("s", y)
+    args = (torch.from_numpy(x), float(x_step), torch.from_numpy(wstep), torch.from_numpy(b),
+            pad, dil, lhs, tdt)
+    values = int8_conv_plain(args[0], torch.from_numpy(wq), *args[1:], act="leaky",
+                             stride=stride)
+    yf = np.asarray(y.astype(jnp.float32))
+    assert (yf < 0).mean() > 0.2
+    assert np.array_equal(yf.view(np.int32), values.float().numpy().view(np.int32))
+    got = int8_conv(args[0], packed(torch.from_numpy(wq), lhs is not None), *args[1:],
+                    act="leaky", out_step=float(STEP), stride=stride)
+    assert got.dtype == torch.int8 and np.array_equal(np.asarray(ref.q), got.numpy())
+
+
+def _bridged(make, to_sd):
+    return lambda: to_sd(make(seed=2))
+
+
+def _constructed(name):
+    from coastline_torch.models.registry import create_model
+
+    return lambda: create_model(name).state_dict()
+
+
+# arch -> (its state_dict, the input's side)
+FORWARDS = {"unet": (_bridged(ti.random_unet_variables, ti.unet_state_dict), 32),
+            "robust_unet": (_bridged(ti.random_robust_unet_variables,
+                                     ti.robust_unet_state_dict), 32),
+            "segnet": (_bridged(ti.random_segnet_variables, ti.segnet_state_dict), 32),
+            "yoloseg": (_constructed("YOLO-SEG"), 64), "fastscnn": (_constructed("Fast-SCNN"), 64),
+            "enet": (_constructed("ENet"), 64),
+            "segformer_lite": (_constructed("SegFormer-Lite"), 64)}
 # sites of one forward: (quantized by `_Ctx.site` before fusion, after: eager, fused)
-SITES = {"unet": (27, 6, 21), "robust_unet": (53, 25, 28), "segnet": (20, 2, 18)}
+SITES = {"unet": (27, 6, 21), "robust_unet": (53, 25, 28), "segnet": (20, 2, 18),
+         "yoloseg": (13, 5, 8), "fastscnn": (34, 23, 11), "enet": (45, 44, 1),
+         "segformer_lite": (26, 20, 6)}
 
 
 @pytest.fixture(scope="module", params=sorted(FORWARDS))
 def quantized(request):
     arch = request.param
-    make, to_sd = FORWARDS[arch]
-    folded = tq.ARCHS[arch][0](to_sd(make(seed=2)))
-    x = torch.from_numpy(np.random.default_rng(5).standard_normal((1, 32, 32, 3))
+    state_dict, side = FORWARDS[arch]
+    folded = tq.ARCHS[arch][0](state_dict())
+    x = torch.from_numpy(np.random.default_rng(5).standard_normal((1, side, side, 3))
                          .astype(np.float32))
     scales = tq.calibrate(folded, x, batch_size=1, arch=arch)
     return arch, tq.to_device(tq.quantize_folded(folded), "cpu"), scales, x
@@ -146,7 +192,11 @@ def test_eager_site_quantizations_a_forward(quantized):
     (the CPU's path, and every path before the fusion) and with the codes
     from the epilogue (the card's): the UNet 27 -> 6 (the input, `dc0.t1`
     behind the RGB stem, `cat0..3`), SegNet 20 -> 2 (the input and `c0`),
-    the Robust U-Net 53 -> 25."""
+    the Robust U-Net 53 -> 25, YOLO-SEG 13 -> 5 (the input, the float-path
+    c0, c1, up2, up3), Fast-SCNN 34 -> 23 (the pointwise 1x1s of ds2..ds12
+    fused), ENet 45 -> 44 (only `up0.out`), SegFormer-Lite 26 -> 20 (stages
+    2 and 3's `esa.xr` and `ffn.h`, `c4f`, `c5h`: the GELU sites stay
+    eager)."""
     arch, tree, scales, x = quantized
     before, eager, fused = SITES[arch]
     _, all_site, all_calls = _recorded(arch, tree, scales, x, in_kernel=False)

@@ -5,15 +5,22 @@
 Tolerance: none. The folds and `quantize_folded` are bit-equal on the same
 variables passed through the weight bridge; `int8_conv_plain` is bit-equal
 to the int8 branch of JAX's `_conv` (the same int32 sums, the same float32
-epilogue in the same order) for every option the eight forwards use (stride
-2, the 2x2 and 4x4 transposed convs, C_in = 144 among them), in a float32
-and a bfloat16 context; a site's codes and its dequantized values are
-bit-equal; the pools and unpool on codes equal the JAX primitives, ties
-included. The float path's 4x4 transposed conv is held within float32
-rounding (rtol and atol 1e-5) of JAX's lhs-dilated conv. JAX runs op by op here (no jit): under jit XLA contracts the
+epilogue in the same order) for every option the twelve forwards use
+(stride 2 and 4, the 2x2, 3x3 and 4x4 transposed convs, C_in = 144 among
+them), in a float32 and a bfloat16 context; a site's codes and its
+dequantized values are bit-equal; the pools and unpool on codes equal the
+JAX primitives, ties included. The float path's 4x4 and 3x3 transposed
+convs and its grouped convs are held within float32 rounding (rtol and
+atol 1e-5) of JAX's lhs-dilated and grouped convs. `leaky_relu` equals
+`jax.nn.leaky_relu` bit for bit in both dtypes; `_gelu` equals
+`jax.nn.gelu(approximate=False)` bit for bit in bfloat16, and within 5e-6
+relative in float32, where torch's erfc is not XLA's polynomial; both
+exclude subnormal inputs and outputs (the test says why). JAX runs op by op here (no jit): under jit XLA contracts the
 epilogue's multiply and add into an FMA, a rounding the JAX package's own
 op-by-op path does not make.
 """
+
+import inspect
 
 import jax.numpy as jnp
 import numpy as np
@@ -24,8 +31,8 @@ from coastline.infer import quant as jq
 from coastline.ops import primitives as jax_primitives
 from coastline_torch.infer import quant as tq
 from coastline_torch.kernels import unpool
-from coastline_torch.kernels.int8_conv import (int8_conv, int8_conv_plain, pack_weights, packed,
-                                               parity_taps)
+from coastline_torch.kernels.int8_conv import (int8_conv, int8_conv_plain, leaky_relu,
+                                               pack_weights, packed, parity_taps)
 from coastline_torch.utils import torch_import as ti
 
 torch.set_num_threads(1)
@@ -39,13 +46,19 @@ POLICIES = {"default": None,
 STATE_DICTS = {"unet": ti.unet_state_dict, "robust_unet": ti.robust_unet_state_dict,
                "segnet": ti.segnet_state_dict, "waternet": ti.waternet_state_dict,
                "mswnet": ti.mswnet_state_dict, "hrnet_water": ti.hrnet_water_state_dict,
-               "pspnet": ti.pspnet_state_dict, "deeplabv3p": ti.deeplabv3plus_state_dict}
+               "pspnet": ti.pspnet_state_dict, "deeplabv3p": ti.deeplabv3plus_state_dict,
+               "yoloseg": ti.yoloseg_state_dict, "fastscnn": ti.fastscnn_state_dict,
+               "enet": ti.enet_state_dict, "segformer_lite": ti.segformer_lite_state_dict}
 #: the JAX model classes of the zoo architectures, by ARCHS key
 ZOO_MODELS = {"waternet": ("coastline.models.waternet", "WaterNet"),
               "mswnet": ("coastline.models.mswnet", "MSWNet"),
               "hrnet_water": ("coastline.models.hrnet_water", "HRNetWater"),
               "pspnet": ("coastline.models.pspnet", "PSPNet"),
-              "deeplabv3p": ("coastline.models.deeplabv3p", "DeepLabV3Plus")}
+              "deeplabv3p": ("coastline.models.deeplabv3p", "DeepLabV3Plus"),
+              "yoloseg": ("coastline.models.yoloseg", "YOLOSeg"),
+              "fastscnn": ("coastline.models.fastscnn", "FastSCNN"),
+              "enet": ("coastline.models.enet", "ENet"),
+              "segformer_lite": ("coastline.models.segformer_lite", "SegFormerLite")}
 
 ARCHS = {"unet": (ti.random_unet_variables, ti.unet_state_dict),
          "robust_unet": (ti.random_robust_unet_variables, ti.robust_unet_state_dict),
@@ -108,6 +121,9 @@ CONV_CASES = {  # (input shape, C_out, kernel, padding, dilation, lhs_dilation, 
     "stride 2 even": ((1, 8, 12, 128), 64, 3, 1, 1, None, 2),
     "transposed 4x4": ((2, 5, 7, 128), 64, 4, ((2, 2), (2, 2)), 1, (2, 2), 1),
     "C_in 144": ((2, 8, 10, 144), 64, 3, 1, 1, None, 1),
+    "transposed 3x3": ((2, 5, 7, 128), 64, 3, ((1, 2), (1, 2)), 1, (2, 2), 1),
+    "stride 4": ((2, 16, 12, 64), 64, 4, 0, 1, None, 4),
+    "stride 2 2x2": ((2, 8, 10, 128), 128, 2, 0, 1, None, 2),
 }
 
 
@@ -153,32 +169,34 @@ def test_pack_weights_layouts():
             assert torch.equal(sub[2 * py + px], wt[1 - py, 1 - px].T)
 
 
-@pytest.mark.parametrize("k", [2, 4])
+@pytest.mark.parametrize("k", [2, 4, 3])
 def test_pack_weights_transposed_parities_equal_jax(k):
     """The kernel's split of a transposed conv (lhs dilation 2, a k x k
-    kernel, padding k / 2): parity (py, px) is the dense h x h conv (h = k /
-    2) of the packed sub-matrix over the input grid, with leading padding
-    `parity_taps`, written at output stride 2. Replayed here in float64 from
-    the packed layout, it equals JAX's int32 lhs-dilated conv bit for bit."""
+    kernel, padding (k // 2, k - k // 2)): parity (py, px) is the dense n x n
+    conv (n = (k + 1) // 2; ENet's 3x3 padded with zero taps) of the packed
+    sub-matrix over the input grid, with leading padding `parity_taps`,
+    written at output stride 2. Replayed here in float64 from the packed
+    layout, it equals JAX's int32 lhs-dilated conv bit for bit."""
     import jax
 
-    h = k // 2
+    lo, n = k // 2, (k + 1) // 2
     rng = np.random.default_rng(k)
     x = rng.integers(-127, 128, (2, 5, 7, 32), dtype=np.int8)
     wq = rng.integers(-127, 128, (k, k, 32, 8), dtype=np.int8)
     ref = jax.lax.conv_general_dilated(
-        jnp.asarray(x), jnp.asarray(wq), (1, 1), ((h, h), (h, h)), lhs_dilation=(2, 2),
-        dimension_numbers=("NHWC", "HWIO", "NHWC"), preferred_element_type=jnp.int32)
+        jnp.asarray(x), jnp.asarray(wq), (1, 1), ((lo, k - lo), (lo, k - lo)),
+        lhs_dilation=(2, 2), dimension_numbers=("NHWC", "HWIO", "NHWC"),
+        preferred_element_type=jnp.int32)
     mat = pack_weights(torch.from_numpy(wq), transposed=True)
-    assert mat.shape == (4, 8, h * h * 32)
+    assert mat.shape == (4, 8, n * n * 32) and ref.shape[1:3] == (10, 14)
     got = torch.zeros(ref.shape, dtype=torch.int32)
     xt = torch.from_numpy(x).permute(0, 3, 1, 2).double()
     for py in (0, 1):
         for px in (0, 1):
-            sub = mat[2 * py + px].reshape(8, h, h, 32).permute(0, 3, 1, 2).double()
-            lt, ll = parity_taps(h, py)[1], parity_taps(h, px)[1]
+            sub = mat[2 * py + px].reshape(8, n, n, 32).permute(0, 3, 1, 2).double()
+            lt, ll = parity_taps(k, py)[1], parity_taps(k, px)[1]
             acc = torch.nn.functional.conv2d(
-                torch.nn.functional.pad(xt, (ll, h - 1 - ll, lt, h - 1 - lt)), sub)
+                torch.nn.functional.pad(xt, (ll, n - 1 - ll, lt, n - 1 - lt)), sub)
             got[:, py::2, px::2] = acc.permute(0, 2, 3, 1).to(torch.int32)
     assert np.array_equal(np.asarray(ref), got.numpy())
 
@@ -198,6 +216,69 @@ def test_float_conv_transposed_4x4_matches_jax():
                          (2, 2), torch.float32)
     assert got.shape == (2, 12, 10, 32)
     np.testing.assert_allclose(np.asarray(ref), got.numpy(), rtol=1e-5, atol=1e-5)
+
+
+FLOAT_CASES = {  # (input shape, weight HWIO, padding, lhs dilation, stride, groups)
+    "transposed 3x3 (ENet up1)": ((2, 6, 5, 64), (3, 3, 64, 16), ((1, 2), (1, 2)), (2, 2), 1, 1),
+    "transposed 2x2 (ENet head)": ((2, 6, 5, 16), (2, 2, 16, 1), ((1, 1), (1, 1)), (2, 2), 1, 1),
+    "depthwise (Fast-SCNN ds0)": ((2, 9, 8, 32), (3, 3, 1, 32), 1, None, 2, 32),
+    "depthwise (Mix-FFN)": ((2, 8, 8, 128), (3, 3, 1, 128), 1, None, 1, 128),
+}
+
+
+@pytest.mark.parametrize("case", sorted(FLOAT_CASES))
+def test_float_conv_transposed_and_grouped_match_jax(case):
+    """The float path's ENet transposed convs (torch's transposed conv with
+    output padding for pads (1, 2)) and the depthwise 3x3s (groups = C)
+    against JAX's lhs-dilated and grouped convs in float32."""
+    shape, wshape, pads, lhs, stride, groups = FLOAT_CASES[case]
+    rng = np.random.default_rng(len(case))
+    x = rng.standard_normal(shape).astype(np.float32)
+    w = (rng.standard_normal(wshape) * 0.1).astype(np.float32)
+    b = rng.standard_normal(wshape[-1]).astype(np.float32)
+    ctx = jq._Ctx(None, dtype=jnp.float32)
+    ref = jq._conv(ctx, jq._QT(jnp.asarray(x)), (w, b), stride=stride, padding=pads,
+                   lhs_dilation=lhs, groups=groups)
+    got = tq._float_conv(torch.from_numpy(x), torch.from_numpy(w), torch.from_numpy(b),
+                         tq.normalize_padding(pads), 1, lhs, torch.float32, stride, groups)
+    assert got.shape == ref.shape
+    np.testing.assert_allclose(np.asarray(ref), got.numpy(), rtol=1e-5, atol=1e-5)
+
+
+@pytest.mark.parametrize("dtype", sorted(DTYPES))
+def test_leaky_and_gelu_match_jax(dtype):
+    """`leaky_relu` (the int8 conv's epilogue and the float path) is
+    `jax.nn.leaky_relu(t, 0.1)` bit for bit; `_gelu` is
+    `jax.nn.gelu(t, approximate=False)` bit for bit in bfloat16, and in
+    float32 within 5e-6 relative: torch's float32 erfc is not XLA's
+    polynomial, so 40% of the values are some ulps apart (the most, 3.8e-6,
+    in erfc's far tail).
+    Subnormals are excluded, inputs and outputs: XLA's CPU code treats a
+    subnormal input as zero (leaky_relu(-1e-40) is -1e-40 there), and where
+    gelu's output is subnormal the two erfc's underflow apart (about 3e-6
+    of these values). F.leaky_relu and F.gelu round otherwise in bf16 (10%
+    and 41% of values)."""
+    import jax
+
+    jdt, tdt = DTYPES[dtype]
+    x = (np.random.default_rng(6).standard_normal(1 << 18) * 4).astype(np.float32)
+    x[:4] = [0.0, -0.0, 1e-40, -1e-40]
+    jx = jnp.asarray(x).astype(jdt)
+    t = torch.from_numpy(np.array(jx.astype(jnp.float32))).to(tdt)
+    tiny = np.finfo(np.float32).tiny
+    xs = np.asarray(jx.astype(jnp.float32))
+    normal_in = (xs == 0) | (np.abs(xs) >= tiny)
+    ref = np.asarray(jax.nn.leaky_relu(jx, 0.1).astype(jnp.float32))
+    got = leaky_relu(t).float().numpy()
+    assert np.array_equal(ref[normal_in].view(np.int32), got[normal_in].view(np.int32))
+    ref = np.asarray(jax.nn.gelu(jx, approximate=False).astype(jnp.float32))
+    got = tq._gelu(t).float().numpy()
+    normal = normal_in & (np.abs(ref) >= tiny)
+    assert normal.mean() > 0.99
+    if tdt == torch.bfloat16:
+        assert np.array_equal(ref[normal].view(np.int32), got[normal].view(np.int32))
+    else:
+        np.testing.assert_allclose(got[normal], ref[normal], rtol=5e-6, atol=0)
 
 
 @pytest.mark.parametrize("window,stride,padding", [(3, 2, 1), (3, 1, 1), (2, 2, 0)])
@@ -297,24 +378,31 @@ def test_pool_and_unpool_on_codes_equal_jax(shape):
 PORTED = {"UNet": "unet", "Robust UNet": "robust_unet", "robustunet": "robust_unet",
           "SegNet": "segnet", "WaterNet": "waternet", "MSWNet": "mswnet",
           "HRNet-Water": "hrnet_water", "PSPNet": "pspnet", "DeepLabV3+": "deeplabv3p",
-          "deeplab": "deeplabv3p"}
+          "deeplab": "deeplabv3p", "YOLO-SEG": "yoloseg", "Fast-SCNN": "fastscnn",
+          "ENet": "enet", "SegFormer-Lite": "segformer_lite"}
 
 
 @pytest.mark.parametrize("name", sorted(PORTED))
 def test_quant_arch_for_names_the_ported_eight(name):
-    """Registry names and aliases of the eight ported architectures resolve
-    to their `ARCHS` keys, as in the JAX package."""
+    """Registry names and aliases of the ported architectures (all twelve)
+    resolve to their `ARCHS` keys, as in the JAX package."""
     assert tq.quant_arch_for(name) == PORTED[name] == jq.quant_arch_for(name)
 
 
 def test_quant_arch_for_leaves_out_the_other_four():
-    for name in ("YOLO-SEG", "Fast-SCNN", "ENet", "SegFormer-Lite", "not_a_model"):
-        assert tq.quant_arch_for(name) is None
-    assert sorted(tq.ARCHS) == sorted(set(PORTED.values()))
-    assert sorted(set(jq.ARCHS) - set(tq.ARCHS)) == ["enet", "fastscnn", "segformer_lite",
-                                                     "yoloseg"]
+    """No architecture is left out any more: every registry name and alias
+    resolves as in the JAX package, `ARCHS` has JAX's twelve keys, and an
+    unknown name (or arch) is refused."""
+    from coastline.models import registry as jax_registry
+
+    names = set(jax_registry.MODEL_REGISTRY) | set(jax_registry._ALIASES)
+    assert len(jax_registry.MODEL_REGISTRY) == 12
+    for name in names | {"not_a_model"}:
+        assert tq.quant_arch_for(name) == jq.quant_arch_for(name), name
+    assert tq.quant_arch_for("not_a_model") is None
+    assert sorted(tq.ARCHS) == sorted(jq.ARCHS) == sorted(set(PORTED.values()))
     with pytest.raises(ValueError, match="ported"):
-        tq.QuantizedModel({}, {}, arch="yoloseg", device="cpu")
+        tq.QuantizedModel({}, {}, arch="not_a_model", device="cpu")
 
 
 def test_quantized_robust_unet_alias():
@@ -421,16 +509,20 @@ def fold_checks(arch, v):
 
 def conv_census(arch, v, x, scales):
     """One default-policy int8 forward of the port on the CPU: its int8 conv
-    calls by kind (all, stride 2, transposed 2x2 and 4x4, C_in = 144), and
+    calls by kind (all, stride 2 and 4, transposed 2x2, 3x3 and 4x4, C_in =
+    144, the leaky-ReLU epilogue), and
     the convs it ran on the float path although JAX's rule (`jq._conv`:
     both channel counts >= 64, groups 1) takes them to the int8 path."""
     qp = tq.quantize_folded(tq.ARCHS[arch][0](STATE_DICTS[arch](v)))
     calls, missed = [], []
     real_int8, real_float = tq.int8_conv, tq._float_conv
 
-    def spy_int8(xq, w, *args, stride=1, **kw):
-        calls.append((tuple(w.hwio.shape), w.transposed, stride))
-        return real_int8(xq, w, *args, stride=stride, **kw)
+    def spy_int8(*args, **kw):
+        call = inspect.signature(real_int8).bind(*args, **kw)
+        call.apply_defaults()
+        a = call.arguments
+        calls.append((tuple(a["w"].hwio.shape), a["w"].transposed, a["stride"], a["act"]))
+        return real_int8(*args, **kw)
 
     def spy_float(xf, w, *args, **kw):
         if min(w.shape[2], w.shape[3]) >= tq.DEFAULT_POLICY["conv_min_ch"]:
@@ -443,10 +535,13 @@ def conv_census(arch, v, x, scales):
     finally:
         tq.int8_conv, tq._float_conv = real_int8, real_float
     assert torch.isfinite(out).all()
-    return dict(int8=len(calls), stride2=sum(s == 2 for _, _, s in calls),
-                transposed2x2=sum(t and w[0] == 2 for w, t, _ in calls),
-                transposed4x4=sum(t and w[0] == 4 for w, t, _ in calls),
-                cin144=sum(w[2] == 144 for w, _, _ in calls), missed=missed)
+    return dict(int8=len(calls), stride2=sum(s == 2 for _, _, s, _ in calls),
+                stride4=sum(s == 4 for _, _, s, _ in calls),
+                transposed2x2=sum(t and w[0] == 2 for w, t, _, _ in calls),
+                transposed3x3=sum(t and w[0] == 3 for w, t, _, _ in calls),
+                transposed4x4=sum(t and w[0] == 4 for w, t, _, _ in calls),
+                cin144=sum(w[2] == 144 for w, _, _, _ in calls),
+                leaky=sum(a == "leaky" for _, _, _, a in calls), missed=missed)
 
 
 def masks(arch, logits):

@@ -61,5 +61,5 @@ def test_deeplabv3p_int8_convs_a_forward(model, scales):
     path."""
     v, x = model
     assert conv_census(ARCH, v, x, scales) == dict(
-        int8=10, stride2=2,
-        transposed2x2=0, transposed4x4=2, cin144=0, missed=[])
+        int8=10, stride2=2, stride4=0,
+        transposed2x2=0, transposed3x3=0, transposed4x4=2, cin144=0, leaky=0, missed=[])

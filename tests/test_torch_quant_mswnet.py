@@ -61,5 +61,5 @@ def test_mswnet_int8_convs_a_forward(model, scales):
     float path). None that JAX runs in int8 takes the float path."""
     v, x = model
     assert conv_census(ARCH, v, x, scales) == dict(
-        int8=18, stride2=0,
-        transposed2x2=4, transposed4x4=0, cin144=0, missed=[])
+        int8=18, stride2=0, stride4=0,
+        transposed2x2=4, transposed3x3=0, transposed4x4=0, cin144=0, leaky=0, missed=[])

@@ -58,5 +58,5 @@ def test_pspnet_int8_convs_a_forward(model, scales):
     maps here) and c4. None that JAX runs in int8 takes the float path."""
     v, x = model
     assert conv_census(ARCH, v, x, scales) == dict(
-        int8=8, stride2=3,
-        transposed2x2=0, transposed4x4=0, cin144=0, missed=[])
+        int8=8, stride2=3, stride4=0,
+        transposed2x2=0, transposed3x3=0, transposed4x4=0, cin144=0, leaky=0, missed=[])
