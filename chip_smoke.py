@@ -120,7 +120,13 @@ Needs one NVIDIA H100 and the CUDA toolkit; builds the kernels from
      for bit against its plain version, timed against its bound and
      cuDNN's bf16 conv. The int8 CLIs (predict --int8
      --save-quantized, predict --batch --quantized, export --quantized-out
-     --calib-images) run in phase 11's subprocess pool;
+     --calib-images) run in phase 11's subprocess pool. Then the AOT
+     serving export (`int8_export`) of the same twelve models: each
+     `export_serving` on the card at batch 8, 512^2 (seconds, `.pt2`
+     bytes), `load_serving`, and the program on the eager forward's input
+     bit-equal to it, with the same kernel launches, a batch of 9 refused,
+     and its events ms and device ms beside the eager forward's; the UNet
+     also through `save_serving_bundle` / `load_serving_bundle`;
   13. a `kernels` JSON line, the card line and the last line:
      {"ok": true, "device": {...}}.
 
@@ -2723,12 +2729,85 @@ def int8_forwards(result) -> dict:
     return out
 
 
+def int8_export(dev, models, x, root):
+    """The AOT serving export of every int8 model in `models` (arch ->
+    `QuantizedModel` on `dev`) at x's shape: `export_serving` (seconds,
+    `.pt2` bytes) and `load_serving`; one counted call of the program on the
+    serving weights, bit-equal to the eager forward on `x` and with its
+    kernel launches (`INT8_CONVS`, SegNet's 4 pools and unpools); a batch
+    of one more refused; events ms and the profiled device ms of the
+    program beside the eager forward's. The UNet's also goes through
+    `save_serving_bundle` / `load_serving_bundle` under `root`, bit-equal
+    to the eager forward."""
+    out, failures = {}, []
+    batch, size = x.shape[0], x.shape[1]
+    bigger = torch.cat([x, x[:1]])
+    for arch, qm in models.items():
+        t0 = time.perf_counter()
+        data = quant_deploy.export_serving(qm, batch, size)
+        export_s = time.perf_counter() - t0
+        fn = quant_deploy.load_serving(data)
+        weights = quant_deploy.serving_weights(qm)
+        eager = qm(x)
+        fn(weights, x)  # warm-up, uncounted
+        sync(dev)
+        for counter in ALL_COUNTERS.values():
+            counter.launches = 0
+        got = fn(weights, x)
+        sync(dev)
+        launches = {k: n for k, n in launch_counts().items() if n}
+        want = {"int8_conv": INT8_CONVS[arch]}
+        if arch == "segnet":
+            want.update(max_pool_with_indices=4, max_unpool=4)
+        try:
+            fn(weights, bigger)
+            refused = None
+        except Exception as e:  # the refusal this checks for
+            refused = f"{type(e).__name__}: {str(e)[:160]}"
+        forwards = {"program": lambda: fn(weights, x), "eager": lambda: qm(x)}
+        profiles = {k: profile_forward(f, f"profile_{arch}_int8_{k}_b{batch}")
+                    for k, f in forwards.items()}
+        times = {k: dict(forward_ms=cuda_ms(f, 5),
+                         forward_device_ms=profiles[k].get("device_ms_per_forward"),
+                         idle_share=profiles[k].get("idle_share"))
+                 for k, f in forwards.items()}
+        r = dict(export_s=export_s, pt2_mb=len(data) / 1e6, launches=launches,
+                 want_launches=want, equal=_bits_equal(got, eager),
+                 batch_plus_one_refused=refused, times=times)
+        log(f"int8_export_{arch}", json.dumps(r))
+        out[arch] = r
+        if launches != want:
+            failures.append(f"{arch} exported program launched {launches}, want {want}")
+        if not r["equal"]:
+            failures.append(f"{arch} exported program differs from the eager int8 forward")
+        if refused is None:
+            failures.append(f"{arch} exported program ran a batch of {batch + 1}")
+        if len(data) >= 4e6:
+            failures.append(f"{arch} serving program is {len(data) / 1e6:.2f} MB, not < 4 MB")
+    if "unet" in models:
+        qm = models["unet"]
+        bundle = os.path.join(root, "unet_bundle")
+        t0 = time.perf_counter()
+        quant_deploy.save_serving_bundle(bundle, qm, batch, size)
+        fn, _ = quant_deploy.load_serving_bundle(bundle, device=dev)
+        got = fn(x)
+        sync(dev)
+        out["unet_bundle"] = dict(
+            s=time.perf_counter() - t0, equal=_bits_equal(got, qm(x)),
+            files={f: os.path.getsize(os.path.join(bundle, f)) for f in sorted(os.listdir(bundle))})
+        log("int8_export_unet_bundle", json.dumps(out["unet_bundle"]))
+        if not out["unet_bundle"]["equal"]:
+            failures.append("the UNet's serving bundle differs from the eager int8 forward")
+    return out, failures
+
+
 def int8_path(dev, save_dir=TRAIN_DIR, size=512, batch=8, check_size=128, check_batch=2,
               scene_size=2048):
     """The int8 PTQ path on the card: the int8 conv at every configuration
-    of the eight int8 forwards at (batch, size, size), the UNet's int8
-    serving from `train_path`'s checkpoint, the other seven's int8 eval
-    forwards (`INT8_EVAL`), and an int8 scene."""
+    of the twelve int8 forwards at (batch, size, size), the UNet's int8
+    serving from `train_path`'s checkpoint, the other eleven's int8 eval
+    forwards (`INT8_EVAL`), an int8 scene, and the AOT serving export of
+    all twelve (`int8_export`)."""
     t0 = time.perf_counter()
     root = fresh_dir(INT8_DIR)
     result, failures = {}, []
@@ -2745,6 +2824,8 @@ def int8_path(dev, save_dir=TRAIN_DIR, size=512, batch=8, check_size=128, check_
     # every conv configuration of the eight forwards, from one forward each
     x = normalize_images(torch.from_numpy(coast_tiles(batch, size, 32)[0]).to(dev))
     configs = int8_conv_configs({a: (lambda m=m: m(x)) for a, m in models.items()})
+    result["export"], fails = int8_export(dev, models, x, root)
+    failures += fails
     del models, ex, x
     for key in EXTRA_INT8_CONFIGS:
         configs.setdefault(key, {})
@@ -2874,7 +2955,8 @@ def main(argv=None) -> int:
                            ("max_unpool", "coastline/pallas/unpool.py:94")):
         t = unpool_times[name]
         by_path = {"segnet_eval": path_launches(segnet, name), "protocol": on_protocol[name],
-                   "segnet_int8_eval": int8["segnet"]["launches"].get(name, 0)}
+                   "segnet_int8_eval": int8["segnet"]["launches"].get(name, 0),
+                   "segnet_int8_export": int8["export"]["segnet"]["launches"].get(name, 0)}
         kernels.append(dict(name=name, route="cuda", source="coastline_torch/csrc/unpool.cu",
                             replaces=replaces, launches=sum(by_path.values()),
                             launches_by_path=by_path,
@@ -2886,6 +2968,8 @@ def main(argv=None) -> int:
                     "int8_scene": int8["scene"]["launches"].get("int8_conv", 0)}
     int8_by_path.update({f"{arch}_int8_eval": int8[arch]["launches"].get("int8_conv", 0)
                          for arch in INT8_EVAL})
+    int8_by_path["int8_export"] = sum(r["launches"].get("int8_conv", 0)
+                                      for arch, r in int8["export"].items() if arch in INT8_CONVS)
     cases = int8["conv_cases"]
     main_case = next((c for c in cases if c["x"] == [8, 512, 512, 64] and c["w"] == [3, 3, 64, 64]
                       and c["codes"] and c["act"] == "relu"), cases[0])  # the UNet's dc0.c2 (and dc8)

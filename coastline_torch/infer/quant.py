@@ -430,7 +430,9 @@ def to_device(tree, device, policy: Optional[Dict] = None,
     path (`int8_eligible`; a transposed conv is an `up*` entry, as in the
     JAX package's forwards) gets the kernel's layout here and leaves its
     float32 `w`, which that path never reads, on the host, unless `arch`'s
-    forward reads it elsewhere (`SLIM_KEEP`)."""
+    forward reads it elsewhere (`SLIM_KEEP`). Under the `split_cat` policy
+    each conv `_conv_cat` splits gets its two halves packed here too, as
+    `_split` {c0: (first, second)} (`split_cat_entries`)."""
     if isinstance(tree, DeviceTree):
         return tree
     device = torch.device(device)
@@ -459,7 +461,14 @@ def to_device(tree, device, policy: Optional[Dict] = None,
             return {k: entry(k, a) for k, a in v.items()}
         return t(v)
 
-    return DeviceTree({k: entry(k, v) for k, v in tree.items()})
+    out = DeviceTree({k: entry(k, v) for k, v in tree.items()})
+    if pol["split_cat"]:
+        for e, c0 in split_cat_entries(out, arch):
+            if split_eligible(e["wq"], c0, pol):
+                hwio = e["wq"].hwio
+                e["_split"] = {c0: (packed(hwio[:, :, :c0].contiguous()),
+                                    packed(hwio[:, :, c0:].contiguous()))}
+    return out
 
 
 # ---------------------------------------------------------------------------
@@ -642,23 +651,48 @@ def _conv_cat(ctx: _Ctx, a: _QT, b: _QT, entry, padding=0) -> torch.Tensor:
     float32, bias 0) and the halves are summed with the bias in the JAX
     package's order. Otherwise the concat in the compute dtype and `_conv`."""
     c0 = a.q.shape[-1]
-    use_int8 = ctx.quant and a.step is not None and b.step is not None and isinstance(entry, dict)
-    if use_int8:
-        bias, wq, wstep = entry["b"], entry["wq"], entry["wstep"]
-        cin, cout = wq.hwio.shape[2], wq.hwio.shape[3]
-        use_int8 = (int8_eligible(c0, cout, False, ctx.policy)
-                    and int8_eligible(cin - c0, cout, False, ctx.policy))
+    use_int8 = (ctx.quant and a.step is not None and b.step is not None
+                and isinstance(entry, dict) and split_eligible(entry["wq"], c0, ctx.policy))
     if not use_int8:
         xcat = _QT(torch.cat([a.f(ctx.dtype), b.f(ctx.dtype)], dim=-1))
         return _conv(ctx, xcat, entry, padding=padding)
-    halves = entry.setdefault("_split", {})
-    if c0 not in halves:  # packed once per model, at the first call
-        halves[c0] = (packed(wq.hwio[:, :, :c0].contiguous()),
-                      packed(wq.hwio[:, :, c0:].contiguous()))
+    first, second = entry["_split"][c0]  # packed once, by `to_device`
+    bias, wstep = entry["b"], entry["wstep"]
     zero = torch.zeros_like(bias)
-    y1 = int8_conv(a.q.contiguous(), halves[c0][0], a.step, wstep, zero, padding)
-    y2 = int8_conv(b.q.contiguous(), halves[c0][1], b.step, wstep, zero, padding)
+    y1 = int8_conv(a.q.contiguous(), first, a.step, wstep, zero, padding)
+    y2 = int8_conv(b.q.contiguous(), second, b.step, wstep, zero, padding)
     return (y1 + y2 + bias).to(ctx.dtype)
+
+
+def split_eligible(wq: PackedWeights, c0: int, policy: Dict) -> bool:
+    """Whether `_conv_cat` splits a conv over concat([a, b]) whose first part
+    has c0 channels: both halves go to the int8 path (`int8_eligible`)."""
+    cin, cout = wq.hwio.shape[2], wq.hwio.shape[3]
+    return int8_eligible(c0, cout, False, policy) and int8_eligible(cin - c0, cout, False, policy)
+
+
+#: The decoders' split-cat convs (`_conv_cat`, under the `split_cat` policy):
+#: arch -> (block prefix, the block's convs that read the concat, whether
+#: up{i}'s output is the concat's first part). Block `{prefix}{5 + i}` reads
+#: the concat of up{i}'s output and a skip (`_forward_unet`, `_forward`).
+SPLIT_CATS = {"unet": ("dc", ("c1",), True), "robust_unet": ("rb", ("short", "c1"), False)}
+
+
+def split_cat_entries(tree, arch: str):
+    """[(entry, c0)] of every conv `_conv_cat` may split in `arch`'s forward,
+    from a `to_device` tree: c0 is the channel count of the concat's first
+    part, the one `_conv_cat` reads from its input."""
+    if arch not in SPLIT_CATS:
+        return []
+    prefix, convs, up_first = SPLIT_CATS[arch]
+    out = []
+    for i in range(4):
+        c_up = tree[f"up{i}"]["wq"].hwio.shape[3]
+        for name in convs:
+            entry = tree[f"{prefix}{5 + i}"][name]
+            cin = entry["wq"].hwio.shape[2]
+            out.append((entry, c_up if up_first else cin - c_up))
+    return out
 
 
 def _maxpool(x: _QT, window: int = 2, stride: int = 2, padding: int = 0) -> _QT:

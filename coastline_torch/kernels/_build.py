@@ -96,6 +96,32 @@ def refuse_grad(name: str, *tensors):
             "torch.inference_mode() (train mode takes its plain version)")
 
 
+def tracing(*tensors) -> bool:
+    """Whether a kernel wrapper's call is being traced (`torch.export`,
+    `torch.compile`, `make_fx`, or any dispatch mode) rather than run: then
+    it calls its custom op, which the trace records as one node. Run
+    eagerly, a wrapper calls the op's registered body for the tensor's
+    device itself, since the dispatcher's Python path costs tens of
+    microseconds a call."""
+    return (torch.compiler.is_compiling() or torch._C._len_torch_dispatch_stack() > 0
+            or any(type(t) is not torch.Tensor for t in tensors))
+
+
+def check_card_inputs(*tensors):
+    """Raise unless `tensors` are contiguous and on one device: a kernel
+    reads them as raw NHWC pointers, so a strided view would give a wrong
+    result without an error. Each op's CUDA registration calls it, so an
+    exported program's call is checked as an eager one is."""
+    dev = tensors[0].device
+    if any(t.device != dev for t in tensors):
+        raise ValueError("all tensors must be on one device")
+    for t in tensors:
+        if not t.is_contiguous():
+            raise ValueError(
+                "CUDA inputs must be contiguous: pass the NHWC view of a channels_last "
+                f"activation (got shape {tuple(t.shape)}, strides {t.stride()})")
+
+
 def check(status: int, what: str):
     """Raise on a non-zero cudaError_t returned by a C entry point."""
     if status != 0:

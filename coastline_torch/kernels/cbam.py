@@ -131,11 +131,7 @@ def _on_card(name, *tensors, params=()) -> bool:
     if dev.type != "cuda":
         raise ValueError(f"unsupported device {dev}")
     _build.refuse_grad(name, *tensors, *params)
-    for t in tensors:
-        if not t.is_contiguous():
-            raise ValueError(
-                "CUDA inputs must be contiguous: pass the NHWC view of a channels_last "
-                f"activation (got shape {tuple(t.shape)}, strides {t.stride()})")
+    _build.check_card_inputs(*tensors)
     return True
 
 

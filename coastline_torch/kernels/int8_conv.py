@@ -47,17 +47,22 @@ Hopper's wgmma (s8 x s8 -> s32, both operands in shared memory), fed by TMA
 tap boxes on mbarriers from one producer thread, in a persistent grid (see
 the source).
 
-`int8_conv` launches the kernel for CUDA tensors (or raises) and runs
-`int8_conv_plain` only for tensors on the CPU. It takes the weights as
+The conv is the custom op `coastline_torch::int8_conv` (`int8_conv_op`),
+so a `torch.export` program of a forward carries it as one node. Its CUDA
+registration launches the kernel (or raises); its CPU registration runs
+`int8_conv_plain`, only for tensors on the CPU. `int8_conv` checks its
+arguments and, run eagerly, calls the registration for x's device itself,
+without the dispatcher's Python path; traced, it calls the op
+(`_build.tracing`). `int8_conv` takes the weights as
 `PackedWeights`, whose kernel layout `packed` builds once on the card. The
 card needs C_in % 16 == 0 (a row of 16-byte multiples for TMA; HRNet-Water's
 fuse conv reads 144 channels), C_out % 8 == 0 and a contiguous NHWC input on
 a 16-byte boundary.
-`.launches` counts kernel launches.
+`int8_conv.launches` counts kernel launches, a program's too.
 """
 
 import ctypes
-from typing import NamedTuple, Optional
+from typing import List, NamedTuple, Optional
 
 import torch
 import torch.nn.functional as F
@@ -212,6 +217,72 @@ def _fn():
     return fn
 
 
+# ---------------------------------------------------------------------------
+# The custom op: `torch.export` carries it as one node
+# ---------------------------------------------------------------------------
+
+
+@torch.library.custom_op("coastline_torch::int8_conv", mutates_args=(), device_types="cpu")
+def int8_conv_op(x: torch.Tensor, w: torch.Tensor, w_step: torch.Tensor, bias: torch.Tensor,
+                 kh: int, kw: int, padding: List[int], dilation: int, stride: int,
+                 lhs_dilation: Optional[List[int]], x_step: float, act: str,
+                 out_dtype: torch.dtype, out_step: Optional[float]) -> torch.Tensor:
+    """The conv as an op, called by `int8_conv` once it has checked its
+    arguments. `w` is the weights in the device's layout: int8 HWIO on the
+    CPU, where this registration runs the plain version, and the kernel's
+    matrix (`pack_weights`) on CUDA; `padding` is [top, bottom, left, right]."""
+    pt, pb, pl, pr = padding
+    return int8_conv_plain(x, w, x_step, w_step, bias, ((pt, pb), (pl, pr)), dilation,
+                           lhs_dilation, out_dtype, act, out_step, stride)
+
+
+@int8_conv_op.register_kernel("cuda")
+def _int8_conv_cuda(x, w, w_step, bias, kh, kw, padding, dilation, stride, lhs_dilation, x_step,
+                    act, out_dtype, out_step):
+    """The kernel's launch: the checks of the storage it reads (one device,
+    contiguous, x on a 16-byte boundary), then one launch, counted in
+    `int8_conv.launches`. `int8_conv` calls it directly when it runs
+    eagerly, a program through the op."""
+    w_step = w_step.to(torch.float32).contiguous()
+    bias = bias.to(torch.float32).contiguous()
+    _build.check_card_inputs(x, w, w_step, bias)
+    if x.data_ptr() % 16:
+        raise ValueError("x must be a contiguous NHWC tensor on a 16-byte boundary (the NHWC "
+                         f"view of a channels_last activation); got address {x.data_ptr():#x}")
+    dev = x.device
+    n, hx, wd, cin = x.shape
+    cout = w_step.shape[0]
+    pt, pb, pl, pr = padding
+    transposed = lhs_dilation is not None
+    ho, wo = _out_hw(hx, wd, kh, kw, ((pt, pb), (pl, pr)), dilation, lhs_dilation, stride)
+    codes = out_step is not None
+    out = torch.empty((n, ho, wo, cout), dtype=torch.int8 if codes else out_dtype, device=dev)
+    if transposed:  # four n x n sub-problems over the input grid; the pads carry lo
+        n_sub, lo = (kh + 1) // 2, kh // 2
+        geom = (n_sub, n_sub, lo, lo, 1, 1, hx, wd)
+    else:
+        geom = (kh, kw, pt, pl, dilation, stride, ho, wo)
+    with torch.cuda.device(dev):
+        status = _fn()(x.data_ptr(), w.data_ptr(), w_step.data_ptr(), bias.data_ptr(),
+                       out.data_ptr(), n, hx, wd, cin, cout, *geom, int(transposed),
+                       float(x_step), int(out_dtype == torch.bfloat16), ACTS.index(act),
+                       int(codes), float(out_step) if codes else 1.0,
+                       torch.cuda.current_stream(dev).cuda_stream)
+    _build.check(status, "int8_conv launch")
+    int8_conv.launches += 1
+    return out
+
+
+@int8_conv_op.register_fake
+def _int8_conv_fake(x, w, w_step, bias, kh, kw, padding, dilation, stride, lhs_dilation, x_step,
+                    act, out_dtype, out_step):
+    pt, pb, pl, pr = padding
+    ho, wo = _out_hw(x.shape[1], x.shape[2], kh, kw, ((pt, pb), (pl, pr)), dilation,
+                     lhs_dilation, stride)
+    dtype = torch.int8 if out_step is not None else out_dtype
+    return x.new_empty((x.shape[0], ho, wo, w_step.shape[0]), dtype=dtype)
+
+
 def int8_conv(x, w: PackedWeights, x_step: float, w_step, bias, padding=0, dilation: int = 1,
               lhs_dilation=None, out_dtype=torch.float32, act: str = "none",
               out_step: Optional[float] = None, stride: int = 1):
@@ -220,7 +291,10 @@ def int8_conv(x, w: PackedWeights, x_step: float, w_step, bias, padding=0, dilat
     float (a float32 value); w_step, bias float32 (C_out,) -> (N, Ho, Wo,
     C_out) contiguous NHWC in out_dtype (float32 or bfloat16), `act` applied
     ("none", "relu" or "leaky"); with `out_step` (a float32 value) the int8
-    codes of that site instead. See the module docstring for the options."""
+    codes of that site instead. See the module docstring for the options.
+    Checks its arguments, then runs the op's body for x's device (the plain
+    version with the HWIO weights on the CPU, the launch with the kernel's
+    layout on CUDA); traced, it calls `int8_conv_op` instead (`_build.tracing`)."""
     if not isinstance(w, PackedWeights):
         raise TypeError(f"w must be PackedWeights (`packed` of the int8 HWIO weights, built "
                         f"once), got {type(w).__name__}")
@@ -249,9 +323,15 @@ def int8_conv(x, w: PackedWeights, x_step: float, w_step, bias, padding=0, dilat
     dev = x.device
     if any(t.device != dev for t in (wq, w_step, bias)):
         raise ValueError("x, w, w_step and bias must be on one device")
+    (pt, pb), (pl, pr) = pads
+    args = ([pt, pb, pl, pr], dilation, stride, list(lhs) if transposed else None,
+            float(x_step), act, out_dtype, None if out_step is None else float(out_step))
+    traced = _build.tracing(x)
     if dev.type == "cpu":
-        return int8_conv_plain(x, wq, x_step, w_step, bias, pads, dilation, lhs, out_dtype,
-                               act, out_step, stride)
+        if traced:
+            return int8_conv_op(x, wq, w_step, bias, kh, kw, *args)
+        return int8_conv_plain(x, wq, x_step, w_step, bias, pads, dilation, lhs, out_dtype, act,
+                               out_step, stride)
     if dev.type != "cuda":
         raise ValueError(f"unsupported device {dev}")
     _build.refuse_grad("int8_conv", x, w_step, bias)
@@ -269,30 +349,7 @@ def int8_conv(x, w: PackedWeights, x_step: float, w_step, bias, padding=0, dilat
     if w.mat is None or w.mat.device != dev:
         raise ValueError("w has no kernel layout on this device: build it once with `packed` "
                          "of the weights on the card")
-    if not x.is_contiguous() or x.data_ptr() % 16:
-        raise ValueError("x must be a contiguous NHWC tensor on a 16-byte boundary (the NHWC "
-                         f"view of a channels_last activation); got strides {x.stride()}")
-    mat = w.mat
-    w_step = w_step.to(torch.float32).contiguous()
-    bias = bias.to(torch.float32).contiguous()
-    n, hx, wd, _ = x.shape
-    codes = out_step is not None
-    out = torch.empty((n, ho, wo, cout), dtype=torch.int8 if codes else out_dtype, device=dev)
-    (pt, _), (pl, _) = pads
-    if transposed:  # four n x n sub-problems over the input grid; the pads carry lo
-        n_sub = (kh + 1) // 2
-        geom = (n_sub, n_sub, lo, lo, 1, 1, hx, wd)
-    else:
-        geom = (kh, kw, pt, pl, dilation, stride, ho, wo)
-    with torch.cuda.device(dev):
-        status = _fn()(x.data_ptr(), mat.data_ptr(), w_step.data_ptr(), bias.data_ptr(),
-                       out.data_ptr(), n, hx, wd, cin, cout, *geom, int(transposed),
-                       float(x_step), int(out_dtype == torch.bfloat16), ACTS.index(act),
-                       int(codes), float(out_step) if codes else 1.0,
-                       torch.cuda.current_stream(dev).cuda_stream)
-    _build.check(status, "int8_conv launch")
-    int8_conv.launches += 1
-    return out
+    return (int8_conv_op if traced else _int8_conv_cuda)(x, w.mat, w_step, bias, kh, kw, *args)
 
 
 int8_conv.launches = 0

@@ -26,13 +26,20 @@ Both also take int8: SegNet's int8 PTQ forward (`infer/quant.py`) pools and
 unpools the activations' codes, as the JAX package's int8 SegNet runs its
 primitives on them (`coastline/infer/quant.py:794`).
 
-Each wrapper launches its kernel for a CUDA tensor (or raises) and runs its
-`*_plain` version only for a tensor on the CPU. A CUDA input must be
-contiguous: the NHWC view of a channels_last activation, read without a copy.
-`.launches` counts kernel launches.
+Each kernel is a custom op (`coastline_torch::max_pool_with_indices`,
+`coastline_torch::max_unpool`), so a `torch.export` program of SegNet's int8
+forward carries each as one node. The op's CUDA registration launches the
+kernel (or raises); its CPU registration runs the `*_plain` version, only
+for a tensor on the CPU. Each wrapper checks its inputs and, run eagerly,
+calls the registration for the tensor's device itself, without the
+dispatcher's Python path; traced, it calls the op (`_build.tracing`). A CUDA
+input must be contiguous: the NHWC view of a channels_last activation, read
+without a copy. The wrappers' `.launches` count kernel launches, a
+program's too.
 """
 
 import ctypes
+from typing import Tuple
 
 import torch
 
@@ -88,7 +95,7 @@ def max_unpool_plain(vals, codes):
 
 
 # ---------------------------------------------------------------------------
-# Wrappers
+# The custom ops (`torch.export` carries each as one node) and the wrappers
 # ---------------------------------------------------------------------------
 
 
@@ -100,13 +107,20 @@ def _fn(name):
     return fn
 
 
-def max_pool_with_indices(x):
-    """(B, H, W, C) float32, bfloat16 or int8, H and W even -> (values (B, H/2,
-    W/2, C) in x.dtype, int32 codes), both contiguous NHWC."""
-    _check("x", x, 4)
-    _check_even(x)
-    if not _on_card("max_pool_with_indices", x):
-        return max_pool_with_indices_plain(x)
+@torch.library.custom_op("coastline_torch::max_pool_with_indices", mutates_args=(),
+                         device_types="cpu")
+def max_pool_with_indices_op(x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The pool as an op, called by `max_pool_with_indices` once it has
+    checked `x`: the plain version on the CPU, the kernel on CUDA."""
+    return max_pool_with_indices_plain(x)
+
+
+@max_pool_with_indices_op.register_kernel("cuda")
+def _max_pool_with_indices_cuda(x):
+    """The kernel's launch, counted in `max_pool_with_indices.launches`;
+    the wrapper calls it directly when it runs eagerly, a program through
+    the op."""
+    _build.check_card_inputs(x)
     b, h, w, c = x.shape
     vals = torch.empty((b, h // 2, w // 2, c), dtype=x.dtype, device=x.device)
     codes = torch.empty(vals.shape, dtype=torch.int32, device=x.device)
@@ -119,15 +133,25 @@ def max_pool_with_indices(x):
     return vals, codes
 
 
-def max_unpool(vals, codes):
-    """values (B, h, w, C) float32, bfloat16 or int8, int32 codes of the same shape
-    -> (B, 2h, 2w, C) contiguous NHWC in values' dtype."""
-    _check("vals", vals, 4)
-    _check("codes", codes, 4, torch.int32)
-    if codes.shape != vals.shape:
-        raise ValueError(f"codes {tuple(codes.shape)} must match vals {tuple(vals.shape)}")
-    if not _on_card("max_unpool", vals, codes):
-        return max_unpool_plain(vals, codes)
+@max_pool_with_indices_op.register_fake
+def _max_pool_with_indices_fake(x):
+    b, h, w, c = x.shape
+    vals = x.new_empty((b, h // 2, w // 2, c))
+    return vals, vals.new_empty(vals.shape, dtype=torch.int32)
+
+
+@torch.library.custom_op("coastline_torch::max_unpool", mutates_args=(), device_types="cpu")
+def max_unpool_op(vals: torch.Tensor, codes: torch.Tensor) -> torch.Tensor:
+    """The unpool as an op, called by `max_unpool` once it has checked its
+    inputs: the plain version on the CPU, the kernel on CUDA."""
+    return max_unpool_plain(vals, codes)
+
+
+@max_unpool_op.register_kernel("cuda")
+def _max_unpool_cuda(vals, codes):
+    """The kernel's launch, counted in `max_unpool.launches` (called as
+    `_max_pool_with_indices_cuda` is)."""
+    _build.check_card_inputs(vals, codes)
     b, h, w, c = vals.shape
     out = torch.empty((b, 2 * h, 2 * w, c), dtype=vals.dtype, device=vals.device)
     with torch.cuda.device(vals.device):
@@ -137,6 +161,38 @@ def max_unpool(vals, codes):
     _build.check(status, "max_unpool launch")
     max_unpool.launches += 1
     return out
+
+
+@max_unpool_op.register_fake
+def _max_unpool_fake(vals, codes):
+    b, h, w, c = vals.shape
+    return vals.new_empty((b, 2 * h, 2 * w, c))
+
+
+def max_pool_with_indices(x):
+    """(B, H, W, C) float32, bfloat16 or int8, H and W even -> (values (B, H/2,
+    W/2, C) in x.dtype, int32 codes), both contiguous NHWC."""
+    _check("x", x, 4)
+    _check_even(x)
+    if _build.tracing(x):
+        return max_pool_with_indices_op(x)
+    if not _on_card("max_pool_with_indices", x):
+        return max_pool_with_indices_plain(x)
+    return _max_pool_with_indices_cuda(x)
+
+
+def max_unpool(vals, codes):
+    """values (B, h, w, C) float32, bfloat16 or int8, int32 codes of the same shape
+    -> (B, 2h, 2w, C) contiguous NHWC in values' dtype."""
+    _check("vals", vals, 4)
+    _check("codes", codes, 4, torch.int32)
+    if codes.shape != vals.shape:
+        raise ValueError(f"codes {tuple(codes.shape)} must match vals {tuple(vals.shape)}")
+    if _build.tracing(vals):
+        return max_unpool_op(vals, codes)
+    if not _on_card("max_unpool", vals, codes):
+        return max_unpool_plain(vals, codes)
+    return _max_unpool_cuda(vals, codes)
 
 
 max_pool_with_indices.launches = 0

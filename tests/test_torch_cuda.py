@@ -884,3 +884,97 @@ def test_quantized_extractor_on_card(dev, tmp_path):
     host = served.predict_scene(scene, batch=4, with_band=5, device_pipeline=False)
     np.testing.assert_array_equal(mask, host[0])
     np.testing.assert_array_equal(band, host[1])
+
+
+def test_custom_ops_on_card_match_plain(dev):
+    """Each custom op's CUDA registration (one kernel launch, counted)
+    against its plain version at one int8 shape, bit for bit, and its fake
+    against the real output (`torch.library.opcheck`)."""
+    from coastline_torch.kernels import unpool
+    from coastline_torch.kernels.int8_conv import (int8_conv, int8_conv_op, int8_conv_plain,
+                                                   pack_weights)
+
+    rng = np.random.default_rng(14)
+    x = torch.from_numpy(rng.integers(-127, 128, (2, 16, 16, 64), dtype=np.int8))
+    wq = torch.from_numpy(rng.integers(-127, 128, (3, 3, 64, 64), dtype=np.int8))
+    ws = torch.from_numpy((rng.random(64) * 1e-3).astype(np.float32))
+    b = torch.from_numpy(rng.standard_normal(64).astype(np.float32))
+    geom = (3, 3, [1, 1, 1, 1], 1, 1, None, 0.0123, "relu", torch.bfloat16, 0.0371)
+    args = (x.to(dev), pack_weights(wq.to(dev)), ws.to(dev), b.to(dev)) + geom
+    before = int8_conv.launches
+    got = int8_conv_op(*args)
+    torch.cuda.synchronize()
+    assert int8_conv.launches == before + 1
+    ref = int8_conv_plain(x, wq, 0.0123, ws, b, 1, 1, None, torch.bfloat16, "relu", 0.0371)
+    assert got.dtype == torch.int8 and torch.equal(got.cpu(), ref)
+    assert set(torch.library.opcheck(int8_conv_op, args).values()) == {"SUCCESS"}
+
+    codes = torch.from_numpy(rng.integers(-3, 4, (2, 16, 128, 64), dtype=np.int8))
+    before = (unpool.max_pool_with_indices.launches, unpool.max_unpool.launches)
+    vals, idx = unpool.max_pool_with_indices_op(codes.to(dev))
+    out = unpool.max_unpool_op(vals, idx)
+    torch.cuda.synchronize()
+    assert (unpool.max_pool_with_indices.launches - before[0],
+            unpool.max_unpool.launches - before[1]) == (1, 1)
+    r_vals, r_idx = unpool.max_pool_with_indices_plain(codes)
+    assert torch.equal(vals.cpu(), r_vals) and torch.equal(idx.cpu(), r_idx)
+    assert torch.equal(out.cpu(), unpool.max_unpool_plain(r_vals, r_idx))
+    for op, op_args in ((unpool.max_pool_with_indices_op, (codes.to(dev),)),
+                        (unpool.max_unpool_op, (vals, idx))):
+        assert set(torch.library.opcheck(op, op_args).values()) == {"SUCCESS"}
+
+
+@pytest.mark.parametrize("arch,want,pools", [("unet", 21, 0), ("segnet", 18, 4)])
+def test_exported_int8_forward_on_card(dev, arch, want, pools, tmp_path):
+    """`export_serving` on the card at 128^2, batch 2: the program on the
+    serving weights is bit-equal to the eager forward and launches the same
+    kernels (the launch counters move in the ops' CUDA registrations); a
+    batch of 1 raises; the bundle round trip is bit-equal too."""
+    from coastline_torch.infer import deploy, quant
+    from coastline_torch.kernels import unpool
+    from coastline_torch.kernels.int8_conv import int8_conv
+    from coastline_torch.utils import torch_import as ti
+
+    make, to_sd = {"unet": (ti.random_unet_variables, ti.unet_state_dict),
+                   "segnet": (ti.random_segnet_variables, ti.segnet_state_dict)}[arch]
+    calib = quant.default_calibration(128, n_scenes=2, device=dev)
+    qm = quant.QuantizedModel.from_state_dict(to_sd(make(seed=0)), calib, arch=arch, device=dev)
+    ref = qm(calib)
+    fn = deploy.load_serving(deploy.export_serving(qm, 2, 128))
+    weights = deploy.serving_weights(qm)
+    before = (int8_conv.launches, unpool.max_pool_with_indices.launches,
+              unpool.max_unpool.launches)
+    got = fn(weights, calib)
+    torch.cuda.synchronize()
+    assert (int8_conv.launches - before[0], unpool.max_pool_with_indices.launches - before[1],
+            unpool.max_unpool.launches - before[2]) == (want, pools, pools)
+    assert _bits_equal(got, ref)
+    with pytest.raises(Exception):
+        fn(weights, calib[:1])
+    deploy.save_serving_bundle(tmp_path / "b", qm, 2, 128)
+    served, _ = deploy.load_serving_bundle(tmp_path / "b", device=dev)
+    assert _bits_equal(served(calib), ref)
+
+
+def test_custom_ops_on_card_refuse_what_the_kernels_cannot_read(dev):
+    """Each op's CUDA registration refuses a strided view and tensors on two
+    devices itself, so a program that calls the op directly is held to the
+    wrapper's checks: the kernels read raw NHWC pointers."""
+    from coastline_torch.kernels import unpool
+    from coastline_torch.kernels.int8_conv import int8_conv_op, pack_weights
+
+    x = torch.zeros((2, 16, 16, 64), dtype=torch.int8, device=dev)
+    w = pack_weights(torch.zeros((3, 3, 64, 64), dtype=torch.int8, device=dev))
+    ws, b = torch.ones(64, device=dev), torch.zeros(64, device=dev)
+    geom = (3, 3, [1, 1, 1, 1], 1, 1, None, 0.0123, "relu", torch.bfloat16, None)
+    with pytest.raises(ValueError, match="contiguous"):
+        int8_conv_op(x.transpose(1, 2), w, ws, b, *geom)
+    with pytest.raises(ValueError, match="one device"):
+        int8_conv_op(x, w, ws.cpu(), b, *geom)
+    with pytest.raises(ValueError, match="contiguous"):
+        unpool.max_pool_with_indices_op(x.transpose(1, 2))
+    vals, idx = unpool.max_pool_with_indices_op(x)
+    with pytest.raises(ValueError, match="contiguous"):
+        unpool.max_unpool_op(vals, idx.transpose(1, 2).contiguous().transpose(1, 2))
+    with pytest.raises(ValueError, match="one device"):
+        unpool.max_unpool_op(vals, idx.cpu())
