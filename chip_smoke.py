@@ -127,7 +127,18 @@ Needs one NVIDIA H100 and the CUDA toolkit; builds the kernels from
      bit-equal to it, with the same kernel launches, a batch of 9 refused,
      and its events ms and device ms beside the eager forward's; the UNet
      also through `save_serving_bundle` / `load_serving_bundle`;
-  13. a `kernels` JSON line, the card line and the last line:
+  13. the multi-device phase (`multi_device_path`): two gloo ranks sharing
+     cuda:0 (`parallel/launch.py`) train the full-width UNet with DDP, two
+     bf16 steps at global batch 8 and 512^2 and a validation pass, against
+     the single-process card run (losses within 2^-8, parameters as
+     `MD_LOSS_REL`'s comment says); run SegNet's sample-sharded
+     `evaluate_model`; and serve a 2048^2 scene through
+     `predict_scene(mesh=)` in bf16 and int8 with the band, bit-identical to
+     one process. The fused conv, SegNet's pool and unpool, the dilation and
+     the int8 conv are counted on each rank and held against their plain
+     versions at a rank's shapes. Then `cli.train --data-parallel 1
+     --sharded-data` through the launcher (one NCCL rank) and torchrun;
+  14. a `kernels` JSON line, the card line and the last line:
      {"ok": true, "device": {...}}.
 
 Float32 convolutions run with cuDNN's TF32 off, so every float32 number
@@ -1496,8 +1507,8 @@ class CountingEvaluator(Evaluator):
 
     made = []
 
-    def __init__(self, model, config, augment_fn=None, device="cuda"):
-        super().__init__(model, config, augment_fn, device)
+    def __init__(self, model, config, augment_fn=None, device="cuda", **kw):
+        super().__init__(model, config, augment_fn, device, **kw)
         self.arch = next(n for n in bench_all.DEFAULT_BENCH_MODELS
                          if isinstance(model, model_class(n)))
         self.eval_forwards, self.train_epochs, self._before = [], [], None
@@ -2844,6 +2855,380 @@ def int8_path(dev, save_dir=TRAIN_DIR, size=512, batch=8, check_size=128, check_
     return result
 
 
+MULTI_DIR = os.path.join(REPO, "build", "multi_device")  # listed in .gitignore
+MD_RANKS, MD_SIZE, MD_BATCH, MD_SCENE = 2, 512, 8, 2048
+# the two-rank run against one process: each step's loss and the validation
+# loss within MD_LOSS_REL (one bf16 rounding, relative); the first step's
+# gradient (DDP's average against one process's) within MD_GRAD_REL in
+# relative L2 norm; rank 0's parameters after two Adam steps at lr 1e-4
+# within 2 x lr x steps (Adam's largest move, 1.1 x for its bias
+# correction), and the two ranks' parameters equal
+MD_LOSS_REL, MD_GRAD_REL = 2.0 ** -8, 0.05
+MD_COUNTERS = ("fused_conv3x3_bn_relu", "max_pool_with_indices", "max_unpool", "dilate_disk",
+               "int8_conv")
+
+
+def md_flags():
+    """The numerics flags `main` sets, on a rank too."""
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = False
+
+
+def md_zero():
+    for fn in ALL_COUNTERS.values():
+        fn.launches = 0
+
+
+def md_counts() -> dict:
+    return {k: n for k, n in launch_counts().items() if k in MD_COUNTERS}
+
+
+def md_train(dev, mesh=None, steps=2):
+    """Two bf16 Adam steps of the full-width 2-class UNet (the trainer's loss,
+    augmentation on) at 512^2, global batch 8, then one validation pass over
+    8 tiles: on one device, or on this rank's rows of every batch with
+    `mesh`. Then two more steps, timed (the first two include cuDNN's plan
+    choice). The launch counters are read around the train steps and
+    around the validation."""
+    sd = unet_state_dict(random_unet_variables(seed=0))
+    images, masks, _ = coast_tiles(steps * MD_BATCH, MD_SIZE, 21)
+    vimages, vmasks, _ = coast_tiles(MD_BATCH, MD_SIZE, 22)
+    model = UNet(n_classes=2, dtype=torch.bfloat16)
+    model.load_state_dict(sd, strict=True)
+    cfg = TrainConfig(batch_size=MD_BATCH, eval_batch_size=MD_BATCH, lr=1e-4, weight_decay=0.0,
+                      loss="ce", seed=0)
+    epoch = make_train_epoch(model, cfg, make_augment_fn(), dev, mesh=mesh)
+    state = create_train_state(model, cfg, device=dev)
+    idx, valid = batch_indices(len(images), MD_BATCH, shuffle=False, rng=np.random.default_rng(0))
+    grads = []  # the first step's gradient, as Adam receives it (DDP's average on a mesh)
+
+    def first_grad(opt, *_):
+        if not grads:
+            grads.append(torch.cat([p.grad.reshape(-1).float() for p in model.parameters()]).cpu())
+
+    hook = state.optimizer.register_step_pre_hook(first_grad)
+    md_zero()
+    state, losses = epoch(state, images, masks, idx, valid, per_step=True)
+    hook.remove()
+    losses = losses.tolist()
+    train_launches = md_counts()
+    params = {k: v.detach().float().cpu() for k, v in model.named_parameters()}
+    flat = torch.cat([v.reshape(-1) for v in params.values()]).double()
+    checksum = [float(flat.sum()), float((flat * flat).sum())]
+    vidx, vvalid = batch_indices(MD_BATCH, MD_BATCH, shuffle=False, rng=np.random.default_rng(0))
+    md_zero()
+    val_loss, agg = make_eval_epoch(model, cfg, dev, mesh=mesh)(vimages, vmasks, vidx, vvalid)
+    val_launches = md_counts()
+    sync(dev)
+    t0 = time.perf_counter()
+    epoch(state, images, masks, idx, valid)
+    sync(dev)
+    step_ms = (time.perf_counter() - t0) / steps * 1e3
+    return dict(losses=losses, val_loss=val_loss, val_metrics=agg, params=params,
+                grad=grads[0], checksum=checksum, train_launches=train_launches,
+                val_launches=val_launches, step_ms=step_ms,
+                rows_per_rank=MD_BATCH // (1 if mesh is None else mesh.size()))
+
+
+def md_segnet(dev, mesh=None):
+    """SegNet's `evaluate_model` at full width, bf16, over 16 tiles of 512^2
+    at batch 8 and a throughput batch of 8: on one device, or on two ranks
+    with the tiles sample-sharded (each rank its 8). Counts its eval
+    forwards (a hook) and the kernel launches."""
+    sd = segnet_state_dict(random_segnet_variables(seed=0))
+    model = create_model("SegNet", dtype=torch.bfloat16)
+    model.load_state_dict(sd, strict=True)
+    images, masks, _ = coast_tiles(2 * MD_BATCH, MD_SIZE, 23)
+    cfg = TrainConfig(batch_size=MD_BATCH, eval_batch_size=MD_BATCH, loss="bce")
+    if mesh is None:
+        ds = DeviceDataset.from_numpy(images, masks, device=dev)
+    else:
+        from coastline_torch.parallel.mesh import shard_device_dataset
+
+        ds = shard_device_dataset(mesh, images, masks)
+    ev = Evaluator(model, cfg, device=dev, mesh=mesh, sharded_data=mesh is not None)
+    forwards = []
+    model.register_forward_pre_hook(lambda m, a: forwards.append(a[0].shape[0]))
+    md_zero()
+    res = ev.evaluate_model(ds, state=create_train_state(ev.model, cfg, device=dev),
+                            throughput_batch=MD_BATCH)
+    sync(dev)
+    return dict(results=res, launches=md_counts(), forwards=len(forwards),
+                rows=sorted(set(forwards)), stored_rows=int(ds.images.shape[0]))
+
+
+def md_scene(dev, mesh=None):
+    """`predict_scene(batch=8, with_band=20)` of a 2048^2 scene with the
+    full-width bf16 UNet and then its int8 `quantize()`d forward: on one
+    device or split over the mesh's ranks. Each is run twice, the second
+    timed, with the counters read over it."""
+    ex = CoastlineExtractor(variables=random_unet_variables(seed=0), dtype=torch.bfloat16,
+                            image_size=MD_SIZE, device=dev)
+    scene, _ = tiled_scene(MD_SCENE, 13)
+    out = {}
+    for kind in ("bf16", "int8"):
+        if kind == "int8":
+            ex.quantize()
+        ex.predict_scene(scene, batch=MD_BATCH, with_band=20, mesh=mesh)
+        sync(dev)
+        md_zero()
+        t0 = time.perf_counter()
+        mask, band = ex.predict_scene(scene, batch=MD_BATCH, with_band=20, mesh=mesh)
+        sync(dev)
+        out[kind] = dict(mask=mask, band=band, s=time.perf_counter() - t0, launches=md_counts())
+    return out
+
+
+def multi_device_rank():
+    """One rank of the multi-device phase (two gloo ranks on `cuda:0`)."""
+    from coastline_torch.parallel.launch import local_device
+    from coastline_torch.parallel.mesh import make_mesh
+
+    md_flags()
+    dev = local_device()
+    mesh = make_mesh(MD_RANKS)
+    out = dict(rank=torch.distributed.get_rank(), device=str(dev),
+               train=md_train(dev, mesh), segnet=md_segnet(dev, mesh),
+               scene=md_scene(dev, mesh))
+    if out["rank"]:  # rank 0's are compared; the checksums show the replicas equal
+        del out["train"]["params"], out["train"]["grad"]
+    return out
+
+
+def hold_md_kernels(dev):
+    """Every kernel the ranks launch, against its plain version at the
+    shapes a rank gives it: the fused conv at (4, 512, 512, 64) bf16 (the
+    UNet's enc1/dec1 conv 2 on a rank's half of batch 8), SegNet's pool and
+    unpool at its first level on 4 tiles (tie-heavy bf16 inputs, bit for
+    bit), the dilation at the scene's (1, 2048, 2048) with size 20, and the
+    int8 conv at every configuration the int8 UNet hands it in a rank's
+    scene forward (its rows of two chunks: batch 8)."""
+    gen = torch.Generator(device=dev).manual_seed(17)
+    b = MD_BATCH // MD_RANKS
+    out, failures = {}, []
+    x = torch.randn((b, MD_SIZE, MD_SIZE, 64), device=dev, generator=gen).to(torch.bfloat16)
+    wt = torch.randn((3, 3, 64, 64), device=dev, generator=gen) * math.sqrt(2.0 / (9 * 64))
+    scale = torch.rand(64, device=dev, generator=gen) + 0.5
+    bias = torch.randn(64, device=dev, generator=gen) * 0.2
+    got, ref = fused_conv3x3_bn_relu(x, wt, scale, bias).float(), \
+        fused_conv3x3_bn_relu_plain(x, wt, scale, bias).float()
+    err = (got - ref).abs()
+    xl = x.permute(0, 3, 1, 2)
+    wl = wt.permute(3, 2, 0, 1).to(torch.bfloat16).contiguous(memory_format=torch.channels_last)
+    s16, b16 = scale.to(torch.bfloat16)[:, None, None], bias.to(torch.bfloat16)[:, None, None]
+    bound_ms, bound_by = bound(2 * x.numel() * 2 + wt.numel() * 2 + 2 * 64 * 4,
+                               2.0 * x.numel() * 9 * 64, PEAK_BF16_FLOPS)
+    out["fused_conv3x3_bn_relu"] = dict(
+        shape=list(x.shape), max_abs_err=float(err.max()),
+        ok=bool(torch.all(err <= 2.0 ** -7 * ref.abs() + 1e-3)),
+        ms=cuda_ms(lambda: fused_conv3x3_bn_relu(x, wt, scale, bias), 20),
+        plain_ms=cuda_ms(lambda: fused_conv3x3_bn_relu_plain(x, wt, scale, bias), 3, 1),
+        library_ms=cuda_ms(lambda: torch.relu(F.conv2d(xl, wl, padding=1) * s16 + b16), 20),
+        bound_ms=bound_ms, bound_by=bound_by)
+    del x, xl, got, ref, err
+    x = _tie_input((b, MD_SIZE, MD_SIZE, 64), torch.bfloat16, dev, gen)
+    vals, codes = unpool.max_pool_with_indices(x)
+    r_vals, r_codes = unpool.max_pool_with_indices_plain(x)
+    up, r_up = unpool.max_unpool(vals, codes), unpool.max_unpool_plain(r_vals, r_codes)
+    n_in, n_out = x.numel(), vals.numel()
+    for name, ok, kern, plain, lib, nbytes, ops in (
+            ("max_pool_with_indices", _bits_equal(vals, r_vals) and _bits_equal(codes, r_codes),
+             lambda: unpool.max_pool_with_indices(x), lambda: unpool.max_pool_with_indices_plain(x),
+             lambda: F.max_pool2d(x.permute(0, 3, 1, 2), 2, return_indices=True),
+             2 * n_in + 2 * n_out + 4 * n_out, 3 * n_out),
+            ("max_unpool", _bits_equal(up, r_up), lambda: unpool.max_unpool(vals, codes),
+             lambda: unpool.max_unpool_plain(vals, codes), None, 2 * n_out + 4 * n_out + 2 * n_in,
+             4 * n_out)):
+        bound_ms, bound_by = bound(nbytes, ops, PEAK_F32_OPS)
+        out[name] = dict(shape=list(x.shape), max_abs_err=0.0 if ok else float("nan"), ok=ok,
+                         ms=cuda_ms(kern, 20), plain_ms=cuda_ms(plain, 5, 1),
+                         library_ms=None if lib is None else cuda_ms(lib, 20),
+                         bound_ms=bound_ms, bound_by=bound_by)
+    del x, vals, codes, r_vals, r_codes, up, r_up
+    ker = elliptical_kernel(20)
+    m = (torch.rand((1, MD_SCENE, MD_SCENE), device=dev, generator=gen) < 0.02).to(torch.uint8)
+    got, ref = dilate_disk(m, ker), dilate_disk_plain(m, ker)
+    groups = se_row_groups(ker)
+    ops_px = max(hi - lo for (lo, hi), _ in groups) + sum(len(s) for _, s in groups)
+    bound_ms, bound_by = bound(2 * m.numel(), ops_px * m.numel(), PEAK_F32_OPS)
+    out["dilate_disk"] = dict(shape=list(m.shape), size=20, ok=bool(torch.equal(got, ref)),
+                              max_abs_err=float((got.float() - ref.float()).abs().max()),
+                              ms=cuda_ms(lambda: dilate_disk(m, ker), 20),
+                              plain_ms=cuda_ms(lambda: dilate_disk_plain(m, ker), 3, 1),
+                              library_ms=cuda_ms(lambda: conv_threshold_dilate(m, ker), 3, 1),
+                              bound_ms=bound_ms, bound_by=bound_by)
+    qm = CoastlineExtractor(variables=random_unet_variables(seed=0), dtype=torch.bfloat16,
+                            image_size=MD_SIZE, device=dev).quantize().quantized
+    xq = normalize_images(torch.from_numpy(tiled_scene(MD_SIZE, 13)[0]).to(dev))[None]
+    configs = int8_conv_configs({"unet": lambda: qm(xq.expand(MD_BATCH, -1, -1, -1)
+                                                    .contiguous())})
+    cases, int8_failures = check_int8_conv(dev, configs, iters=3)
+    failures += int8_failures
+    out["int8_conv"] = dict(configurations=len(cases), ok=not int8_failures,
+                            max_abs_err=max(c["max_abs_err"] for c in cases), cases=cases)
+    for name, row in out.items():
+        log("multi_device_hold", name, json.dumps({k: v for k, v in row.items() if k != "cases"}))
+        if not row["ok"]:
+            failures.append(f"{name} disagrees with its plain version at a rank's shapes: {row}")
+    return out, failures
+
+
+def md_cli(dev):
+    """`cli.train --data-parallel 1 --sharded-data` through the launcher (one
+    NCCL rank on cuda:0), and the same under `torchrun --standalone`, as
+    subprocesses started together; their outputs go to build/multi_device/."""
+    os.makedirs(MULTI_DIR, exist_ok=True)
+    args = ["-m", "coastline_torch.cli.train", "--synthetic", "10", "--epochs", "1",
+            "--image-size", "256", "--batch-size", "4", "--data-parallel", "1",
+            "--sharded-data", "--checkpoint-every", "1"]
+    runs = {"launcher": [sys.executable] + args,
+            "torchrun": [sys.executable, "-m", "torch.distributed.run", "--standalone",
+                         "--nproc-per-node", "1"] + args}
+    env = dict(os.environ, PYTHONPATH=REPO + os.pathsep + os.environ.get("PYTHONPATH", ""))
+    procs = {}
+    for name, cmd in runs.items():
+        log_path = os.path.join(MULTI_DIR, f"cli_{name}.log")
+        procs[name] = (subprocess.Popen(
+            cmd + ["--save-dir", os.path.join(MULTI_DIR, f"cli_{name}")], cwd=REPO, env=env,
+            stdout=open(log_path, "w"), stderr=subprocess.STDOUT), log_path, time.perf_counter())
+    return procs
+
+
+def md_cli_finish(procs):
+    out, failures = {}, []
+    for name, (proc, log_path, t0) in procs.items():
+        rc = proc.wait(timeout=300)
+        text = open(log_path).read()
+        ok = (rc == 0 and "datasets sample-sharded over 1 chips" in text
+              and "done: best IoU" in text)
+        out[name] = dict(rc=rc, s=time.perf_counter() - t0, ok=ok, tail=text[-400:])
+        if not ok:
+            failures.append(f"cli.train --data-parallel 1 --sharded-data ({name}) failed: {text[-2000:]}")
+    return out, failures
+
+
+def multi_device_path(dev):
+    """The multi-device phase: (1) two gloo ranks sharing cuda:0 train the
+    full-width UNet with DDP (two bf16 steps at global batch 8, 512^2, and a
+    validation pass) against the single-process card run; (2) SegNet's
+    sample-sharded `evaluate_model` on the two ranks; (3) `predict_scene(mesh=)`
+    on the two ranks, bf16 and int8 with the band, bit-identical to one
+    process; (4) `cli.train --data-parallel 1 --sharded-data` through the NCCL
+    launcher and torchrun. Every kernel the ranks launch is held against its
+    plain version at a rank's shapes and counted on each rank. Two ranks on
+    one card share its SMs: their times are not a scaling measurement."""
+    from coastline_torch.parallel.launch import run
+
+    t0 = time.perf_counter()
+    single = dict(train=md_train(dev), segnet=md_segnet(dev), scene=md_scene(dev))
+    single_s = time.perf_counter() - t0
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    ranks = run(multi_device_rank, MD_RANKS, device="cuda:0", backend="gloo")
+    ranks_s = time.perf_counter() - t0
+    holds, failures = hold_md_kernels(dev)
+    cli_out, cli_failures = md_cli_finish(md_cli(dev))
+    failures += cli_failures
+
+    ref = single["train"]
+    lr, steps = 1e-4, len(ref["losses"])
+    train = dict(single_losses=ref["losses"], single_val_loss=ref["val_loss"],
+                 single_step_ms=ref["step_ms"], ranks=[])
+    for r in ranks:
+        t, s = r["train"], r["segnet"]
+        row = dict(rank=r["rank"], device=r["device"], losses=t["losses"],
+                   loss_rel=[abs(a - b) / abs(b) for a, b in zip(t["losses"], ref["losses"])],
+                   val_loss=t["val_loss"], val_rel=abs(t["val_loss"] - ref["val_loss"])
+                   / abs(ref["val_loss"]), step_ms=t["step_ms"],
+                   train_launches=t["train_launches"], val_launches=t["val_launches"])
+        row["checksum"] = t["checksum"]
+        if "params" in t:
+            d = torch.cat([(t["params"][k] - ref["params"][k]).abs().reshape(-1)
+                           for k in ref["params"]])
+            row.update(param_max_abs=float(d.max()), param_share_within_lr_10=float(
+                (d <= lr / 10).float().mean()), n_params=int(d.numel()),
+                grad_rel_l2=float((t["grad"] - ref["grad"]).norm() / ref["grad"].norm()))
+        train["ranks"].append(row)
+        if max(row["loss_rel"]) > MD_LOSS_REL or row["val_rel"] > MD_LOSS_REL:
+            failures.append(f"rank {r['rank']}'s UNet losses are off the single-process run: {row}")
+        if "param_max_abs" in row and (row["param_max_abs"] > 2 * lr * steps * 1.1
+                                       or row["grad_rel_l2"] > MD_GRAD_REL):
+            failures.append(f"rank 0's UNet gradient or parameters are off the single-process "
+                            f"run: {row}")
+        if t["checksum"] != ranks[0]["train"]["checksum"]:
+            failures.append(f"rank {r['rank']}'s parameters differ from rank 0's: {row}")
+        if t["train_launches"]["fused_conv3x3_bn_relu"] != 0 or \
+                t["val_launches"]["fused_conv3x3_bn_relu"] != 2:
+            failures.append(f"rank {r['rank']} launched the fused conv {t['train_launches']} in "
+                            f"train steps and {t['val_launches']} in its validation forward, "
+                            f"want 0 and 2")
+        want = {"max_pool_with_indices": 4 * s["forwards"], "max_unpool": 4 * s["forwards"],
+                "fused_conv3x3_bn_relu": 2 * s["forwards"]}
+        got = {k: s["launches"][k] for k in want}
+        if got != want or s["stored_rows"] != MD_BATCH:
+            failures.append(f"rank {r['rank']}'s SegNet evaluation launched {got}, want {want} "
+                            f"({s['forwards']} forwards, {s['stored_rows']} stored rows)")
+        for k in ("mean_iou", "mean_accuracy", "mean_f1_score"):
+            if abs(s["results"][k] - single["segnet"]["results"][k]) > 5e-3:
+                failures.append(f"rank {r['rank']}'s SegNet {k} {s['results'][k]} is off the "
+                                f"single process's {single['segnet']['results'][k]}")
+        for kind in ("bf16", "int8"):
+            a, b = r["scene"][kind], single["scene"][kind]
+            if not (np.array_equal(a["mask"], b["mask"]) and np.array_equal(a["band"], b["band"])):
+                failures.append(f"rank {r['rank']}'s {kind} scene differs from one process's")
+    segnet = dict(single=single["segnet"]["results"], single_launches=single["segnet"]["launches"],
+                  ranks=[dict(rank=r["rank"], results=r["segnet"]["results"],
+                              launches=r["segnet"]["launches"], forwards=r["segnet"]["forwards"],
+                              rows=r["segnet"]["rows"]) for r in ranks])
+    n_side = -(-(MD_SCENE - MD_SIZE // 8) // (MD_SIZE - MD_SIZE // 8))
+    n_tiles = n_side * n_side
+    scene = dict(size=MD_SCENE, tiles=n_tiles, batch=MD_BATCH,
+                 single={k: dict(s=v["s"], launches=v["launches"],
+                                 water_fraction=float(v["mask"].mean()))
+                         for k, v in single["scene"].items()},
+                 ranks=[{k: dict(s=v["s"], launches=v["launches"],
+                                 bit_identical=bool(np.array_equal(v["mask"], single["scene"][k]["mask"])
+                                                    and np.array_equal(v["band"],
+                                                                       single["scene"][k]["band"])))
+                         for k, v in r["scene"].items()} for r in ranks])
+    # rank r forwards chunks r, r + MD_RANKS, ... of 8 tiles each
+    forwards = -(-(-(-n_tiles // MD_BATCH)) // MD_RANKS)
+    for r in scene["ranks"]:
+        if r["bf16"]["launches"]["fused_conv3x3_bn_relu"] != 2 * forwards or \
+                r["bf16"]["launches"]["dilate_disk"] != 1 or \
+                r["int8"]["launches"]["int8_conv"] != INT8_CONVS["unet"] * forwards or \
+                r["int8"]["launches"]["dilate_disk"] != 1:
+            failures.append(f"a rank's scene launches are off: {r}")
+    result = dict(ranks=MD_RANKS, backend="gloo", device="cuda:0", single_s=single_s,
+                  ranks_s=ranks_s, train=train, segnet=segnet, scene=scene, holds=holds,
+                  cli=cli_out, loss_rel_limit=MD_LOSS_REL, grad_rel_limit=MD_GRAD_REL)
+    log("multi_device", json.dumps({k: v for k, v in result.items() if k != "holds"}))
+    with open(os.path.join(MULTI_DIR, "result.json"), "w") as f:
+        json.dump(dict(result, failures=failures), f, indent=1)
+    if failures:
+        raise AssertionError("multi-device phase failed:\n" + "\n".join(failures))
+    return result
+
+
+def md_launches(result) -> dict:
+    """{kernel: {path: launches}} of the phase, summed over the ranks."""
+    out = {}
+    for t, s, sc in zip(result["train"]["ranks"], result["segnet"]["ranks"],
+                        result["scene"]["ranks"]):
+        for k, n in t["val_launches"].items():
+            out.setdefault(k, {}).setdefault("multi_device_unet_validate", 0)
+            out[k]["multi_device_unet_validate"] += n
+        for k, n in s["launches"].items():
+            out.setdefault(k, {}).setdefault("multi_device_segnet_eval", 0)
+            out[k]["multi_device_segnet_eval"] += n
+        for kind in ("bf16", "int8"):
+            for k, n in sc[kind]["launches"].items():
+                out.setdefault(k, {}).setdefault(f"multi_device_scene_{kind}", 0)
+                out[k][f"multi_device_scene_{kind}"] += n
+    return {k: {p: n for p, n in v.items() if n} for k, v in out.items()}
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--out", help="also write every result to this JSON file")
@@ -2888,6 +3273,7 @@ def main(argv=None) -> int:
     extraction = extraction_path(dev, train["save_dir"])
     granule = extraction["granule"]
     int8 = int8_path(dev, train["save_dir"])
+    multi = multi_device_path(dev)
 
     def path_launches(path, name):
         return sum(e["launches"][name] for e in path["epochs"].values())
@@ -2992,6 +3378,13 @@ def main(argv=None) -> int:
                   or (c["lhs_dilation"] and c["w"][0] > 2) or c["act"] == "leaky"],
         library="cuDNN bf16 conv (channels_last) + float32 epilogue + ReLU + the site's "
                 "eager quantization"))
+    for entry in kernels:  # the multi-device phase's launches, summed over its ranks
+        for path, n in md_launches(multi).get(entry["name"], {}).items():
+            entry["launches_by_path"][path] = n
+            entry["launches"] += n
+        if entry["name"] in multi["holds"]:
+            entry["multi_device_hold"] = {k: v for k, v in multi["holds"][entry["name"]].items()
+                                          if k != "cases"}
     if args.out:
         os.makedirs(os.path.dirname(args.out) or ".", exist_ok=True)
         with open(args.out, "w") as f:
@@ -3000,7 +3393,7 @@ def main(argv=None) -> int:
                            robust_unet=robust, unpool_cases=unpool_cases, segnet=segnet,
                            zoo=zoo, total_s=time.perf_counter() - t_start,
                            unet_train=train, protocol=protocol, extraction=extraction,
-                           int8=int8),
+                           int8=int8, multi_device=multi),
                       f, indent=1)
     log(f"total {time.perf_counter() - t_start:.1f} s")
     log(json.dumps({"kernels": kernels}))

@@ -1,4 +1,4 @@
-"""The comparison protocol on one device (counterpart of
+"""The comparison protocol (counterpart of
 `coastline/cli/bench_all.py`): for each model, `create_model` ->
 `Evaluator.train_model` -> `evaluate_model`, then the figures, the results
 table and `benchmark_results.json` in the JAX package's layout.
@@ -8,15 +8,19 @@ DeepLabV3+ 25 (`Main_Final.py:862-865`), SegNet 15 / PSPNet 20 / Fast-SCNN
 25 / ENet 20 (`comne.py:978-983`), everything else 20. Every model of the
 registry runs; the default `--models` is the JAX CLI's list of eleven (the
 Robust U-Net and its ten baselines), and an unknown name fails with the
-registry's KeyError before any training. The JAX CLI's multi-device flags
-(--data-parallel, --model-parallel, --sharded-data) are not ported yet and
-exit non-zero.
+registry's KeyError before any training. `--data-parallel N` runs the
+protocol on N ranks, one process a device (`parallel/launch.py`; gloo with
+`--device cpu`), `--model-parallel m` carves a model axis out of them and
+`--sharded-data` sample-shards the datasets over the data axis; rank 0
+prints and writes the figures, the table and the JSON.
 
 Usage:
   python -m coastline_torch.cli.bench_all --images-dir D --labels-dir L
   python -m coastline_torch.cli.bench_all --synthetic 20 --models "Robust UNet,SegNet"
   python -m coastline_torch.cli.bench_all --synthetic 6 --image-size 32 --epochs 1 \
       --device cpu
+  python -m coastline_torch.cli.bench_all --synthetic 8 --image-size 32 --epochs 1 \
+      --models SegNet --device cpu --data-parallel 2 --sharded-data
 """
 
 import argparse
@@ -30,6 +34,7 @@ import torch
 from coastline_torch.data.pipeline import prepare_datasets
 from coastline_torch.data.synthetic import synthetic_device_dataset
 from coastline_torch.models.registry import create_model, model_class
+from coastline_torch.parallel import collectives
 from coastline_torch.train.loop import Evaluator, TrainConfig, normalize_images
 from coastline_torch.utils.device import resolve_device
 from coastline_torch.utils.tables import format_results_table
@@ -93,11 +98,15 @@ def main(argv=None):
     p.add_argument("--error-maps", action="store_true",
                    help="also render per-model error maps (Extended protocol)")
     p.add_argument("--data-parallel", type=int, default=0,
-                   help="not ported yet: any value but 0 exits non-zero")
+                   help="shard batches over N devices (0 = single chip)")
     p.add_argument("--model-parallel", type=int, default=1,
-                   help="not ported yet: any value but 1 exits non-zero")
+                   help="tensor-parallel factor carved out of the "
+                        "--data-parallel device count (channel-sharded "
+                        "params + Adam moments over a 'model' mesh axis)")
     p.add_argument("--sharded-data", action="store_true",
-                   help="not ported yet: exits non-zero")
+                   help="sample-shard the dataset over the mesh's data axis "
+                        "(each chip holds 1/k of the dataset; requires "
+                        "--data-parallel and batch divisible by the axis)")
     p.add_argument("--throughput-batch", type=int, default=64,
                    help="also time inference at this batch and add an img/s "
                         "column to the tables (0 = protocol timing only)")
@@ -109,14 +118,29 @@ def main(argv=None):
                    help="torch device; without a card only 'cpu' runs")
     args = p.parse_args(argv)
 
-    if args.data_parallel or args.model_parallel != 1 or args.sharded_data:
-        print("--data-parallel, --model-parallel and --sharded-data are not ported yet: "
-              "the port's comparison protocol runs on one device", file=sys.stderr)
-        return 2
     names = [m.strip() for m in args.models.split(",") if m.strip()]
     for name in names:
         model_class(name)  # fail on an unknown name before any training
-    dev = resolve_device(args.device)
+    if args.data_parallel:
+        from coastline_torch.parallel import launch
+        from coastline_torch.parallel.mesh import mesh_shape
+
+        mesh_shape(args.data_parallel, model=args.model_parallel)  # the sizes, before any rank
+        return launch.run(_protocol, args.data_parallel, device=args.device, args=(args, names),
+                          quiet=True)[0]
+    return _protocol(args, names)
+
+
+def _protocol(args, names):
+    """The protocol on one device, or on this rank of a `--data-parallel` mesh."""
+    mesh, dev = None, args.device
+    if args.data_parallel:
+        from coastline_torch.parallel.launch import local_device
+        from coastline_torch.parallel.mesh import make_mesh
+
+        mesh = make_mesh(args.data_parallel, model=args.model_parallel)
+        dev = local_device()
+    dev = resolve_device(dev)
 
     if args.synthetic:
         n = args.synthetic
@@ -139,6 +163,29 @@ def main(argv=None):
         train_ds, val_ds = out
         print(f"Found {len(train_ds) + len(val_ds)} valid image-label pairs")
 
+    if mesh is not None:
+        print(f"mesh over {args.data_parallel} devices"
+              + (f" (model-parallel x{args.model_parallel})"
+                 if args.model_parallel > 1 else ""))
+    sharded = False
+    if args.sharded_data:
+        from coastline_torch.parallel.mesh import data_axis_size, shard_device_dataset
+
+        if mesh is None:
+            print("--sharded-data requires --data-parallel; ignoring")
+        elif args.batch_size % data_axis_size(mesh):
+            print(f"--sharded-data needs batch {args.batch_size} divisible "
+                  f"by the data axis ({data_axis_size(mesh)}); falling back "
+                  f"to a replicated dataset")
+        else:
+            train_ds, val_ds = (shard_device_dataset(
+                mesh, np.asarray(torch.as_tensor(ds.images).cpu()),
+                np.asarray(torch.as_tensor(ds.masks).cpu()), ds.paths)
+                for ds in (train_ds, val_ds))
+            sharded = True
+            print(f"datasets sample-sharded over {data_axis_size(mesh)} "
+                  f"chips (1/{data_axis_size(mesh)} per-chip HBM share)")
+
     dtype = torch.bfloat16 if args.dtype == "bfloat16" else torch.float32
     results, histories, param_counts, predictions = {}, {}, {}, {}
     per_model_config = {}
@@ -152,7 +199,7 @@ def main(argv=None):
         param_counts[name] = sum(p.numel() for p in model.parameters())
         print(f"\n{'=' * 40}\nTraining {name}... "
               f"({param_counts[name]:,} params, {cfg.epochs} epochs)")
-        ev = Evaluator(model, cfg, device=dev)
+        ev = Evaluator(model, cfg, device=dev, mesh=mesh, sharded_data=sharded)
         tr = ev.train_model(train_ds, val_ds)
         histories[name] = tr["history"]
         print(f"Best IoU during training: {tr['best_iou']:.4f}")
@@ -168,13 +215,15 @@ def main(argv=None):
                   f"img/s @ batch {res['throughput_batch_size']}")
         if args.error_maps:
             x = normalize_images(torch.as_tensor(val_ds.images[:6]).to(dev))
-            with torch.inference_mode():
+            with torch.inference_mode() if mesh is None else torch.no_grad():
                 probs = ev.state.model.eval()(x.permute(0, 3, 1, 2))
             predictions[name] = probs[:, 0].float().cpu().numpy()
         del model, ev
         if dev.type == "cuda":
             torch.cuda.empty_cache()
 
+    if not collectives.is_main():
+        return 0
     from coastline_torch.report.comparison import plot_comparison, plot_extended_comparison
     from coastline_torch.report.curves import plot_training_curves
 

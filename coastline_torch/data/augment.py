@@ -84,10 +84,18 @@ def make_augment_fn(max_rotate_deg: float = 10.0, flip_prob: float = 0.5, jitter
     flip (Bernoulli `flip_prob`), an angle U(+-max_rotate_deg) and the
     brightness, contrast and saturation factors U(1 +- jitter); then flips,
     rotates (bilinear) and jitters the batch, and flips and rotates the mask
-    (nearest) unless `image_only_geometric`."""
+    (nearest) unless `image_only_geometric`. With `rows = (start, total)`
+    the batch is rows [start, start + N) of one of `total` split over ranks:
+    the parameters are drawn for the whole batch and this rank keeps its
+    rows, so every sample is augmented as in one process."""
 
-    def augment(gen, images, masks):
-        u = torch.rand((images.shape[0], 5), generator=gen, device=images.device)
+    def augment(gen, images, masks, rows=None):
+        n = images.shape[0]
+        if rows is None:
+            u = torch.rand((n, 5), generator=gen, device=images.device)
+        else:
+            start, total = rows
+            u = torch.rand((total, 5), generator=gen, device=images.device)[start:start + n]
         do_flip = u[:, 0] < flip_prob
         angle = (u[:, 1] * 2 - 1) * max_rotate_deg * (math.pi / 180.0)
         images = rotate(flip(images, do_flip), angle)

@@ -47,14 +47,18 @@ def normalize01(x01: torch.Tensor) -> torch.Tensor:
 @dataclass
 class DeviceDataset:
     """The whole dataset on one device: images uint8 (N, H, W, 3), masks
-    uint8 (N, H, W), {0, 1} water masks or the 2-class UNet's class ids."""
+    uint8 (N, H, W), {0, 1} water masks or the 2-class UNet's class ids. A
+    sample-sharded dataset (`parallel/mesh.py::shard_device_dataset`) holds
+    this rank's slab of the padded sample order and `n_valid`, the global
+    count of real samples, which `len()` reports."""
 
     images: torch.Tensor
     masks: torch.Tensor
     paths: Optional[List[str]] = None
+    n_valid: Optional[int] = None
 
     def __len__(self):
-        return int(self.images.shape[0])
+        return int(self.n_valid if self.n_valid is not None else self.images.shape[0])
 
     @staticmethod
     def from_numpy(images: np.ndarray, masks: np.ndarray, paths=None,

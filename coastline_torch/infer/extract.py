@@ -18,8 +18,8 @@ polylines (`infer/contours.py`, on the host). Its entry points:
 
 `quantize()` switches every one of them to the int8 PTQ forward
 (`infer/quant.py`), and `from_quantized` serves a saved `.npz` artifact
-(`infer/deploy.py`) with no float checkpoint. Not ported yet:
-`predict_scene(mesh=)`.
+(`infer/deploy.py`) with no float checkpoint. `predict_scene(mesh=)`
+deals a scene's chunks of tiles over a mesh's ranks (`infer/scene.py`).
 """
 
 import json
@@ -133,6 +133,7 @@ class CoastlineExtractor:
         self.model = model.to(self.device).eval()
         self.quantized = None
         self._predict_fn = _make_predict_fn(self.model, tta=tta)
+        self._scene_cache = {}
 
     # ---------------------------------------------------------------- int8
     def quantize(self, calib_images_u8: Optional[np.ndarray] = None, batch_size: int = 2,
@@ -166,6 +167,7 @@ class CoastlineExtractor:
         self.quantized = qm
         self._predict_fn = _make_predict_fn(
             lambda x: qm(x.permute(0, 2, 3, 1)).permute(0, 3, 1, 2), tta=self.tta)
+        self._scene_cache = {}  # scene functions built around the float forward
 
     @classmethod
     def from_quantized(cls, npz_path: str, image_size: int = 512, tta: bool = False,
@@ -235,7 +237,7 @@ class CoastlineExtractor:
 
     def predict_scene(self, scene_u8: np.ndarray, batch: int = 8,
                       overlap: Optional[int] = None, device_pipeline: bool = True,
-                      with_band: Optional[int] = None):
+                      with_band: Optional[int] = None, mesh=None):
         """(H, W, 3) uint8 scene -> (H, W) uint8 water mask at native
         resolution through the tile pipeline, and with `with_band=<dilation
         size>` also its coastline band, as numpy arrays.
@@ -244,12 +246,18 @@ class CoastlineExtractor:
         `device_pipeline=True` runs `infer/scene.py`: one upload, tiles cut
         on the device, the band from the stitched mask on the device, one
         download of each result. `False` takes the host tiling path; the
-        two are bit-identical."""
+        two are bit-identical.
+
+        `mesh=` (`parallel.mesh.make_mesh`, called on every rank with the
+        same scene) deals the chunks of `batch` tiles over the mesh's data
+        groups (`infer/scene.py` says why whole chunks); every rank gets the
+        whole mask, bit-identical to one device's. The host tiling path
+        ignores `mesh`."""
         if overlap is None:
             overlap = self.image_size // 8
         if device_pipeline:
             out = self._predict_scene_device(scene_u8, batch=batch, overlap=overlap,
-                                             with_band=with_band)
+                                             with_band=with_band, mesh=mesh)
             if with_band is not None:
                 return tuple(t.cpu().numpy() for t in out)
             return out.cpu().numpy()
@@ -272,18 +280,29 @@ class CoastlineExtractor:
 
     def _predict_scene_device(self, scene_u8: np.ndarray, batch: int = 8,
                               overlap: Optional[int] = None,
-                              with_band: Optional[int] = None):
+                              with_band: Optional[int] = None, mesh=None):
         """Queue the device scene pipeline and return its DEVICE tensors (the
         mask, or (mask, band)) without waiting for them: the caller can
         prepare the next scene while the card works on this one. On CUDA the
-        scene is uploaded from pinned memory without blocking the host."""
+        scene is uploaded from pinned memory without blocking the host.
+        Scene functions are cached by geometry and by the mesh's axes, ranks
+        and this rank's device: two meshes of one shape over other ranks
+        never share one."""
         if overlap is None:
             overlap = self.image_size // 8
         from coastline_torch.infer.scene import build_scene_fn
 
         h, w, c = scene_u8.shape
-        fn = build_scene_fn(self._predict_fn, h, w, c, self.image_size, overlap, batch,
-                            band_dilation=with_band)
+        mesh_key = None if mesh is None else (
+            tuple(zip(mesh.mesh_dim_names, mesh.mesh.shape)),
+            tuple(mesh.mesh.flatten().tolist()), str(self.device))
+        key = (self._predict_fn, h, w, c, self.image_size, overlap, batch, with_band, mesh_key)
+        cache = self.__dict__.setdefault("_scene_cache", {})
+        fn = cache.get(key)
+        if fn is None:
+            fn = cache[key] = build_scene_fn(
+                self._predict_fn, h, w, c, self.image_size, overlap, batch,
+                band_dilation=with_band, mesh=mesh)
         scene = torch.from_numpy(np.ascontiguousarray(scene_u8))
         if self.device.type == "cuda":
             scene = scene.pin_memory()

@@ -17,6 +17,18 @@ with no download in between.
 
 The output equals the host path bit for bit: the same grid, zero padding,
 batch padding and crops, and the same forward on the same tiles.
+
+With a `mesh` (`parallel/mesh.py`, called on every rank) the chunks are
+dealt over the mesh's data groups in turn: group g of k forwards chunks g,
+g + k, ..., each whole, the same `batch` tiles at the same batch positions
+as one device forwards them. So every tile's mask is one device's bit for
+bit: cuDNN's bf16 convolutions round by batch size and by a sample's
+position in the batch (on the H100 a 512^2 UNet's 32^2 bottleneck conv
+gives other bits for a tile at batch 4 than at batch 8, and at position 4
+than at position 0), so splitting each chunk's rows over the ranks, as
+the JAX package shards its chunk batch, would not. The tile masks are
+gathered in order (`parallel/collectives.py::gather`, one collective a
+scene), and every rank stitches, and takes the band of, the whole scene.
 """
 
 from typing import Callable, Optional
@@ -25,6 +37,7 @@ import numpy as np
 import torch
 
 from coastline_torch.infer.morphology import coastline_band
+from coastline_torch.parallel import collectives
 
 
 def _owners(n_tiles: int, stride: int, tile: int, half: int, length: int):
@@ -39,16 +52,26 @@ def _owners(n_tiles: int, stride: int, tile: int, half: int, length: int):
 
 
 def build_scene_fn(predict_fn: Callable, h: int, w: int, channels: int, tile: int,
-                   overlap: int, batch: int, band_dilation: Optional[int] = None) -> Callable:
+                   overlap: int, batch: int, band_dilation: Optional[int] = None,
+                   mesh=None) -> Callable:
     """A function (h, w, channels) uint8 tensor -> (h, w) uint8 mask tensor
     on the scene's device, or (mask, band) with `band_dilation` set.
 
-    `predict_fn` maps a (batch, tile, tile, channels) uint8 tensor to
-    (batch, tile, tile) uint8 masks on the same device (the extractor's
-    forward). Nothing waits for the device: the results are queued."""
+    `predict_fn` maps a (b, tile, tile, channels) uint8 tensor to (b, tile,
+    tile) uint8 masks on the same device (the extractor's forward). Nothing
+    waits for the device: the results are queued. With `mesh` the chunks
+    are dealt over its data groups and the function is called on every
+    rank with the same scene."""
     stride = tile - overlap
     if stride <= 0:
         raise ValueError(f"overlap ({overlap}) must be smaller than tile ({tile})")
+    share = owners = None
+    if mesh is not None:
+        from coastline_torch.parallel.mesh import dataset_sharding, model_axis_size
+
+        share = dataset_sharding(mesh)  # this rank's data group, of how many
+        # the gather is by rank: keep the first rank of each data group
+        owners = mesh.mesh.flatten().tolist()[::model_axis_size(mesh)]
     ny = max(1, -(-max(h - overlap, 1) // stride))
     nx = max(1, -(-max(w - overlap, 1) // stride))
     n = ny * nx
@@ -71,13 +94,22 @@ def build_scene_fn(predict_fn: Callable, h: int, w: int, channels: int, tile: in
         grid = padded.as_strided((ny, nx, tile, tile, channels),
                                  (stride * wp * channels, stride * channels, wp * channels,
                                   channels, 1))
-        masks = torch.empty((-(-n // batch) * batch, tile, tile), dtype=torch.uint8, device=dev)
-        for start in range(0, n, batch):
+        n_chunks = -(-n // batch)
+        group, groups = (0, 1) if share is None else (share.index, share.count)
+        n_local = -(-n_chunks // groups)  # this data group's chunks: group, group + groups, ...
+        masks = torch.empty((n_local, batch, tile, tile), dtype=torch.uint8, device=dev)
+        for c in range(n_local):
+            start = (c * groups + group) * batch
             k = min(batch, n - start)
+            if k <= 0:  # past the grid: the ranks' shares stay one shape
+                masks[c] = 0
+                continue
             chunk = torch.zeros((batch, tile, tile, channels), dtype=torch.uint8, device=dev)
             chunk[:k] = grid[gy[start:start + k], gx[start:start + k]]
-            masks[start:start + batch] = predict_fn(chunk)
-        by_tile = masks[:n].view(ny, nx, tile, tile)
+            masks[c] = predict_fn(chunk)
+        if share is not None:  # (ranks, local chunks) -> chunks in scene order
+            masks = collectives.gather(masks)[owners].transpose(0, 1)
+        by_tile = masks.reshape(-1, tile, tile)[:n].view(ny, nx, tile, tile)
         mask = by_tile[oy[:, None], ox[None, :], ly[:, None], lx[None, :]]
         if band_dilation is None:
             return mask

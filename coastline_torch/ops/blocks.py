@@ -37,7 +37,7 @@ launches `fused_avg_max_pool` at eval; no other block of these launches a
 kernel.
 """
 
-from typing import Optional
+from typing import Optional, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -152,26 +152,39 @@ class Dropout2d(nn.Module):
     mode one Bernoulli keep-mask per (sample, channel), drawn from
     `self.generator` (the torch default generator while it is None), and
     `where(keep, x / (1 - rate), 0)` as flax's Dropout computes it. The
-    masks are not the JAX package's: the random streams differ by design."""
+    masks are not the JAX package's: the random streams differ by design.
+    With `rows = (start, total)` the input is rows [start, start + N) of a
+    batch of `total` split over ranks: the masks are drawn for the whole
+    batch and this rank keeps its rows, so they equal one process's."""
 
     def __init__(self, rate: float):
         super().__init__()
         self.rate = rate
         self.generator: Optional[torch.Generator] = None
+        self.rows: Optional[Tuple[int, int]] = None
 
     def forward(self, x):
         if not self.training or self.rate == 0.0:
             return x
-        keep = torch.rand(x.shape[:2], generator=self.generator, device=x.device) >= self.rate
+        if self.rows is None:
+            keep = torch.rand(x.shape[:2], generator=self.generator, device=x.device)
+        else:
+            start, total = self.rows
+            keep = torch.rand((total, x.shape[1]), generator=self.generator,
+                              device=x.device)[start:start + x.shape[0]]
+        keep = keep >= self.rate
         return torch.where(keep[:, :, None, None], x / (1.0 - self.rate), 0.0)
 
 
-def set_dropout_generator(model: nn.Module, generator: Optional[torch.Generator]):
+def set_dropout_generator(model: nn.Module, generator: Optional[torch.Generator],
+                          rows: Optional[Tuple[int, int]] = None):
     """Every Dropout2d of `model` draws from `generator` from now on (the
-    train epoch hands it the train state's, after the augmentation's draws)."""
+    train epoch hands it the train state's, after the augmentation's draws),
+    for rows `rows` = (start, total) of a split batch, or the whole batch."""
     for m in model.modules():
         if isinstance(m, Dropout2d):
             m.generator = generator
+            m.rows = rows
 
 
 class ChannelAttention(nn.Module):

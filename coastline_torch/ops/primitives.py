@@ -18,6 +18,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from coastline_torch.kernels import unpool
+from coastline_torch.parallel import collectives
 from coastline_torch.ops.initializers import (he_normal_, kaiming_normal_fanout_,
                                               torch_bias_init_, torch_conv_kernel_init_,
                                               torch_convt_kernel_init_)
@@ -107,7 +108,14 @@ class Norm(nn.BatchNorm2d):
     by torch's rule, momentum 0.1 with the unbiased variance (n / (n - 1)).
     This is not `F.batch_norm`, whose two-pass variance and fused backward
     round differently. `update_stats = False` leaves the running statistics
-    as they are (a checkpointed block's recompute, `models/robust_unet.py`)."""
+    as they are (a checkpointed block's recompute, `models/robust_unet.py`).
+
+    Inside `parallel.collectives.split_batch(group)` (a train step whose
+    batch is split over ranks) the per-channel sums of x and x^2 and the
+    count are all-reduced over the group, through an all-reduce autograd
+    sees, so mean, E[x^2], the gradient and n / (n - 1) are the whole
+    batch's, as JAX's sharded step takes them (`nn.SyncBatchNorm` rounds
+    differently)."""
 
     update_stats = True
 
@@ -121,15 +129,27 @@ class Norm(nn.BatchNorm2d):
             inv, shift = self.folded()
         else:
             xf = x.to(torch.promote_types(x.dtype, torch.float32))
-            mean = xf.mean((0, 2, 3))
-            var = ((xf * xf).mean((0, 2, 3)) - mean * mean).clamp_min(0.0)
+            group = collectives.batch_group()
+            if group is None:
+                n = x.numel() // x.shape[1]
+                unbias = n / max(n - 1, 1)
+                mean = xf.mean((0, 2, 3))
+                ex2 = (xf * xf).mean((0, 2, 3))
+            else:  # the batch is split over the group's ranks: its sums are global
+                c = x.shape[1]
+                local = torch.cat([xf.sum((0, 2, 3)), (xf * xf).sum((0, 2, 3)),
+                                   xf.new_full((1,), x.numel() // c)])
+                sums = collectives.all_reduce_grad(local, group)
+                n = sums[-1].detach()
+                unbias = n / (n - 1).clamp_min(1.0)
+                mean, ex2 = sums[:c] / n, sums[c:2 * c] / n
+            var = (ex2 - mean * mean).clamp_min(0.0)
             if self.update_stats:
                 with torch.no_grad():
-                    n = x.numel() // x.shape[1]
                     m = 1.0 - self.momentum  # the JAX package's 0.9: new = m * old + (1 - m) * batch
                     self.running_mean.copy_(m * self.running_mean + (1 - m) * mean)
                     self.running_var.copy_(m * self.running_var
-                                           + (1 - m) * var * (n / max(n - 1, 1)))
+                                           + (1 - m) * var * unbias)
                     self.num_batches_tracked.add_(1)
             inv = self.weight * torch.rsqrt(var + self.eps)
             shift = self.bias - mean * inv

@@ -10,6 +10,14 @@ the previous one. `maybe_save_best` writes `best/model.pth`, the bare
 state_dict in the reference's layout (`train_water_segmentation.py:
 597-606`), which loads with `strict=True` into the port's UNet, the
 reference's, and `CoastlineExtractor(torch_checkpoint=...)`.
+
+On a mesh the files stay what one process writes, so a checkpoint resumes
+at any world size: the full state dict (gathered from an FSDP-sharded model
+with `torch.distributed.checkpoint.state_dict.get_state_dict(...,
+full_state_dict=True, cpu_offload=True)`, the optimizer's state keyed by
+parameter index as `Optimizer.state_dict` keys it), written by rank 0 while
+the others wait; every rank reads it back and, when sharded, keeps its
+shard (`set_state_dict`).
 """
 
 import dataclasses
@@ -19,6 +27,7 @@ from typing import Optional
 
 import torch
 
+from coastline_torch.parallel import collectives
 from coastline_torch.train.lr import PlateauState
 
 _STEP_FILE = re.compile(r"^step_(\d+)\.pth$")
@@ -28,6 +37,50 @@ def _atomic_save(obj, path: str):
     tmp = path + ".tmp"
     torch.save(obj, tmp)
     os.replace(tmp, path)
+
+
+def _sharded(model) -> bool:
+    from coastline_torch.parallel.mesh import is_sharded
+
+    return is_sharded(model)
+
+
+def _by_index(osd):
+    """A full optimizer state dict keyed by parameter name -> by index."""
+    names = [n for g in osd["param_groups"] for n in g["params"]]
+    index = {n: i for i, n in enumerate(names)}
+    return {"state": {index[n]: v for n, v in osd["state"].items()},
+            "param_groups": [{**g, "params": [index[n] for n in g["params"]]}
+                             for g in osd["param_groups"]]}
+
+
+def _by_name(osd, model):
+    """The inverse of `_by_index` for an optimizer made over `model.parameters()`."""
+    names = [n for n, _ in model.named_parameters()]
+    return {"state": {names[i]: v for i, v in osd["state"].items()},
+            "param_groups": [{**g, "params": [names[i] for i in g["params"]]}
+                             for g in osd["param_groups"]]}
+
+
+def full_state_dicts(model, optimizer=None):
+    """(model state_dict, optimizer state_dict or None), unsharded; for an
+    FSDP-sharded model a collective every rank calls, whose result only
+    rank 0 holds (the others get empty dicts)."""
+    if not _sharded(model):
+        return model.state_dict(), None if optimizer is None else optimizer.state_dict()
+    from torch.distributed.checkpoint.state_dict import (StateDictOptions, get_model_state_dict,
+                                                         get_state_dict)
+
+    opts = StateDictOptions(full_state_dict=True, cpu_offload=True)
+    if optimizer is None:
+        return get_model_state_dict(model, options=opts), None
+    msd, osd = get_state_dict(model, optimizer, options=opts)
+    return msd, (_by_index(osd) if osd else osd)
+
+
+def _wait_for_rank0(device):
+    if collectives.group_size() > 1:
+        collectives.barrier(device)
 
 
 class CheckpointManager:
@@ -51,14 +104,16 @@ class CheckpointManager:
         path = self._path(step)
         if os.path.exists(path) and not force:
             raise ValueError(f"checkpoint for step {step} exists in {self.directory}")
-        _atomic_save({"model": state.model.state_dict(),
-                      "optimizer": state.optimizer.state_dict(),
-                      "plateau": dataclasses.asdict(state.plateau),
-                      "step": state.step,
-                      "generator": state.generator.get_state(),
-                      "metrics": dict(metrics or {})}, path)
-        for old in self.steps()[:-self.max_to_keep]:
-            os.remove(self._path(old))
+        msd, osd = full_state_dicts(state.model, state.optimizer)
+        if collectives.is_main():
+            _atomic_save({"model": msd, "optimizer": osd,
+                          "plateau": dataclasses.asdict(state.plateau),
+                          "step": state.step,
+                          "generator": state.generator.get_state(),
+                          "metrics": dict(metrics or {})}, path)
+            for old in self.steps()[:-self.max_to_keep]:
+                os.remove(self._path(old))
+        _wait_for_rank0(state.generator.device)
 
     def maybe_save_best(self, step: int, state, iou: float) -> bool:
         """Export `best/model.pth` when `iou` beats the best so far (the
@@ -66,9 +121,12 @@ class CheckpointManager:
         if iou <= self.best_iou:
             return False
         self.best_iou = iou
-        os.makedirs(os.path.join(self.directory, "best"), exist_ok=True)
-        _atomic_save({k: v.detach().cpu() for k, v in state.model.state_dict().items()},
-                     os.path.join(self.directory, "best", "model.pth"))
+        msd, _ = full_state_dicts(state.model)
+        if collectives.is_main():
+            os.makedirs(os.path.join(self.directory, "best"), exist_ok=True)
+            _atomic_save({k: v.detach().cpu() for k, v in msd.items()},
+                         os.path.join(self.directory, "best", "model.pth"))
+        _wait_for_rank0(state.generator.device)
         return True
 
     def restore(self, state_template, step: Optional[int] = None):
@@ -81,8 +139,16 @@ class CheckpointManager:
         # onto the CPU: loading copies each tensor to its parameter's device,
         # and Adam's step counters stay on the host, as in a run never saved
         payload = torch.load(self._path(step), map_location="cpu", weights_only=True)
-        state_template.model.load_state_dict(payload["model"], strict=True)
-        state_template.optimizer.load_state_dict(payload["optimizer"])
+        model, opt = state_template.model, state_template.optimizer
+        if _sharded(model):
+            from torch.distributed.checkpoint.state_dict import StateDictOptions, set_state_dict
+
+            set_state_dict(model, opt, model_state_dict=payload["model"],
+                           optim_state_dict=_by_name(payload["optimizer"], model),
+                           options=StateDictOptions(full_state_dict=True, strict=True))
+        else:
+            model.load_state_dict(payload["model"], strict=True)
+            opt.load_state_dict(payload["optimizer"])
         state_template.generator.set_state(payload["generator"])
         return dataclasses.replace(state_template, plateau=PlateauState(**payload["plateau"]),
                                    step=payload["step"])

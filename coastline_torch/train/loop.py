@@ -24,8 +24,21 @@ epoch makes one device-to-host copy at its end:
 Randomness: the train state's device generator draws the augmentation and
 then, in forward order, the Robust U-Net's Dropout2d masks. The streams
 differ from JAX's by design.
+
+On a mesh (`parallel/mesh.py`; `mesh=`, one process a device) every rank
+runs the same epoch plan and takes its rows of each batch
+(`batch_sharding`): from the whole dataset, or with `sharded_dataset=True`
+from its own shard through shard-local indices. A train step runs the model
+under `DistributedDataParallel` (or FSDP with a 'model' axis) inside
+`collectives.split_batch`, so BN's statistics are the whole batch's; the
+augmentation and dropout draw for the whole batch and keep the rank's rows;
+each rank's loss is its masked sum over the whole batch's valid count times
+the rank count, so the averaged gradient is the global masked mean's. Eval
+forwards run the bare model under `no_grad`, so the kernels launch; their
+loss sums and per-image metrics are gathered in global order.
 """
 
+import contextlib
 import math
 from dataclasses import dataclass
 from typing import Callable, Dict, Optional, Tuple
@@ -36,6 +49,7 @@ import torch
 from coastline_torch.data.pipeline import HostDataset, normalize01
 from coastline_torch.data.pipeline import normalize_u8 as normalize_images  # the JAX loop's name
 from coastline_torch.ops.blocks import set_dropout_generator
+from coastline_torch.parallel import collectives
 from coastline_torch.train.hsv import hsv_consistency
 from coastline_torch.train.losses import per_image_bce, per_image_cross_entropy
 from coastline_torch.train.lr import PlateauState, plateau_init, plateau_update
@@ -117,10 +131,22 @@ def batch_indices(n: int, batch_size: int, *, shuffle: bool, rng: np.random.Gene
     return padded.reshape(num_batches, batch_size), valid.reshape(num_batches, batch_size)
 
 
-def epoch_indices(ds, batch_size: int, *, shuffle: bool, rng: np.random.Generator):
-    """An epoch's index plan over a dataset of either residency (one device:
-    the global wrap-padded batches of `batch_indices`)."""
-    return batch_indices(len(ds), batch_size, shuffle=shuffle, rng=rng)
+def epoch_indices(ds, batch_size: int, *, shuffle: bool, rng: np.random.Generator,
+                  mesh=None, sharded: bool = False):
+    """An epoch's index plan: the global wrap-padded batches of
+    `batch_indices` (a replicated dataset of either residency), or with
+    `sharded=True` the shard-local aligned batches of a sample-sharded
+    DeviceDataset (`parallel.mesh.sharded_epoch_indices`)."""
+    if not sharded:
+        return batch_indices(len(ds), batch_size, shuffle=shuffle, rng=rng)
+    if isinstance(ds, HostDataset):
+        raise ValueError(
+            "sharded data requires device-resident sharded datasets "
+            "(parallel.mesh.shard_device_dataset); HostDataset chunked "
+            "uploads already bound per-chip HBM — use one or the other")
+    from coastline_torch.parallel.mesh import sharded_epoch_indices
+
+    return sharded_epoch_indices(mesh, ds, batch_size, shuffle=shuffle, rng=rng)
 
 
 def _check_loss(config: TrainConfig):
@@ -128,20 +154,27 @@ def _check_loss(config: TrainConfig):
         raise ValueError(f"unknown loss {config.loss!r}")
 
 
-def _compute_loss(config: TrainConfig, logits, masks, valid, rgb01=None):
-    """Masked mean over the valid samples of per-image mean losses; logits
-    NCHW (one channel for bce, two classes for ce), masks (N, H, W). With
-    `hsv_bce` and `rgb01` (N, H, W, 3) in [0, 1], each image's BCE gains
-    `hsv_weight` times its HSV consistency (`loop.py:112-135`)."""
-    w = valid.float()
+def _per_image_loss(config: TrainConfig, logits, masks, rgb01=None):
+    """(N,) per-image mean losses; logits NCHW (one channel for bce, two
+    classes for ce), masks (N, H, W). With `hsv_bce` and `rgb01` (N, H, W,
+    3) in [0, 1], each image's BCE gains `hsv_weight` times its HSV
+    consistency (`loop.py:112-135`)."""
     if config.loss == "ce":
-        per_img = per_image_cross_entropy(logits, masks)
-    else:
-        per_img = per_image_bce(logits, masks)
-        if config.loss == "hsv_bce" and rgb01 is not None:
-            probs = torch.sigmoid(logits.float()[:, 0] if logits.ndim == 4 else logits.float())
-            per_img = per_img + config.hsv_weight * hsv_consistency(probs, rgb01, axes=(1, 2))
-    return (per_img * w).sum() / w.sum().clamp_min(1.0)
+        return per_image_cross_entropy(logits, masks)
+    per_img = per_image_bce(logits, masks)
+    if config.loss == "hsv_bce" and rgb01 is not None:
+        probs = torch.sigmoid(logits.float()[:, 0] if logits.ndim == 4 else logits.float())
+        per_img = per_img + config.hsv_weight * hsv_consistency(probs, rgb01, axes=(1, 2))
+    return per_img
+
+
+def _compute_loss(config: TrainConfig, logits, masks, valid, rgb01=None, denom=None):
+    """Masked mean over the valid samples of `_per_image_loss`: the masked
+    sum over `denom`, by default the valid count (at least 1)."""
+    w = valid.float()
+    if denom is None:
+        denom = w.sum().clamp_min(1.0)
+    return (_per_image_loss(config, logits, masks, rgb01) * w).sum() / denom
 
 
 def _probs(config: TrainConfig, logits):
@@ -156,8 +189,42 @@ def _as_device(images_u8, masks, idx, valid, dev):
             torch.as_tensor(np.asarray(valid), dtype=torch.float32, device=dev))
 
 
+class _Split:
+    """This rank's share of the batches of a mesh run: its rows of a batch
+    of `b` (`rows(b)`), the rank count and the group the batch splits over,
+    and `net`, the model as the train step calls it: DDP over the group, or
+    with a 'model' axis the model itself, FSDP-sharded in place. No model of
+    the registry leaves a parameter unused in a train step, so DDP runs
+    without `find_unused_parameters`."""
+
+    def __init__(self, mesh, model, dev, train: bool):
+        from coastline_torch.parallel import mesh as pmesh
+
+        self.share = pmesh.batch_sharding(mesh)
+        self.world = mesh.size()
+        self.group = torch.distributed.group.WORLD  # a mesh spans every rank of it
+        self.net = model
+        if train and pmesh.model_axis_size(mesh) > 1:
+            self.net = pmesh.state_sharding(mesh, model)
+        elif train:
+            from torch.nn.parallel import DistributedDataParallel
+
+            self.net = DistributedDataParallel(
+                model, device_ids=[dev.index] if dev.type == "cuda" else None,
+                process_group=self.group)
+
+    def rows(self, b: int) -> slice:
+        return self.share.of(b)
+
+
+def _split(mesh, model, dev, sharded_dataset: bool, train: bool):
+    if sharded_dataset and mesh is None:
+        raise ValueError("sharded_dataset=True requires a mesh")
+    return None if mesh is None else _Split(mesh, model, dev, train)
+
+
 def make_train_epoch(model, config: TrainConfig, augment_fn: Optional[Callable] = None,
-                     device="cuda"):
+                     device="cuda", *, mesh=None, sharded_dataset: bool = False):
     """`train_epoch(state, images_u8, masks, idx, valid) -> (state, mean loss)`
     for `model` on `device`.
 
@@ -169,32 +236,52 @@ def make_train_epoch(model, config: TrainConfig, augment_fn: Optional[Callable] 
     normalization (`loop.py:186-204`). The losses stay on the
     device; the epoch's mean is one host copy at its end, or, with
     `per_step=True`, the (num_batches,) tensor of step losses is returned
-    as it is. Raises without a card unless `device='cpu'`."""
+    as it is. Raises without a card unless `device='cpu'`.
+
+    With `mesh` the step runs this rank's rows of every batch (the module
+    docstring); `sharded_dataset=True` (requires `mesh`) takes a
+    `shard_device_dataset` shard and its shard-local plan. The reported
+    losses are the global batch's. With a 'model' axis the model is sharded
+    in place here, so make the train state's optimizer after this call."""
     _check_loss(config)
     dev = resolve_device(device)
     model.to(dev)  # in place: an optimizer built over its parameters keeps them
+    split = _split(mesh, model, dev, sharded_dataset, train=True)
+    net = model if split is None else split.net
 
     def train_epoch(state: TrainState, images_u8, masks, idx, valid, *, per_step: bool = False):
         images, masks, idx, valid = _as_device(images_u8, masks, idx, valid, dev)
         model.train()
-        set_dropout_generator(model, state.generator)
+        b = idx.shape[1]
+        rows = None if split is None else split.rows(b)
+        set_dropout_generator(model, state.generator, None if rows is None else (rows.start, b))
         opt = state.optimizer
         for group in opt.param_groups:
             group["lr"] = state.plateau.lr
         losses = []
         for bidx, bvalid in zip(idx, valid):
+            denom = None
+            if rows is not None:  # the global masked mean's share: sum_r (num_r / denom) = W * loss
+                denom = bvalid.sum().clamp_min(1.0) / split.world
+                bidx, bvalid = bidx[rows], bvalid[rows]
             x01 = images.index_select(0, bidx).float() / 255.0
             y = masks.index_select(0, bidx)
             if augment_fn is not None:
-                x01, y = augment_fn(state.generator, x01, y)
+                x01, y = (augment_fn(state.generator, x01, y) if rows is None else
+                          augment_fn(state.generator, x01, y, rows=(rows.start, b)))
             x = normalize01(x01).permute(0, 3, 1, 2)
             opt.zero_grad(set_to_none=True)
-            loss = _compute_loss(config, model(x, return_logits=True), y, bvalid, x01)
-            loss.backward()
+            with (contextlib.nullcontext() if split is None
+                  else collectives.split_batch(split.group)):
+                loss = _compute_loss(config, net(x, return_logits=True), y, bvalid, x01, denom)
+                loss.backward()
             opt.step()
             state.step += 1
-            losses.append(loss.detach())
+            losses.append(loss.detach() if denom is None else loss.detach() * denom)
         losses = torch.stack(losses)
+        if split is not None:  # the masked sums of all ranks over each batch's valid count
+            losses = (collectives.all_reduce_sum(losses, split.group)
+                      / valid.sum(1).clamp_min(1.0))
         return state, (losses if per_step else float(losses.mean()))
 
     return train_epoch
@@ -238,7 +325,8 @@ def run_train_epoch_any(train_epoch_fn, state: TrainState, ds, idx, valid):
     return state, float(torch.cat(losses).mean())
 
 
-def make_eval_epoch(model, config: TrainConfig, device="cuda"):
+def make_eval_epoch(model, config: TrainConfig, device="cuda", *, mesh=None,
+                    sharded_dataset: bool = False):
     """The model on `device` behind
     `eval_epoch(images_u8, masks, idx, valid) -> (loss, {'mean_*', 'std_*'})`,
     which runs it in eval mode.
@@ -248,23 +336,44 @@ def make_eval_epoch(model, config: TrainConfig, device="cuda"):
     loss is the mean over batches of each batch's masked mean (`hsv_bce`
     sees `x_u8 / 255`, `loop.py:248-249`); every metric is aggregated over
     the valid samples only, with the population std. Raises without a card
-    unless `device='cpu'`."""
+    unless `device='cpu'`. With `mesh` each rank runs its rows of every
+    batch under `no_grad`; the loss sums are all-reduced and the per-image
+    metrics gathered in global order before the aggregation, which every
+    rank then takes alike."""
     _check_loss(config)
     dev = resolve_device(device)
     model = model.to(dev)
+    split = _split(mesh, model, dev, sharded_dataset, train=False)
 
-    @torch.inference_mode()
     def eval_epoch(images_u8, masks, idx, valid) -> Tuple[float, Dict[str, float]]:
+        with torch.inference_mode() if split is None else torch.no_grad():
+            return _eval(images_u8, masks, idx, valid)
+
+    def _eval(images_u8, masks, idx, valid):
         images, masks, idx, valid = _as_device(images_u8, masks, idx, valid, dev)
         model.eval()
+        rows = None if split is None else split.rows(idx.shape[1])
         losses, metrics = [], []
         for bidx, bvalid in zip(idx, valid):
+            if rows is not None:
+                bidx, bvalid = bidx[rows], bvalid[rows]
             x_u8 = images.index_select(0, bidx)
             x = normalize_images(x_u8).permute(0, 3, 1, 2)
             y = masks.index_select(0, bidx)
             logits = model(x, return_logits=True)
-            losses.append(_compute_loss(config, logits, y, bvalid, x_u8.float() / 255.0))
+            rgb01 = x_u8.float() / 255.0
+            losses.append(_compute_loss(config, logits, y, bvalid, rgb01) if rows is None else
+                          (_per_image_loss(config, logits, y, rgb01) * bvalid).sum())
             metrics.append(per_image_metrics(_probs(config, logits), y.float(), config.threshold))
+        losses = torch.stack(losses)
+        if rows is not None:
+            losses = (collectives.all_reduce_sum(losses, split.group)
+                      / valid.sum(1).clamp_min(1.0))
+            keys = list(metrics[0])
+            local = torch.stack([torch.stack([m[k] for k in keys], 1) for m in metrics])
+            every = collectives.gather(local, split.group)  # (ranks, batches, rows, keys)
+            every = every.transpose(0, 1).reshape(-1, len(keys))
+            metrics = [{k: every[:, j] for j, k in enumerate(keys)}]
         v = valid.reshape(-1)
         n = v.sum().clamp_min(1.0)
         agg = {}
@@ -273,7 +382,7 @@ def make_eval_epoch(model, config: TrainConfig, device="cuda"):
             mean = (vals * v).sum() / n
             agg[f"mean_{key}"] = mean
             agg[f"std_{key}"] = torch.sqrt((((vals - mean) ** 2) * v).sum() / n)
-        out = torch.stack([torch.stack(losses).mean(), *agg.values()]).cpu().tolist()
+        out = torch.stack([losses.mean(), *agg.values()]).cpu().tolist()
         return out[0], dict(zip(agg, out[1:]))
 
     return eval_epoch
@@ -290,16 +399,29 @@ class Evaluator:
     'inference_batch_size', 'total_samples'}`, plus
     `throughput_images_per_sec` and `throughput_batch_size` when asked.
     Datasets are `DeviceDataset`s or `HostDataset`s. Raises without a card
-    unless `device='cpu'`."""
+    unless `device='cpu'`.
 
-    def __init__(self, model, config: TrainConfig, augment_fn=None, device="cuda"):
+    With `mesh` (on every rank of it, `device` the rank's) the epochs split
+    each batch over the ranks; `sharded_data=True` (requires `mesh`) takes
+    sample-sharded DeviceDatasets (`parallel.mesh.shard_device_dataset`),
+    each rank reading only its own shard. Rank 0 alone logs and prints."""
+
+    def __init__(self, model, config: TrainConfig, augment_fn=None, device="cuda", mesh=None,
+                 sharded_data: bool = False):
         self.device = resolve_device(device)
         self.model = model.to(self.device)
         self.config = config
-        self._train_epoch = make_train_epoch(self.model, config, augment_fn, self.device)
-        self._eval_epoch = make_eval_epoch(self.model, config, self.device)
-        self._log = JsonlLogger(config.log_path or None)
+        self.mesh, self.sharded_data = mesh, sharded_data
+        self._train_epoch = make_train_epoch(self.model, config, augment_fn, self.device,
+                                             mesh=mesh, sharded_dataset=sharded_data)
+        self._eval_epoch = make_eval_epoch(self.model, config, self.device, mesh=mesh,
+                                           sharded_dataset=sharded_data)
+        self._log = JsonlLogger((config.log_path or None) if collectives.is_main() else None)
         self.state: Optional[TrainState] = None
+
+    def _epoch_indices(self, ds, batch_size: int, *, shuffle: bool, rng):
+        return epoch_indices(ds, batch_size, shuffle=shuffle, rng=rng, mesh=self.mesh,
+                             sharded=self.sharded_data)
 
     def _run_train_epoch(self, state, ds, idx, valid):
         return run_train_epoch_any(self._train_epoch, state, ds, idx, valid)
@@ -341,15 +463,18 @@ class Evaluator:
         logged and, under `nan_policy='halt'`, ends the run before that
         epoch is recorded."""
         cfg = self.config
+        verbose = verbose and collectives.is_main()
         if init_variables is not None:
-            self.model.load_state_dict(init_variables, strict=True)
+            load_full_state_dict(self.model, init_variables)
         state = create_train_state(self.model, cfg, device=self.device)
         host_rng = np.random.default_rng(cfg.seed)
         history = {k: [] for k in ("train_loss", "val_loss", "val_iou", "val_f1", "val_accuracy")}
         best_iou = 0.0
-        vidx, vvalid = epoch_indices(val_ds, cfg.eval_batch_size, shuffle=False, rng=host_rng)
+        vidx, vvalid = self._epoch_indices(val_ds, cfg.eval_batch_size, shuffle=False,
+                                           rng=host_rng)
         for epoch in range(cfg.epochs):
-            idx, valid = epoch_indices(train_ds, cfg.batch_size, shuffle=True, rng=host_rng)
+            idx, valid = self._epoch_indices(train_ds, cfg.batch_size, shuffle=True,
+                                             rng=host_rng)
             state, train_loss = self._run_train_epoch(state, train_ds, idx, valid)
             val_loss, agg = self._run_eval_epoch(val_ds, vidx, vvalid)
             val_iou = float(agg["mean_iou"])
@@ -357,10 +482,12 @@ class Evaluator:
                 msg = f"non-finite loss at epoch {epoch} (train={train_loss}, val={val_loss})"
                 self._log.log(event="nan", epoch=epoch, train_loss=train_loss)
                 if cfg.nan_policy == "halt":
-                    print(f"HALT: {msg} — stopping (nan_policy=halt); "
-                          f"history up to here is returned")
+                    if verbose:
+                        print(f"HALT: {msg} — stopping (nan_policy=halt); "
+                              f"history up to here is returned")
                     break
-                print(f"WARNING: {msg}")
+                if verbose:
+                    print(f"WARNING: {msg}")
             history["train_loss"].append(train_loss)
             history["val_loss"].append(val_loss)
             history["val_iou"].append(val_iou)
@@ -387,29 +514,53 @@ class Evaluator:
         also times that batch and reports `throughput_images_per_sec`. Each
         timing is `utils.profiling.loop_seconds` over back-to-back eval
         forwards under `torch.inference_mode()`: 20 a trial at the protocol
-        batch, 10 at the throughput batch, the faster of 2 trials."""
+        batch, 10 at the throughput batch, the faster of 2 trials.
+
+        On a mesh every rank times its own forwards at once and the slowest
+        rank's time counts: the protocol batch (the first images of the
+        rank's data) whole on each rank, the throughput batch split, its
+        ceil(throughput_batch / ranks) rows a rank (so the batch rounds up
+        to a multiple of the rank count), gathered from the rank's own
+        shard under `sharded_data`, never from another rank's."""
         cfg = self.config
         state = state or self.state
         model = state.model.eval()
-        idx, valid = epoch_indices(test_ds, cfg.eval_batch_size, shuffle=False,
-                                   rng=np.random.default_rng(0))
+        idx, valid = self._epoch_indices(test_ds, cfg.eval_batch_size, shuffle=False,
+                                         rng=np.random.default_rng(0))
+        images = test_ds.images
+        n_local = len(test_ds)
+        if self.mesh is not None and self.sharded_data:  # rows of this rank's shard
+            n_local = max(1, min(int(images.shape[0]), len(test_ds)))
 
-        def batch_of(n):  # the first n images, wrapping around the dataset
-            rows = np.arange(n) % len(test_ds)
-            images = test_ds.images
+        def batch_of(rows):  # images at `rows`, wrapping around the (local) data
+            rows = np.asarray(rows) % n_local
             x_u8 = (torch.from_numpy(images[rows]) if isinstance(images, np.ndarray)
                     else images.index_select(0, torch.as_tensor(rows, device=images.device)))
             return normalize_images(x_u8.to(self.device)).permute(0, 3, 1, 2)
 
-        def seconds(x, n_loop):
-            with torch.inference_mode():
-                return loop_seconds(lambda: model(x), self.device, n_loop=n_loop)
+        inference = torch.inference_mode if self.mesh is None else torch.no_grad
 
-        x0 = batch_of(min(cfg.eval_batch_size, len(test_ds)))
+        def seconds(x, n_loop):
+            with inference():
+                sec = loop_seconds(lambda: model(x), self.device, n_loop=n_loop)
+            if self.mesh is not None:
+                sec = float(collectives.all_reduce_max(torch.tensor([sec], device=self.device)))
+            return sec
+
+        x0 = batch_of(np.arange(min(cfg.eval_batch_size, len(test_ds))))
         per_image_time = seconds(x0, 20) / x0.shape[0]
         throughput_ips = None
         if throughput_batch and throughput_batch > 0:
-            xb = batch_of(throughput_batch)
+            if self.mesh is None:
+                xb = batch_of(np.arange(throughput_batch))
+            else:
+                ranks = self.mesh.size()
+                per = -(-throughput_batch // ranks)  # ceil: keep >= requested
+                throughput_batch = per * ranks
+                from coastline_torch.parallel.mesh import batch_sharding
+
+                first = 0 if self.sharded_data else batch_sharding(self.mesh).index * per
+                xb = batch_of(first + np.arange(per))
             throughput_ips = throughput_batch / seconds(xb, 10)
             del xb
         _, agg = self._run_eval_epoch(test_ds, idx, valid)
@@ -421,3 +572,19 @@ class Evaluator:
             results["throughput_batch_size"] = int(throughput_batch)
         results["total_samples"] = int(len(test_ds))
         return results
+
+
+def load_full_state_dict(model: torch.nn.Module, state_dict):
+    """Load a full (unsharded) state_dict into `model`, strictly: directly,
+    or into an FSDP-sharded model through
+    `torch.distributed.checkpoint.state_dict.set_model_state_dict`, which
+    keeps each rank's shard."""
+    from coastline_torch.parallel.mesh import is_sharded
+
+    if not is_sharded(model):
+        model.load_state_dict(state_dict, strict=True)
+        return
+    from torch.distributed.checkpoint.state_dict import StateDictOptions, set_model_state_dict
+
+    set_model_state_dict(model, dict(state_dict),
+                         options=StateDictOptions(full_state_dict=True, strict=True))

@@ -16,6 +16,12 @@ bit for bit.
 The train steps run the model in train mode, which takes no fused kernel;
 every validation forward runs in eval mode, where a bf16 UNet launches
 `fused_conv3x3_bn_relu` twice (`enc1`/`dec1` conv 2).
+
+With a mesh (`parallel/mesh.py`, one process a device, `device` the
+rank's) each rank trains and validates on its rows of every batch
+(`train/loop.py`), the validation sums are all-reduced, and rank 0 alone
+writes the checkpoints (full state, `train/checkpoint.py`), the resume
+sidecar, the history, the figures and the progress lines.
 """
 
 import json
@@ -32,8 +38,9 @@ from coastline_torch.data.augment import make_augment_fn
 from coastline_torch.data.pipeline import HostDataset, build_dataset, pair_files, seeded_split
 from coastline_torch.data.rasterize import WATER_LABELS
 from coastline_torch.models.unet import UNet
+from coastline_torch.parallel import collectives
 from coastline_torch.train.checkpoint import CheckpointManager
-from coastline_torch.train.loop import (TrainConfig, _as_device, _chunk_stream,
+from coastline_torch.train.loop import (TrainConfig, _as_device, _chunk_stream, _split,
                                         create_train_state, epoch_indices, make_train_epoch,
                                         normalize_images, run_train_epoch_any)
 from coastline_torch.train.losses import per_image_cross_entropy
@@ -89,13 +96,20 @@ def quality_gate_pairs(image_paths, label_paths, min_px: int = 50, verbose=True)
 
 
 class WaterSegmentationTrainer:
-    """The production trainer on one device. `self.model` is the UNet that
-    `train` trains (its init drawn from `config.seed`; load other weights
-    into it before training to start from them). Raises without a card
-    unless `device='cpu'`."""
+    """The production trainer. `self.model` is the UNet that `train` trains
+    (its init drawn from `config.seed`; load other weights into it before
+    training to start from them). Raises without a card unless
+    `device='cpu'`. `mesh` runs it on every rank of a mesh;
+    `sharded_data=True` (requires `mesh`) takes sample-sharded datasets
+    (`parallel.mesh.shard_device_dataset`), each rank holding and reading
+    only its 1/k."""
 
-    def __init__(self, config: TrainerConfig = TrainerConfig(), device="cuda"):
+    def __init__(self, config: TrainerConfig = TrainerConfig(), mesh=None,
+                 sharded_data: bool = False, device="cuda"):
+        if sharded_data and mesh is None:
+            raise ValueError("sharded_data=True requires a mesh")
         self.config = config
+        self.mesh, self.sharded_data = mesh, sharded_data
         self.device = resolve_device(device)
         dtype = torch.bfloat16 if config.dtype == "bfloat16" else torch.float32
         self.model = UNet(n_classes=2, dtype=dtype, seed=config.seed).to(self.device)
@@ -120,30 +134,43 @@ class WaterSegmentationTrainer:
         batches)`, device scalars: the eval forward over the plan's batches,
         each batch's loss and pixel accuracy masked by its valid samples and
         its IoU over them (union == 0 -> 1.0), averaged over the batches
-        that hold a valid sample (`batches`, for combining chunks)."""
+        that hold a valid sample (`batches`, for combining chunks). On a
+        mesh each rank runs its rows and the batch sums are all-reduced."""
         model = self.model
+        split = _split(self.mesh, model, self.device, self.sharded_data, train=False)
 
-        @torch.inference_mode()
         def validate(images, masks, idx, valid):
+            with torch.inference_mode() if split is None else torch.no_grad():
+                return _validate(images, masks, idx, valid)
+
+        def _validate(images, masks, idx, valid):
             images, masks, idx, valid = _as_device(images, masks, idx, valid, self.device)
             model.eval()
-            rows = []
+            rows = None if split is None else split.rows(idx.shape[1])
+            sums = []
             for bidx, w in zip(idx, valid):
+                if rows is not None:
+                    bidx, w = bidx[rows], w[rows]
                 x = normalize_images(images.index_select(0, bidx)).permute(0, 3, 1, 2)
                 y = masks.index_select(0, bidx).long()
                 logits = model(x, return_logits=True)
-                n_valid = w.sum().clamp_min(1.0)
-                loss = (per_image_cross_entropy(logits, y) * w).sum() / n_valid
                 pred = logits.argmax(1)
-                acc = ((pred == y).float().mean((1, 2)) * w).sum() / n_valid
-                inter = (((pred == 1) & (y == 1)).sum((1, 2)) * w).sum()
-                union = (((pred == 1) | (y == 1)).sum((1, 2)) * w).sum()
-                iou = torch.where(union == 0, 1.0, inter / union.clamp_min(1.0))
-                rows.append(torch.stack([loss, acc, iou, w.max()]))
-            rows = torch.stack(rows)
-            has_valid = rows[:, 3]
+                sums.append(torch.stack([
+                    (per_image_cross_entropy(logits, y) * w).sum(),
+                    ((pred == y).float().mean((1, 2)) * w).sum(),
+                    (((pred == 1) & (y == 1)).sum((1, 2)) * w).sum(),
+                    (((pred == 1) | (y == 1)).sum((1, 2)) * w).sum()]))
+            sums = torch.stack(sums)
+            if split is not None:
+                sums = collectives.all_reduce_sum(sums, split.group)
+            n_valid = valid.sum(1).clamp_min(1.0)
+            loss, acc = sums[:, 0] / n_valid, sums[:, 1] / n_valid
+            inter, union = sums[:, 2], sums[:, 3]
+            iou = torch.where(union == 0, 1.0, inter / union.clamp_min(1.0))
+            has_valid = valid.amax(1)
             n = has_valid.sum().clamp_min(1.0)
-            return (*((rows[:, :3] * has_valid[:, None]).sum(0) / n), has_valid.sum())
+            per_batch = torch.stack([loss, acc, iou], 1)
+            return (*((per_batch * has_valid[:, None]).sum(0) / n), has_valid.sum())
 
         return validate
 
@@ -156,10 +183,12 @@ class WaterSegmentationTrainer:
                            elapsed_s):
         """The full state under step epoch + 1, then the host loop's state in
         the sidecar, written after the state is in place: a crash between
-        the two leaves the previous resume point."""
+        the two leaves the previous resume point. On a mesh, rank 0 writes."""
         step = epoch + 1
         ckpt.save(step, state, metrics={"val_iou": float(val_iou)}, force=True)
         ckpt.wait()
+        if not collectives.is_main():
+            return
         meta = {"epoch": epoch, "ckpt_step": step, "best_iou": float(best_iou),
                 "stale": int(stale),
                 "history": {k: (list(v) if isinstance(v, list) else v)
@@ -194,12 +223,17 @@ class WaterSegmentationTrainer:
                                plateau_patience=cfg.plateau_patience, seed=cfg.seed)
         augment_fn = (make_augment_fn(image_only_geometric=cfg.image_only_geometric)
                       if cfg.augment else None)
-        train_epoch = make_train_epoch(self.model, loop_cfg, augment_fn, device=self.device)
+        verbose = verbose and collectives.is_main()
+        main = collectives.is_main()
+        mesh, sharded = self.mesh, self.sharded_data
+        train_epoch = make_train_epoch(self.model, loop_cfg, augment_fn, device=self.device,
+                                       mesh=mesh, sharded_dataset=sharded)
         validate = self._make_validate()
         state = create_train_state(self.model, loop_cfg, device=self.device)
         ckpt = CheckpointManager(cfg.save_dir)
         host_rng = np.random.default_rng(cfg.seed)
-        vidx, vvalid = epoch_indices(val_ds, cfg.batch_size, shuffle=False, rng=host_rng)
+        vidx, vvalid = epoch_indices(val_ds, cfg.batch_size, shuffle=False, rng=host_rng,
+                                     mesh=mesh, sharded=sharded)
 
         def run_validate():
             if isinstance(val_ds, HostDataset):
@@ -232,7 +266,8 @@ class WaterSegmentationTrainer:
                           f"(best IoU {best_iou:.4f})")
         last_epoch, last_saved, val_iou = None, start_epoch, float("nan")
         for epoch in range(start_epoch, cfg.epochs):
-            idx, valid = epoch_indices(train_ds, cfg.batch_size, shuffle=True, rng=host_rng)
+            idx, valid = epoch_indices(train_ds, cfg.batch_size, shuffle=True, rng=host_rng,
+                                       mesh=mesh, sharded=sharded)
             state, train_loss = run_train_epoch_any(train_epoch, state, train_ds, idx, valid)
             val_loss, val_acc, val_iou = run_validate()
 
@@ -265,15 +300,16 @@ class WaterSegmentationTrainer:
                 break
 
         self.history["training_time"] = elapsed_prior + (time.time() - t_start)
-        os.makedirs(cfg.save_dir, exist_ok=True)
-        with open(os.path.join(cfg.save_dir, "training_history.pkl"), "wb") as f:
-            pickle.dump(self.history, f)
-        try:
-            from coastline_torch.report.trainer_viz import save_final_report
+        if main:
+            os.makedirs(cfg.save_dir, exist_ok=True)
+            with open(os.path.join(cfg.save_dir, "training_history.pkl"), "wb") as f:
+                pickle.dump(self.history, f)
+            try:
+                from coastline_torch.report.trainer_viz import save_final_report
 
-            save_final_report(self.history, cfg.save_dir)
-        except Exception as e:  # a figure never fails the run
-            print("final report figure failed:", e)
+                save_final_report(self.history, cfg.save_dir)
+            except Exception as e:  # a figure never fails the run
+                print("final report figure failed:", e)
         self.state = state
         # the final resume point, keyed by epoch: resuming a finished run (or
         # extending it with a larger cfg.epochs) starts where this one stopped
@@ -284,15 +320,19 @@ class WaterSegmentationTrainer:
         return self.history
 
     def _save_progress_figures(self, epoch, val_ds):
+        """Rank 0 draws; on a mesh every rank runs the forward (an
+        FSDP-sharded model's forward is a collective)."""
+        images = torch.as_tensor(val_ds.images[:4], device=self.device)
+        with torch.inference_mode() if self.mesh is None else torch.no_grad():
+            logits = self.model.eval()(normalize_images(images).permute(0, 3, 1, 2))
+        if not collectives.is_main():
+            return
         try:
             from coastline_torch.report.trainer_viz import (save_confusion_matrix,
                                                             save_progress_figure)
 
             out_dir = os.path.join(self.config.save_dir, "progress")
             save_progress_figure(self.history, epoch, out_dir)
-            images = torch.as_tensor(val_ds.images[:4], device=self.device)
-            with torch.inference_mode():
-                logits = self.model.eval()(normalize_images(images).permute(0, 3, 1, 2))
             pred = logits.argmax(1).cpu().numpy()
             save_confusion_matrix(np.asarray(torch.as_tensor(val_ds.masks[:4]).cpu()), pred,
                                   epoch, out_dir)

@@ -175,20 +175,30 @@ def test_bench_all_cli_on_the_cpu(tmp_path, capsys):
 @pytest.mark.parametrize("argv,code,message", [
     (["--models", "SegNet,DeepLabV3++"], None, "unknown model 'DeepLabV3\\+\\+'"),
     (["--models", "robust_unet,segformer"], None, "unknown model 'segformer'"),  # not an alias
-    (["--models", "SegNet", "--data-parallel", "2"], 2, "not ported yet"),
-    (["--models", "SegNet", "--model-parallel", "2"], 2, "not ported yet"),
-    (["--models", "SegNet", "--sharded-data"], 2, "not ported yet"),
+    (["--models", "SegNet", "--data-parallel", "2"], 0, "mesh over 2 devices"),  # two CPU ranks
+    # as in JAX, --model-parallel does nothing without --data-parallel
+    (["--models", "SegNet", "--model-parallel", "2"], 0, None),
+    (["--models", "SegNet", "--sharded-data"], 0,
+     "--sharded-data requires --data-parallel; ignoring"),
 ])
-def test_bench_all_refuses_what_is_not_ported(capsys, argv, code, message):
+def test_bench_all_refuses_what_is_not_ported(capfd, tmp_path, argv, code, message):
+    """Unknown names are refused before any training; the multi-device flags
+    run with JAX's semantics and messages (`coastline/cli/bench_all.py:
+    118-160`)."""
     argv = argv + ["--synthetic", "2", "--image-size", "32", "--device", "cpu"]
     if code is None:
         with pytest.raises(KeyError, match=message) as err:
             bench_all.main(argv)
         assert str(jax_registry.available_models()) in str(err.value)
-        assert "Training" not in capsys.readouterr().out  # refused before any training
+        assert "Training" not in capfd.readouterr().out  # refused before any training
     else:
+        argv += ["--epochs", "1", "--throughput-batch", "2", "--out-dir", str(tmp_path)]
         assert bench_all.main(argv) == code
-        assert message in capsys.readouterr().err
+        said = capfd.readouterr().out
+        assert said.count("Training SegNet... (15,278,593 params, 1 epochs)") == 1  # rank 0 prints
+        assert (message in said) if message else ("mesh over" not in said)
+        with open(tmp_path / "benchmark_results.json") as f:
+            assert json.load(f)["results"]["SegNet"]["total_samples"] == 1
 
 
 def test_results_table_is_the_jax_table():
