@@ -138,7 +138,23 @@ Needs one NVIDIA H100 and the CUDA toolkit; builds the kernels from
      the int8 conv are counted on each rank and held against their plain
      versions at a rank's shapes. Then `cli.train --data-parallel 1
      --sharded-data` through the launcher (one NCCL rank) and torchrun;
-  14. a `kernels` JSON line, the card line and the last line:
+  14. the tools phase (`tools_path`): the port's bench
+     (`coastline_torch.bench.run`) in-process with short loops, its line
+     holding the root bench's keys, a positive headline and "platform":
+     "gpu", every bf16 eval forward of it launching 9 CBAM pools, stats and
+     tails and 2 fused convs, every int8 forward 38 int8 convs, its train
+     forwards none, and its bf16 batch-8 output bit-equal to a direct call;
+     the outputs of its timing loops' warm calls at batch 1 and at its
+     largest bf16 and int8 batches against the plain-version forward on the
+     card on the same input (bf16 logits at the eval paths' tolerance, int8
+     masks at the int8 evals' limit), which so holds every kernel of the
+     bench at the shapes the bench times;
+     `trace()` around a bf16 forward writing a Chrome trace that names those
+     kernels; the dispatch round trip; and the GUI's compute
+     (`process_images` on two 512^2 PNG tiles with phase 9's checkpoint,
+     `drain_queue`, `save_extraction_result`), each band from one
+     `dilate_disk` launch and equal to the plain version's;
+  15. a `kernels` JSON line, the card line and the last line:
      {"ok": true, "device": {...}}.
 
 Float32 convolutions run with cuDNN's TF32 off, so every float32 number
@@ -176,8 +192,9 @@ from coastline_torch.kernels.morphology import dilate_disk, dilate_disk_plain, s
 from coastline_torch.kernels.pools import fused_avg_max_pool
 from coastline_torch.models import segnet as segnet_module
 from coastline_torch.models.registry import create_model, model_class
+from coastline_torch.ops import blocks as blocks_module
 from coastline_torch.ops.blocks import Dropout2d, ResidualBlock, fold_bn
-from coastline_torch.ops.primitives import Conv, ConvTranspose, Norm
+from coastline_torch.ops.primitives import Conv, Norm
 from coastline_torch.data.augment import make_augment_fn
 from coastline_torch.data.pipeline import DeviceDataset
 from coastline_torch.data.synthetic import make_scene
@@ -192,6 +209,7 @@ from coastline_torch.utils.torch_import import (random_robust_unet_variables,
                                                 random_segnet_variables, random_unet_variables,
                                                 robust_unet_state_dict, segnet_state_dict,
                                                 unet_state_dict)
+from coastline_torch.utils.profiling import _KERNEL_CLASSES, conv_flops, device_time_by_class
 
 # Published H100 SXM peaks (NVIDIA data sheet, dense): the roofs for bound_ms.
 PEAK_BYTES_PER_S = 3.35e12
@@ -283,6 +301,12 @@ def card_line() -> str:
     return out.stdout.strip().splitlines()[0]
 
 
+def _conv_ok(got, ref) -> bool:
+    """The fused conv against its plain version: the same float32 sums in
+    another order, one bf16 rounding: 1 bf16 ulp (2^-7 relative) + 1e-3."""
+    return bool(torch.all((got.float() - ref.float()).abs() <= 2.0 ** -7 * ref.float().abs() + 1e-3))
+
+
 def check_fused_conv(dev, rng):
     b, h, w, c = CONV_SHAPE
     x = torch.from_numpy(rng.standard_normal(CONV_SHAPE, np.float32)).to(dev, torch.bfloat16)
@@ -298,8 +322,7 @@ def check_fused_conv(dev, rng):
             torch.cuda.synchronize()
             ref = fused_conv3x3_bn_relu_plain(xs, wt, scale, bias, relu=relu).float()
             err = (got - ref).abs()
-            # same float32 sums in another order, one bf16 rounding: 1 bf16 ulp (2^-7 rel) + 1e-3
-            ok = ok and bool(torch.all(err <= 2.0 ** -7 * ref.abs() + 1e-3))
+            ok = ok and _conv_ok(got, ref)
             errs[f"{'x'.join(map(str, shape))}_relu_{relu}"] = float(err.max())
             del got, ref, err
     # HRNet-Water's second stem conv: a 64 -> 64 conv with bias and its BN,
@@ -317,7 +340,7 @@ def check_fused_conv(dev, rng):
     torch.cuda.synchronize()
     ref = fused_conv3x3_bn_relu_plain(xh, *stem).float()
     err = (got - ref).abs()
-    ok = ok and bool(torch.all(err <= 2.0 ** -7 * ref.abs() + 1e-3))
+    ok = ok and _conv_ok(got, ref)
     errs["x".join(map(str, HRNET_STEM_SHAPE)) + "_hrnet_stem_folded_bias"] = float(err.max())
     hrnet_ms = cuda_ms(lambda: fused_conv3x3_bn_relu(xh, *stem), 20)
     hrnet_bound_ms, _ = bound(2 * xh.numel() * 2 + wt.numel() * 2 + 2 * c * 4,
@@ -807,65 +830,22 @@ def serving_path(variables, dev, rng, size=512):
     return result
 
 
-_KERNEL_CLASSES = (  # (class, substrings of the CUDA kernel name), first match wins
-    ("fused_conv3x3_bn_relu (ours)", ("fused_conv_kernel",)),
-    ("int8_conv (ours)", ("int8_conv_kernel",)),
-    ("dilate_disk (ours)", ("dilate_kernel",)),
-    ("avg_max_pool (ours)", ("cbam_avg_max",)),
-    ("gated_spatial_stats (ours)", ("cbam_gated_stats",)),
-    ("cbam_tail (ours)", ("cbam_tail_kernel",)),
-    ("max_pool_with_indices (ours)", ("max_pool_idx_kernel",)),
-    ("max_unpool (ours)", ("max_unpool_kernel",)),
-    ("elementwise: bias, BN affine, ReLU, casts", ("elementwise",)),
-    ("concat", ("CatArray",)),
-    ("max pool", ("max_pool",)),
-    ("argmax / softmax", ("reduce", "softmax", "argmax")),
-    ("bilinear resize", ("upsample_bilinear",)),
-    ("depthwise conv (cuDNN)", ("conv2d_c1_k1", "depthwise")),
-    ("cuDNN conv and transposed conv", ("conv", "xmma", "gemm", "cudnn", "sm90", "cutlass",
-                                        "nhwc", "nchw", "dgrad", "fprop", "implicit")),
-    ("cuBLAS GEMM (nvjet)", ("nvjet",)),
-)
-
-
 def profile_forward(forward, label: str, steps: int = 3, classes=_KERNEL_CLASSES):
-    """Device time by kernel class (`classes`) over `steps` calls of
-    `forward` (a batch-8 forward or train step; torch.profiler), and the
-    device's idle share of that window."""
-    from torch.profiler import ProfilerActivity, profile
-
-    forward()
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        for _ in range(steps):
-            forward()
-        torch.cuda.synchronize()
-        wall_ms = (time.perf_counter() - t0) * 1e3
-    kernels = sorted((e for e in prof.key_averages()
-                      if e.device_type == torch.autograd.DeviceType.CUDA
-                      and e.self_device_time_total > 0),
-                     key=lambda e: -e.self_device_time_total)
-    by_class, other = {}, []
-    for e in kernels:
-        cls = next((c for c, keys in classes if any(k in e.key for k in keys)), "other")
-        ms, n = by_class.get(cls, (0.0, 0))
-        by_class[cls] = (ms + e.self_device_time_total / 1e3 / steps, n + e.count / steps)
-        if cls == "other":
-            other.append(e)
-    busy_ms = sum(ms for ms, _ in by_class.values())
-
-    def rows(events, n):
-        return [dict(kernel=e.key[:100], ms_per_forward=e.self_device_time_total / 1e3 / steps,
-                     launches_per_forward=e.count / steps) for e in events[:n]]
-
-    result = dict(steps=steps, wall_ms_per_forward=wall_ms / steps,
-                  device_ms_per_forward=busy_ms, idle_share=1 - busy_ms * steps / wall_ms,
-                  classes={c: dict(ms_per_forward=ms, launches_per_forward=n)
-                           for c, (ms, n) in sorted(by_class.items(), key=lambda kv: -kv[1][0])},
-                  top=rows(kernels, 10), top_other=rows(other, 6))
+    """`device_time_by_class` of `steps` calls of `forward`, logged under `label`."""
+    result = device_time_by_class(forward, steps, classes)
     log(label, json.dumps(result))
     return result
+
+
+def compare_logits(got, ref, dt) -> dict:
+    """Float32 logits `got` against `ref` on one device: the largest error,
+    the share within the tolerance (1e-3 x max(1, std) in f32, 0.1 x std in
+    bf16, std of `ref`) and the share of agreeing masks (logit > 0)."""
+    std, err = float(ref.std()), (got - ref).abs()
+    tol = 1e-3 * max(1.0, std) if dt == torch.float32 else 0.1 * std
+    return dict(max_abs_err=float(err.max()), logit_std=std, tolerance=tol,
+                within=float((err <= tol).float().mean()),
+                mask_agree=float(((got > 0) == (ref > 0)).float().mean()))
 
 
 def logits_vs_cpu(model_name, sd, dev, limits):
@@ -883,35 +863,12 @@ def logits_vs_cpu(model_name, sd, dev, limits):
             ref = cpu.eval()(x, return_logits=True)
             got = gpu.to(dev).eval()(x.to(dev), return_logits=True).cpu()
         assert torch.isfinite(got).all()
-        std, err = float(ref.std()), (got - ref).abs()
-        tol = 1e-3 * max(1.0, std) if dt == torch.float32 else 0.1 * std
-        out[name] = dict(max_abs_err=float(err.max()), logit_std=std, tolerance=tol,
-                         within=float((err <= tol).float().mean()),
-                         mask_agree=float(((got > 0) == (ref > 0)).float().mean()))
+        out[name] = compare_logits(got, ref, dt)
     log(f"{label(model_name)}_logits_vs_cpu", json.dumps(out))
     for name, (min_within, min_agree) in limits.items():
         if out[name]["within"] < min_within or out[name]["mask_agree"] < min_agree:
             raise AssertionError(f"{name} {model_name} logits disagree with the CPU path: {out}")
     return out
-
-
-def conv_flops(model, x) -> float:
-    """Multiply-adds x 2 of every convolution and transposed convolution in
-    one forward of `model` on `x`, counted from the layer shapes."""
-    total = []
-
-    def hook(mod, args, out):
-        k = mod.weight.shape[-1] * mod.weight.shape[-2]
-        cin = args[0].shape[1]
-        total.append(2.0 * out.numel() * cin * k / (4 if isinstance(mod, ConvTranspose) else 1))
-
-    hooks = [m.register_forward_hook(hook) for m in model.modules()
-             if isinstance(m, (Conv, ConvTranspose))]
-    with torch.inference_mode():
-        model(x, return_logits=True)
-    for h in hooks:
-        h.remove()
-    return sum(total)
 
 
 def eval_path(model_name, sd, dev, n_params, counters, want, limits, min_mask_agree,
@@ -999,6 +956,10 @@ SEGNET_COUNTERS = {"max_pool_with_indices": unpool.max_pool_with_indices,
                    "max_unpool": unpool.max_unpool, "fused_conv3x3_bn_relu": fused_conv3x3_bn_relu}
 
 
+# the Robust U-Net's logits limits (`logits_vs_cpu`): share within the tolerance, mask agreement
+ROBUST_UNET_LIMITS = {"f32": (1.0, 0.0), "bf16": (1.0, 0.95)}
+
+
 def robust_unet_path(dev, **kw):
     """The Robust U-Net eval path: 9 pool, stats and tail launches a forward
     and, in bf16, 2 fused convs; the bf16 forward's profile must show 9
@@ -1013,7 +974,7 @@ def robust_unet_path(dev, **kw):
         lambda dt: {"avg_max_pool": 9, "gated_spatial_stats": 9, "cbam_tail": 9,
                     "fused_conv3x3_bn_relu": 2 if dt == torch.bfloat16 else 0,
                     "fused_avg_max_pool": 0},
-        limits={"f32": (1.0, 0.0), "bf16": (1.0, 0.95)}, min_mask_agree=0.95, **kw)
+        limits=ROBUST_UNET_LIMITS, min_mask_agree=0.95, **kw)
     pool = result["profile"]["classes"].get("avg_max_pool (ours)", {})
     result["pool_launches_profiled"] = pool.get("launches_per_forward", 0)
     if result["pool_launches_profiled"] != 9:
@@ -2427,6 +2388,97 @@ def patched(obj, **attrs):
             setattr(obj, k, v)
 
 
+PLAIN_CHUNK = 16  # images the plain int8 conv takes at once: its float64 tensors are large
+
+
+def int8_conv_plain_packed(x, w, *args, **kw):
+    """`int8_conv`'s plain version with its call (the packed weights' HWIO
+    codes), `PLAIN_CHUNK` images at a time: its float64 sums of codes are
+    exact, so the chunks give the bits that one call would."""
+    return torch.cat([int8_conv_plain(x[i:i + PLAIN_CHUNK], w.hwio, *args, **kw)
+                      for i in range(0, x.shape[0], PLAIN_CHUNK)])
+
+
+@contextlib.contextmanager
+def plain_kernels():
+    """For the block, every kernel wrapper that a float or int8 forward calls
+    replaced by its plain version, which runs on any device: a forward on
+    the card then launches none of the port's kernels."""
+    with patched(cbam, avg_max_pool=cbam.avg_max_pool_plain,
+                 gated_spatial_stats=cbam.gated_spatial_stats_plain,
+                 cbam_tail_apply=cbam.cbam_tail_apply_plain), \
+            patched(blocks_module, fused_conv3x3_bn_relu=fused_conv3x3_bn_relu_plain,
+                    fused_avg_max_pool=cbam.avg_max_pool_plain), \
+            patched(quant, int8_conv=int8_conv_plain_packed):
+        yield
+
+
+@contextlib.contextmanager
+def held_kernels(record):
+    """For the block, every kernel wrapper that a float or int8 forward calls
+    launches its kernel, runs its plain version on the same inputs and holds
+    the two to the kernel checks' criteria (`check_fused_conv`, `check_cbam`,
+    `check_int8_conv`), then passes the kernel's result on: each call is held
+    on the kernel's own inputs, at the forward's shapes. `record[name]`
+    gathers the calls, the calls that failed, the largest error and the
+    input shapes."""
+    def hold(name, x, got, ref, ok):
+        r = record.setdefault(name, dict(calls=0, failed=0, max_abs_err=0.0, shapes=[]))
+        r["calls"] += 1
+        r["failed"] += not ok
+        r["max_abs_err"] = max(r["max_abs_err"], float((got.float() - ref.float()).abs().max()))
+        if list(x.shape) not in r["shapes"]:
+            r["shapes"].append(list(x.shape))
+
+    def pool(kernel, name):
+        def held(x):
+            got, ref = kernel(x), cbam.avg_max_pool_plain(x)
+            ok = (torch.equal(got[1], ref[1])
+                  and _mean_ok(got[0], ref[0], x.float().abs().mean((1, 2)), x.dtype))
+            hold(name, x, torch.stack(got), torch.stack(ref), ok)
+            return got
+        return held
+
+    def stats(x, gate):
+        got, ref = stats_kernel(x, gate), cbam.gated_spatial_stats_plain(x, gate)
+        z_abs = (x * gate[:, None, None, :]).float().abs().mean(-1)
+        ok = torch.equal(got[:, 1], ref[:, 1]) and _mean_ok(got[:, 0], ref[:, 0], z_abs, x.dtype)
+        hold("gated_spatial_stats", x, got, ref, ok)
+        return got
+
+    def tail(y, shortcut, gate, st, w):
+        got = tail_kernel(y, shortcut, gate, st, w)
+        ref = cbam.cbam_tail_apply_plain(y, shortcut, gate, st, w)
+        hold("cbam_tail", y, got, ref, _tail_ok(got, ref, y, y.dtype))
+        return got
+
+    def conv(x, w, scale, bias, relu=True):
+        got = conv_kernel(x, w, scale, bias, relu)
+        ref = fused_conv3x3_bn_relu_plain(x, w, scale, bias, relu)
+        hold("fused_conv3x3_bn_relu", x, got, ref, _conv_ok(got, ref))
+        return got
+
+    def int8(x, w, *args, **kw):
+        got, ref = int8_kernel(x, w, *args, **kw), int8_conv_plain_packed(x, w, *args, **kw)
+        hold("int8_conv", x, got, ref, _bits_equal(got, ref))
+        return got
+
+    stats_kernel, tail_kernel = cbam.gated_spatial_stats, cbam.cbam_tail_apply
+    conv_kernel, int8_kernel = blocks_module.fused_conv3x3_bn_relu, quant.int8_conv
+    cbam_pool = pool(cbam.avg_max_pool, "avg_max_pool")
+    # A CBAM wrapper counts its launch on the name its module looks up, here
+    # the held function: these comparison launches count there, not in the
+    # kernels' counts.
+    for fn in (cbam_pool, stats, tail):
+        fn.launches = 0
+    with patched(cbam, avg_max_pool=cbam_pool, gated_spatial_stats=stats, cbam_tail_apply=tail), \
+            patched(blocks_module, fused_conv3x3_bn_relu=conv,
+                    fused_avg_max_pool=pool(blocks_module.fused_avg_max_pool,
+                                            "fused_avg_max_pool")), \
+            patched(quant, int8_conv=int8):
+        yield
+
+
 def site_counts(forward) -> dict:
     """Sites one call of `forward` quantizes: `fused` in an int8 conv's
     epilogue (`_Ctx.fused_codes`), `eager` by `_Ctx.site` on a float tensor.
@@ -3229,6 +3281,319 @@ def md_launches(result) -> dict:
     return {k: {p: n for p, n in v.items() if n} for k, v in out.items()}
 
 
+TOOLS_DIR = os.path.join(REPO, "build", "tools_path")  # listed in .gitignore
+# the root bench's keys (`bench.py:213-230`), which the port's bench line carries
+ROOT_BENCH_KEYS = ("metric", "value", "unit", "vs_baseline", "best_batch", "bf16_images_per_sec",
+                   "int8_images_per_sec", "int8_accuracy_gated", "int8_zoo_accuracy_gated",
+                   "p50_tile_latency_ms", "int8_p50_tile_latency_ms",
+                   "train_images_per_sec_per_chip", "platform")
+BENCH_KW = dict(n_loop=5, trials=1)  # short loops: the bench's numbers here are a smoke reading
+BENCH_BF16_WANT = {"avg_max_pool": 9, "gated_spatial_stats": 9, "cbam_tail": 9,
+                   "fused_conv3x3_bn_relu": 2}
+# kernel-name substrings (`_KERNEL_CLASSES`) a bf16 Robust U-Net forward's trace must show
+TRACE_WANT = {"cbam_avg_max": 9, "cbam_gated_stats": 9, "cbam_tail_kernel": 9,
+              "fused_conv_kernel": 2}
+
+
+def keep_first(store, batch, fixed, make) -> bool:
+    """Put `make()` under `batch` in `store` at the first call of each batch
+    in `fixed`, and at the first call of a batch larger than any other kept,
+    dropping that one: `store` ends with `fixed` and the largest batch.
+    Returns whether it put it."""
+    if batch in store:
+        return False
+    if batch not in fixed:
+        others = [b for b in store if b not in fixed]
+        if others and max(others) > batch:
+            return False
+        for b in others:
+            del store[b]
+    store[batch] = make()
+    return True
+
+
+def one_off(kernel):
+    """A control for `held_kernels`: `kernel` with the last element of its
+    output one more, which every held call of it must see."""
+    def off(*args, **kw):
+        out = kernel(*args, **kw)
+        out.view(-1)[-1] += 1
+        return out
+    return off
+
+
+def bench_vs_plain(dev, bf16_kept, int8_kept, failures):
+    """The bench's kept outputs (`tools_bench`) against the plain-version
+    forward (`plain_kernels`) on the card, on the same input and weights,
+    free-running: bf16 masks within the eval paths' limit at 512^2
+    (`ROBUST_UNET_LIMITS["bf16"]`'s), with the logits' share within 0.1 std
+    reported (`compare_logits`), and int8 masks within the int8 evals' limit
+    (`INT8_EVAL`). The plain forwards must launch no kernel. Then, held, on
+    the same inputs: a forward under `held_kernels`, every kernel call
+    within its check's criterion and each kernel called as often as a bench
+    forward launches it. The controls (`one_off` in the CBAM tail and in
+    the int8 conv, at batch 1) must fail every held call of that kernel."""
+    from coastline_torch import bench
+
+    agree = ROBUST_UNET_LIMITS["bf16"][1]
+    int8_limit = INT8_EVAL["robust_unet"][1]
+    out = dict(bf16={}, int8={})
+
+    def held(forward, want, label, off=None):
+        record = {}
+        with held_kernels(record), torch.inference_mode():
+            forward()
+        sync(dev)
+        calls = {k: r["calls"] for k, r in record.items()}
+        failed = {k: r["failed"] for k, r in record.items() if r["failed"]}
+        if calls != want or failed != ({off: want[off]} if off else {}):
+            failures.append(f"{label}, each kernel call held to its plain version: {record} "
+                            f"(want calls {want}, failed calls only {off})")
+        return record
+
+    model = bench.bf16_model(dev)
+    for b, (x, logits) in sorted(bf16_kept.items()):
+        for fn in ALL_COUNTERS.values():
+            fn.launches = 0
+        with plain_kernels(), torch.inference_mode():
+            ref = model(x, return_logits=True)
+        sync(dev)
+        launched = {k: n for k, n in launch_counts().items() if n}
+        r = out["bf16"][b] = dict(compare_logits(logits, ref, torch.bfloat16),
+                                  finite=bool(torch.isfinite(logits).all()),
+                                  plain_launches=launched)
+        del ref
+        if launched or not r["finite"] or r["mask_agree"] < agree:
+            failures.append(f"the bench's bf16 batch-{b} logits against the plain-version "
+                            f"forward: {r} (mask limit {agree})")
+        r["held"] = held(lambda: model(x, return_logits=True), BENCH_BF16_WANT,
+                         f"the bench's bf16 forward at batch {b}")
+    with patched(cbam, cbam_tail_apply=one_off(cbam.cbam_tail_apply)):
+        out["control_cbam_tail"] = held(lambda: model(bf16_kept[1][0], return_logits=True),
+                                        BENCH_BF16_WANT, "control: the tail one off", "cbam_tail")
+    del model
+    for b, (args, kwargs, probs) in sorted(int8_kept.items()):
+        for fn in ALL_COUNTERS.values():
+            fn.launches = 0
+        with plain_kernels(), torch.inference_mode():
+            ref = quant.int8_forward(*args, **kwargs)
+        sync(dev)
+        launched = {k: n for k, n in launch_counts().items() if n}
+        r = out["int8"][b] = dict(
+            mask_agree=mask_agreement("robust_unet", probs, ref), limit=int8_limit,
+            max_abs_err=float((probs - ref).abs().max()), bit_equal=_bits_equal(probs, ref),
+            finite=bool(torch.isfinite(probs).all()), plain_launches=launched)
+        del ref
+        if launched or not r["finite"] or r["mask_agree"] < int8_limit:
+            failures.append(f"the bench's int8 batch-{b} output against the plain-version "
+                            f"forward: {r}")
+        r["held"] = held(lambda: quant.int8_forward(*args, **kwargs),
+                         {"int8_conv": INT8_CONVS["robust_unet"]},
+                         f"the bench's int8 forward at batch {b}")
+    args, kwargs, _ = int8_kept[1]
+    with patched(quant, int8_conv=one_off(quant.int8_conv)):
+        out["control_int8_conv"] = held(lambda: quant.int8_forward(*args, **kwargs),
+                                        {"int8_conv": INT8_CONVS["robust_unet"]},
+                                        "control: the int8 conv one off", "int8_conv")
+    torch.cuda.empty_cache()
+    log("bench_vs_plain", json.dumps(out))
+    return out
+
+
+def tools_bench(dev, failures, **kw):
+    """(a) `coastline_torch.bench.run` in-process, every launch counter at
+    0 just before it: each Robust U-Net forward and each int8 forward it
+    makes is counted (a wrapper around `RobustUNet.forward` and
+    `quant.int8_forward`). The outputs of the first call at a batch, the
+    warm call of its timing loop (carry 0, so the input is unscaled), are
+    kept with their inputs at batch 1, 8 (bf16) and the largest batch:
+    bf16 logits from the forward's `outc`, int8 outputs. After the run,
+    the batch-8 logits must equal, bit for bit, a direct call of the same
+    seeded model on the same seeded input, and every kept output must agree
+    with the plain-version forward (`bench_vs_plain`)."""
+    from coastline_torch import bench
+    from coastline_torch.models.robust_unet import RobustUNet
+
+    forward, int8_forward = RobustUNet.forward, quant.int8_forward
+    bf16, int8, bf16_kept, int8_kept = [], [], {}, {}
+
+    def counted_forward(self, x, return_logits=False):
+        before = launch_counts()
+        logits = []
+        keep = not self.training and keep_first(bf16_kept, int(x.shape[0]), (1, 8),
+                                                lambda: (x.clone(), logits))
+        hook = (self.outc.register_forward_hook(lambda m, a, o: logits.append(o.float()))
+                if keep else None)
+        try:
+            out = forward(self, x, return_logits)
+        finally:
+            if hook is not None:
+                hook.remove()
+        bf16.append(dict(training=self.training, batch=int(x.shape[0]),
+                         launches=launches_since(before)))
+        return out
+
+    def counted_int8(*args, **kwargs):
+        before = launch_counts()
+        out = int8_forward(*args, **kwargs)
+        int8.append(launches_since(before))
+        keep_first(int8_kept, int(args[2].shape[0]), (1,), lambda: (args, kwargs, out.clone()))
+        return out
+
+    for fn in ALL_COUNTERS.values():
+        fn.launches = 0
+    t0 = time.perf_counter()
+    with patched(RobustUNet, forward=counted_forward), patched(quant, int8_forward=counted_int8):
+        line = bench.run(device=dev, **kw)
+    seconds = time.perf_counter() - t0
+    launches = launch_counts()
+    log("bench_line", json.dumps(line))
+
+    missing = [k for k in ROOT_BENCH_KEYS if k not in line]
+    if missing or not line["value"] > 0 or line["platform"] != "gpu" or \
+            line["device_kind"] != torch.cuda.get_device_name(0):
+        failures.append(f"the bench's line lacks {missing} or is off: {line}")
+    evals = [f for f in bf16 if not f["training"]]
+    trains = [f for f in bf16 if f["training"]]
+    bad = [f for f in evals if {k: f["launches"][k] for k in BENCH_BF16_WANT} != BENCH_BF16_WANT]
+    if not evals or bad:
+        failures.append(f"{len(bad)} of {len(evals)} bf16 bench forwards launched other than "
+                        f"{BENCH_BF16_WANT} a forward: {bad[:2]}")
+    if not trains or any(any(f["launches"].values()) for f in trains):
+        failures.append(f"the bench's train forwards ({len(trains)}) launched a kernel")
+    bad8 = [f for f in int8 if f["int8_conv"] != INT8_CONVS["robust_unet"]]
+    if not int8 or bad8:
+        failures.append(f"{len(bad8)} of {len(int8)} int8 bench forwards launched int8_conv "
+                        f"other than {INT8_CONVS['robust_unet']} times: {bad8[:2]}")
+    bf16_kept = {b: (x, logits[0]) for b, (x, logits) in bf16_kept.items()}
+    model = bench.bf16_model(dev)
+    with torch.inference_mode():
+        direct = model(bench.images(8, kw.get("size", 512), dev).permute(0, 3, 1, 2),
+                       return_logits=True)
+    equal = 8 in bf16_kept and torch.equal(direct, bf16_kept[8][1])
+    if not equal:
+        failures.append("the bench's bf16 batch-8 logits differ from a direct call")
+    del model, direct
+    vs_plain = bench_vs_plain(dev, bf16_kept, int8_kept, failures)
+    del bf16_kept, int8_kept
+    torch.cuda.empty_cache()
+    return dict(line=line, s=seconds, launches={k: n for k, n in launches.items() if n},
+                bf16_eval_forwards=len(evals), train_forwards=len(trains),
+                int8_forwards=len(int8), batch8_bit_equal=equal, vs_plain=vs_plain,
+                bf16_eval_launches_per_forward=evals[0]["launches"] if evals else None)
+
+
+def tools_trace(dev, failures, size=512):
+    """(b) `trace()` around one bf16 batch-8 Robust U-Net forward: the
+    Chrome trace must name each kernel of the forward as often as it
+    launches (`TRACE_WANT`)."""
+    from coastline_torch import bench
+    from coastline_torch.utils.profiling import trace
+
+    model = bench.bf16_model(dev)
+    x = bench.images(8, size, dev).permute(0, 3, 1, 2)
+    with torch.inference_mode():
+        model(x)
+    # a first profiler session in a process can miss kernels: warm it up
+    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CPU,
+                                            torch.profiler.ProfilerActivity.CUDA]):
+        torch.ones(8, device=dev).sum()
+        torch.cuda.synchronize()
+    logdir = fresh_dir(os.path.join(TOOLS_DIR, "trace"))
+    for fn in ALL_COUNTERS.values():
+        fn.launches = 0
+    with trace(logdir, device=dev) as d, torch.inference_mode():
+        model(x)
+        torch.cuda.synchronize()
+    launches = launch_counts()
+    files = [f for f in os.listdir(d) if f.endswith(".pt.trace.json")]
+    if len(files) != 1:
+        failures.append(f"trace() wrote {files}, want one Chrome trace")
+        return dict(files=files, launches=launches)
+    with open(os.path.join(d, files[0])) as f:
+        events = json.load(f)["traceEvents"]
+    kernels = [e["name"] for e in events if e.get("cat", "").lower() == "kernel"]
+    seen = {k: sum(k in name for name in kernels) for k in TRACE_WANT}
+    if seen != TRACE_WANT:
+        failures.append(f"the trace names the kernels {seen} times, want {TRACE_WANT} "
+                        f"({len(kernels)} kernel events; categories "
+                        f"{sorted({e.get('cat', '') for e in events})[:12]})")
+    del model, x
+    torch.cuda.empty_cache()
+    return dict(file=files[0], mb=os.path.getsize(os.path.join(d, files[0])) / 2**20,
+                kernel_events=len(kernels), named=seen,
+                launches={k: n for k, n in launches.items() if n})
+
+
+def tools_gui(dev, failures, save_dir, size=512, dilation=20):
+    """(d) The GUI's compute: `process_images` with the extractor the GUI
+    loads (the trainer's best checkpoint in `save_dir`, float32) on two
+    synthetic 512^2 PNG tiles, `drain_queue` into a `ResultStore`, and
+    `save_extraction_result` for each. Each result's band must come from
+    one `dilate_disk` launch and equal the plain version's."""
+    import queue
+
+    from PIL import Image
+
+    from coastline_torch.cli.gui import ResultStore, drain_queue, process_images
+
+    root = fresh_dir(os.path.join(TOOLS_DIR, "gui"))
+    images, _, route = coast_tiles(2, size, seed=11)
+    paths = []
+    for i, img in enumerate(images):
+        paths.append(os.path.join(root, f"tile{i}.png"))
+        Image.fromarray(img).save(paths[-1])
+    ex = (CoastlineExtractor(checkpoint_dir=save_dir, device=dev) if save_dir
+          else CoastlineExtractor(device=dev))
+    q = queue.Queue()
+    for fn in ALL_COUNTERS.values():
+        fn.launches = 0
+    t0 = time.perf_counter()
+    process_images(ex, paths, q, dilation)
+    seconds = time.perf_counter() - t0
+    launches = launch_counts()
+    store, done = ResultStore(), []
+    drain_queue(q, store, on_done=lambda: done.append(True))
+    results = store.saveable()
+    out_dir = os.path.join(root, "results")
+    bands = []
+    for r in results:
+        band = coastline_band(r["water_mask"], dilation, device="cpu").numpy()  # plain version
+        bands.append(dict(image=os.path.basename(r["image_path"]),
+                          band_pixels=int(r["coastline_mask"].sum()),
+                          band_equals_plain=bool(np.array_equal(band, r["coastline_mask"])),
+                          coastlines=r["coastline_count"]))
+        ex.save_extraction_result(r, out_dir)
+    saved = sorted(os.listdir(out_dir)) if os.path.isdir(out_dir) else []
+    if (len(results) != 2 or done != [True] or launches["dilate_disk"] != 2
+            or not all(b["band_equals_plain"] and b["band_pixels"] > 0 for b in bands)
+            or sum(f.endswith("_coastline_mask.png") for f in saved) != 2):
+        failures.append(f"the GUI's compute: {len(results)} results, done {done}, launches "
+                        f"{launches}, bands {bands}, saved {saved}")
+    return dict(images=route, s=seconds, launches={k: n for k, n in launches.items() if n},
+                results=bands, saved=saved)
+
+
+def tools_path(dev, save_dir=TRAIN_DIR, size=512, bench_kw=BENCH_KW):
+    """The tools phase: (a) the port's bench in-process (`tools_bench`),
+    (b) a Chrome trace of a bf16 forward (`tools_trace`), (c) the dispatch
+    round trip, (d) the GUI's compute (`tools_gui`). Failures are gathered
+    and raised together."""
+    from coastline_torch.utils.profiling import measure_dispatch_rtt
+
+    failures = []
+    result = dict(bench=tools_bench(dev, failures, size=size, **bench_kw))
+    result["trace"] = tools_trace(dev, failures, size=size)
+    result["dispatch_rtt_ms"] = measure_dispatch_rtt(device=dev) * 1e3
+    if not 0 < result["dispatch_rtt_ms"] < 1e3:
+        failures.append(f"dispatch round trip {result['dispatch_rtt_ms']} ms")
+    result["gui"] = tools_gui(dev, failures, save_dir, size=size)
+    log("tools_path", json.dumps(result))
+    if failures:
+        raise AssertionError("tools phase failed:\n" + "\n".join(failures))
+    return result
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--out", help="also write every result to this JSON file")
@@ -3274,6 +3639,7 @@ def main(argv=None) -> int:
     granule = extraction["granule"]
     int8 = int8_path(dev, train["save_dir"])
     multi = multi_device_path(dev)
+    tools = tools_path(dev, train["save_dir"])
 
     def path_launches(path, name):
         return sum(e["launches"][name] for e in path["epochs"].values())
@@ -3382,6 +3748,21 @@ def main(argv=None) -> int:
         for path, n in md_launches(multi).get(entry["name"], {}).items():
             entry["launches_by_path"][path] = n
             entry["launches"] += n
+        for path, part in (("bench", "bench"), ("tools_trace", "trace"), ("tools_gui", "gui")):
+            n = tools[part]["launches"].get(entry["name"], 0)
+            if n:
+                entry["launches_by_path"][path] = n
+                entry["launches"] += n
+        if entry["name"] in BENCH_BF16_WANT or entry["name"] == "int8_conv":
+            # the bench's outputs at batch 1 and its largest batches against the plain
+            # forward, and this kernel's calls held to its plain version in that forward
+            vs = tools["bench"]["vs_plain"]
+            entry["bench_vs_plain_forward"] = {
+                b: dict({k: v for k, v in r.items() if k != "held"}, held=r["held"][entry["name"]])
+                for b, r in vs["int8" if entry["name"] == "int8_conv" else "bf16"].items()}
+            control = vs.get(f"control_{entry['name']}")
+            if control:
+                entry["bench_held_control"] = control[entry["name"]]
         if entry["name"] in multi["holds"]:
             entry["multi_device_hold"] = {k: v for k, v in multi["holds"][entry["name"]].items()
                                           if k != "cases"}
@@ -3393,7 +3774,7 @@ def main(argv=None) -> int:
                            robust_unet=robust, unpool_cases=unpool_cases, segnet=segnet,
                            zoo=zoo, total_s=time.perf_counter() - t_start,
                            unet_train=train, protocol=protocol, extraction=extraction,
-                           int8=int8, multi_device=multi),
+                           int8=int8, multi_device=multi, tools=tools),
                       f, indent=1)
     log(f"total {time.perf_counter() - t_start:.1f} s")
     log(json.dumps({"kernels": kernels}))

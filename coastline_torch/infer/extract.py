@@ -36,7 +36,7 @@ from coastline_torch.infer.morphology import coastline_band
 from coastline_torch.infer.server import BatchedPredictor
 from coastline_torch.models.unet import UNet
 from coastline_torch.utils.device import resolve_device
-from coastline_torch.utils.torch_import import unet_state_dict
+from coastline_torch.utils.torch_import import detect_reference_architecture, unet_state_dict
 
 
 def _make_predict_fn(model, tta: bool = False):
@@ -98,7 +98,7 @@ class CoastlineExtractor:
     """The 2-class UNet behind the extraction entry points.
 
     Weights come from `variables` (a JAX-package UNet tree as numpy, through
-    the weight bridge), `torch_checkpoint` (a reference `.pth`, loaded with
+    the weight bridge), `torch_checkpoint` (a reference UNet `.pth`, loaded with
     strict=True) or `checkpoint_dir` (a save directory of the port's
     trainer, whose `best/model.pth` is read); with none, the UNet keeps its
     seeded random init. `dtype` is the compute dtype (torch.float32 or
@@ -117,6 +117,13 @@ class CoastlineExtractor:
             model.load_state_dict(unet_state_dict(variables), strict=True)
         elif torch_checkpoint is not None:
             sd = torch.load(torch_checkpoint, map_location="cpu", weights_only=True)
+            arch = detect_reference_architecture(sd)
+            if arch != "UNet":
+                raise ValueError(
+                    f"{torch_checkpoint} is a {arch!r} checkpoint; the "
+                    "extractor's 2-class argmax pipeline expects the "
+                    "reference UNet artifact. Load it into "
+                    f"coastline_torch.models.create_model({arch!r}) directly.")
             model.load_state_dict(sd, strict=True)
             print(f"loaded PyTorch checkpoint {torch_checkpoint}")
         elif checkpoint_dir is not None:

@@ -1,7 +1,8 @@
 """Model registry of the ported architectures (counterpart of
 `coastline/models/registry.py`): the twelve models of the JAX registry
 under the reference's display names, and the same aliases (each name
-lower-cased, plus its snake_case forms)."""
+lower-cased, plus its snake_case forms). `register` adds a class under a
+name and aliases, as the JAX package's decorator does."""
 
 from coastline_torch.models.deeplabv3p import DeepLabV3Plus
 from coastline_torch.models.enet import ENet
@@ -32,6 +33,18 @@ _ENTRIES = (
 )
 _REGISTRY = {name: cls for name, cls, _ in _ENTRIES}
 _ALIASES = {a: name for name, _, aliases in _ENTRIES for a in (name.lower(), *aliases)}
+
+
+def register(name: str, *aliases: str):
+    """Class decorator: `create_model(name)` (or any alias, in any case)
+    builds the class (`coastline/models/registry.py:14-21`)."""
+    def wrap(cls):
+        _REGISTRY[name] = cls
+        for a in (name.lower(), *aliases):
+            _ALIASES[a.lower()] = name
+        return cls
+
+    return wrap
 
 
 def available_models():

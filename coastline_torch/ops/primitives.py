@@ -10,6 +10,7 @@ Randomness comes only from the `torch.Generator` handed to
 `reset_parameters`.
 """
 
+import contextlib
 import math
 from typing import Optional, Tuple
 
@@ -95,6 +96,33 @@ class ConvTranspose(nn.Module):
         return y + self.bias.to(x.dtype)[:, None, None]
 
 
+#: Measurement control (`coastline/ops/primitives.py:206-230`): True makes
+#: every train-mode `Norm` take its eval branch (running statistics, no
+#: update, no all-reduce), isolating the cost of the batch-statistic
+#: passes in a train step. JAX reads the flag when it traces a step; the
+#: port is eager, so `Norm.forward` reads it at every call.
+_BN_FROZEN = False
+
+
+def set_bn_frozen(value: bool):
+    global _BN_FROZEN
+    _BN_FROZEN = bool(value)
+
+
+@contextlib.contextmanager
+def bn_frozen(value: bool = True):
+    """Scoped BN freeze for measurement code: the previous value comes back
+    on exit, also on error, so a leaked True cannot freeze BN statistics
+    for later training in the process. Prefer it to `set_bn_frozen`."""
+    global _BN_FROZEN
+    prev = _BN_FROZEN
+    _BN_FROZEN = bool(value)
+    try:
+        yield
+    finally:
+        _BN_FROZEN = prev
+
+
 class Norm(nn.BatchNorm2d):
     """BatchNorm with the JAX package's formulation and rounding
     (`primitives.py:149-244`): the per-channel scale and shift are formed in
@@ -109,6 +137,7 @@ class Norm(nn.BatchNorm2d):
     This is not `F.batch_norm`, whose two-pass variance and fused backward
     round differently. `update_stats = False` leaves the running statistics
     as they are (a checkpointed block's recompute, `models/robust_unet.py`).
+    Under `bn_frozen()` a train-mode forward takes the eval branch.
 
     Inside `parallel.collectives.split_batch(group)` (a train step whose
     batch is split over ranks) the per-channel sums of x and x^2 and the
@@ -125,7 +154,7 @@ class Norm(nn.BatchNorm2d):
         return inv, self.bias - self.running_mean * inv
 
     def forward(self, x):
-        if not self.training:
+        if not self.training or _BN_FROZEN:
             inv, shift = self.folded()
         else:
             xf = x.to(torch.promote_types(x.dtype, torch.float32))

@@ -1,7 +1,7 @@
 """Segmentation losses (counterpart of `coastline/train/losses.py:20-45`).
 
 Logits are NCHW with the class axis at dim 1, as the port's models return
-them; the JAX package keeps classes last. Both losses work in float32.
+them; the JAX package keeps classes last. The losses work in float32.
 `LOSS_REGISTRY` names them beside the HSV-guided BCE (`train/hsv.py`).
 """
 
@@ -35,6 +35,15 @@ def bce_loss(logits, targets):
     return _bce(logits, targets).mean()
 
 
+def bce_on_probs(probs, targets, eps: float = 1e-12):
+    """Mean BCE directly on probabilities, each log clamped at -100 as
+    torch's BCELoss clamps it (`coastline/train/losses.py:31-37`)."""
+    p, t = probs.float(), targets.float()
+    logp = torch.log(p + eps).clamp_min(-100.0)
+    log1mp = torch.log1p(-p + eps).clamp_min(-100.0)
+    return -(t * logp + (1.0 - t) * log1mp).mean()
+
+
 def cross_entropy_loss(logits, targets):
     """Mean softmax cross-entropy of (N, K, H, W) logits against (N, H, W)
     integer class maps."""
@@ -59,8 +68,9 @@ def _hsv_guided_bce(*args, **kwargs):
     return hsv_guided_bce(*args, **kwargs)
 
 
-LOSS_REGISTRY: Dict[str, Callable] = {  # `coastline/train/losses.py:58`, the ported losses
+LOSS_REGISTRY: Dict[str, Callable] = {  # `coastline/train/losses.py:56-61`
     "bce": bce_loss,
+    "bce_probs": bce_on_probs,
     "ce": cross_entropy_loss,
     "hsv_bce": _hsv_guided_bce,
 }

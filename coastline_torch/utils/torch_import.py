@@ -7,7 +7,8 @@ kernel, stored spatially flipped, is un-flipped into torch's
 (in, out, kh, kw); ChannelAttention's Dense kernels (in, out) become 1x1
 convs (out, in, 1, 1); BN parameters and running statistics carry across.
 The result is the reference state_dict layout, which the port's models load
-with `strict=True`.
+with `strict=True`. `detect_reference_architecture` names the architecture
+of such a state_dict, as the JAX package's does.
 """
 
 from typing import Dict, Mapping
@@ -563,3 +564,38 @@ def hrnet_water_state_dict(variables: Mapping) -> Dict[str, torch.Tensor]:
 def segformer_lite_state_dict(variables: Mapping) -> Dict[str, torch.Tensor]:
     """JAX SegFormerLite variables -> port SegFormerLite state_dict."""
     return _tensors(export_reference_segformer_lite(variables))
+
+
+# Registry-canonical model name -> a state_dict key no other reference
+# architecture declares (`coastline/utils/torch_import.py:707-723`, the
+# signature keys of its importer table), so one membership test names a tree.
+REFERENCE_SIGNATURES = {
+    "UNet": "upconv4.weight",
+    "Robust UNet": "att4.W_g.0.weight",
+    # "dec1.3.weight" would also match WaterNet's double-conv decoder; the
+    # 3-conv enc4 stage (a conv at Sequential index 6) is SegNet's alone.
+    "SegNet": "enc4.6.weight",
+    "DeepLabV3+": "aspp.conv1.weight",
+    "YOLO-SEG": "seg_head.0.weight",
+    "PSPNet": "ppm.convs.0.1.weight",
+    "Fast-SCNN": "learning_to_downsample.conv1.0.weight",
+    "ENet": "initial.conv.weight",
+    "WaterNet": "water_index.index_conv.0.weight",
+    "MSWNet": "enc1.branch1.0.weight",
+    "HRNet-Water": "hr_branch.0.weight",
+    "SegFormer-Lite": "patch_embed1.0.weight",
+}
+
+
+def detect_reference_architecture(state_dict: Mapping) -> str:
+    """The registry-canonical name of the reference architecture a torch
+    state_dict belongs to (`create_model` takes it); a ValueError for a tree
+    that matches none (`coastline/utils/torch_import.py:725-738`)."""
+    for name, signature in REFERENCE_SIGNATURES.items():
+        if signature in state_dict:
+            return name
+    sample = sorted(state_dict)[:5]
+    raise ValueError(
+        "state_dict does not match any reference architecture "
+        f"(first keys: {sample}); known: {sorted(REFERENCE_SIGNATURES)}"
+    )

@@ -95,7 +95,7 @@ def test_consistency_gradient_flows_through_the_probabilities():
 
 
 def test_loss_registry_matches_jax_names():
-    assert set(losses.LOSS_REGISTRY) == set(jax_losses.LOSS_REGISTRY) - {"bce_probs"}
+    assert set(losses.LOSS_REGISTRY) == set(jax_losses.LOSS_REGISTRY)
     rgb = torch.from_numpy(_rgb(7))
     logits = torch.randn(rgb.shape[:3], generator=torch.Generator().manual_seed(1))
     targets = (logits > 0).float()

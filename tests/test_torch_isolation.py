@@ -61,7 +61,8 @@ def test_port_and_chip_smoke_import_no_jax_and_no_coastline():
               "coastline_torch.cli.convert", "coastline_torch.cli.change",
               "coastline_torch.cli.export", "coastline_torch.native",
               "coastline_torch.infer.quant", "coastline_torch.infer.deploy",
-              "coastline_torch.kernels.int8_conv"):
+              "coastline_torch.kernels.int8_conv", "coastline_torch.bench",
+              "coastline_torch.cli.gui"):
         assert m in report["modules"]
 
 
@@ -83,6 +84,7 @@ def _entry_points():
     from coastline_torch.cli.export import main as export_cli
     from coastline_torch.infer.deploy import load_quantized
     from coastline_torch.infer.quant import QuantizedModel, default_calibration
+    from coastline_torch.bench import run as bench_run
 
     mask = np.zeros((8, 8), np.uint8)
     return {
@@ -113,6 +115,7 @@ def _entry_points():
         "predict_cli_int8": lambda: predict_cli(["x.png", "--random-weights", "--int8"]),
         "export_cli_int8": lambda: export_cli(["--checkpoint-dir", "x", "--quantized-out",
                                                "x.npz"]),
+        "bench": lambda: bench_run(size=32),
     }
 
 
@@ -123,7 +126,7 @@ def _entry_points():
                                   "zoo_evaluator", "bench_all_default_list", "predict_cli",
                                   "scene", "export_cli", "quantized_model", "load_quantized",
                                   "from_quantized", "default_calibration", "predict_cli_int8",
-                                  "export_cli_int8"])
+                                  "export_cli_int8", "bench"])
 def test_entry_points_raise_without_a_card(name, monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="no CUDA device"):
