@@ -138,7 +138,21 @@ Needs one NVIDIA H100 and the CUDA toolkit; builds the kernels from
      the int8 conv are counted on each rank and held against their plain
      versions at a rank's shapes. Then `cli.train --data-parallel 1
      --sharded-data` through the launcher (one NCCL rank) and torchrun;
-  14. the tools phase (`tools_path`): the port's bench
+  14. the space phase (`space_path`): two gloo ranks sharing cuda:0 under
+     `make_mesh(2, space=2)`, each holding half the rows of every image,
+     against one process on the card: the full-width Robust U-Net's bf16
+     and f32 eval forwards at batch 8, 512^2 (9 CBAM pools, stats and tails
+     and, in bf16, 2 fused convs on each rank; f32 logits within atol 2e-4
+     / rtol 1e-3; bf16 masks as close to the f32 ones as one process's
+     bf16 masks, within 0.1%: `SP_BF16_MARGIN`), SegNet's bf16 forward (4 pools, 4
+     unpools, 2 fused convs; masks >= 95%), every kernel call held against
+     its plain version on its own (halo'd) inputs; 3 bf16 Robust U-Net
+     train steps, rank 0's parameters within Adam's 2 x lr x steps x 1.1 of
+     one process and each rank's peak memory under 0.7 of one process's;
+     a 2048^2 scene through `predict_scene(mesh=)` (masks >= 99.9%, the band
+     the dilation of the mask); then the CBAM tail with a 3-row stats halo
+     and the pool's float32 partials against their plain versions;
+  15. the tools phase (`tools_path`): the port's bench
      (`coastline_torch.bench.run`) in-process with short loops, its line
      holding the root bench's keys, a positive headline and "platform":
      "gpu", every bf16 eval forward of it launching 9 CBAM pools, stats and
@@ -154,7 +168,7 @@ Needs one NVIDIA H100 and the CUDA toolkit; builds the kernels from
      (`process_images` on two 512^2 PNG tiles with phase 9's checkpoint,
      `drain_queue`, `save_extraction_result`), each band from one
      `dilate_disk` launch and equal to the plain version's;
-  15. a `kernels` JSON line, the card line and the last line:
+  16. a `kernels` JSON line, the card line and the last line:
      {"ok": true, "device": {...}}.
 
 Float32 convolutions run with cuDNN's TF32 off, so every float32 number
@@ -183,6 +197,7 @@ from coastline_torch.infer.extract import CoastlineExtractor
 from coastline_torch.infer.morphology import coastline_band, elliptical_kernel
 from coastline_torch.infer.scene import build_scene_fn
 from coastline_torch.kernels import _build, cbam, unpool
+from coastline_torch.kernels import fused_conv as fused_conv_module
 from coastline_torch.kernels import int8_conv as int8_conv_module
 from coastline_torch.kernels.fused_conv import (fused_conv3x3_bn_relu,
                                                 fused_conv3x3_bn_relu_plain)
@@ -195,6 +210,7 @@ from coastline_torch.models.registry import create_model, model_class
 from coastline_torch.ops import blocks as blocks_module
 from coastline_torch.ops.blocks import Dropout2d, ResidualBlock, fold_bn
 from coastline_torch.ops.primitives import Conv, Norm
+from coastline_torch.parallel import collectives
 from coastline_torch.data.augment import make_augment_fn
 from coastline_torch.data.pipeline import DeviceDataset
 from coastline_torch.data.synthetic import make_scene
@@ -3281,6 +3297,446 @@ def md_launches(result) -> dict:
     return {k: {p: n for p, n in v.items() if n} for k, v in out.items()}
 
 
+SPACE_DIR = os.path.join(REPO, "build", "space")  # listed in .gitignore
+SP_RANKS, SP_SIZE, SP_BATCH, SP_SCENE, SP_STEPS, SP_LR = 2, 512, 8, 2048, 3, 1e-4
+# f32 forwards against one process: the bridge's forward tolerance
+# (`tests/test_torch_import.py:114`); cuDNN picks algorithms by shape, so a
+# rank's half-height convs sum in another order than one process's
+SP_F32_TOL = (2e-4, 1e-3)
+# masks agreeing with one process: the scene 99.9%; SegNet's bf16 95% (pool
+# windows flip on near-ties, ROADMAP queue 3), its pool and unpool calls bit
+# for bit on their own inputs. The Robust U-Net's bf16 masks are held to the
+# float32 forward instead: a rank's maps equal one process's bit for bit
+# until the bottleneck at 32^2 (16 rows a rank), whose convs cuDNN rounds
+# otherwise on a rank's slab (the dilated block's output 1.4e-5 of its
+# elements one bf16 ulp apart, the 1024-channel conv after it 0.38%;
+# `SP_TAPS`), and the decoder spreads that to 0.33% of the seeded model's
+# masks (PERF.md); so the row-split bf16 masks must agree with float32
+# within SP_BF16_MARGIN of one process's bf16 agreement with float32
+SP_MASK_AGREE = {"segnet": 0.95, "scene": 0.999}
+SP_BF16_MARGIN = 1e-3
+# a rank's peak memory in the Robust U-Net's bf16 train steps, against one
+# process's on the same card: the axis exists to cut it
+SP_MEMORY_SHARE = 0.7
+SP_COUNTERS = ("fused_conv3x3_bn_relu", "avg_max_pool", "gated_spatial_stats", "cbam_tail",
+               "max_pool_with_indices", "max_unpool", "dilate_disk")
+
+
+def sp_counts() -> dict:
+    return {k: n for k, n in launch_counts().items() if k in SP_COUNTERS}
+
+
+def sp_tiles(dev):
+    """The phase's batch: SP_BATCH coast tiles of SP_SIZE^2 (uint8 NHWC,
+    masks) and the normalized NCHW float32 input on `dev`."""
+    images, masks, _ = coast_tiles(SP_BATCH, SP_SIZE, 31)
+    x = normalize_images(torch.from_numpy(images).to(dev)).permute(0, 3, 1, 2)
+    return images, masks, x.contiguous(memory_format=torch.channels_last)
+
+
+def sp_models():
+    """(name, dtype, state_dict) of the phase's eval forwards."""
+    rsd = robust_unet_state_dict(random_robust_unet_variables(seed=0))
+    ssd = segnet_state_dict(random_segnet_variables(seed=0))
+    return [("Robust UNet", torch.bfloat16, rsd), ("Robust UNet", torch.float32, rsd),
+            ("SegNet", torch.bfloat16, ssd)]
+
+
+@contextlib.contextmanager
+def held_space_kernels(record):
+    """`held_kernels` for a row-split forward: each kernel is held where it
+    launches, on the inputs it gets there: the fused conv on its halo'd
+    slab (`fused_conv._fused`), the CBAM pool in its partials mode (the
+    combine over the ranks runs after it), the stats, the tail with its
+    halo'd stats, and SegNet's pool and unpool bit for bit."""
+    def hold(name, x, got, ref, ok):
+        r = record.setdefault(name, dict(calls=0, failed=0, max_abs_err=0.0, shapes=[]))
+        r["calls"] += 1
+        r["failed"] += not ok
+        r["max_abs_err"] = max(r["max_abs_err"], float((got.float() - ref.float()).abs().max()))
+        if list(x.shape) not in r["shapes"]:
+            r["shapes"].append(list(x.shape))
+
+    real_fused, real_pool = fused_conv_module._fused, cbam.run_avg_max_pool
+    real_stats, real_tail = cbam.gated_spatial_stats, cbam.cbam_tail_apply
+    real_mp, real_up = unpool.max_pool_with_indices, unpool.max_unpool
+
+    def fused(x, w, scale, bias, relu):
+        got, ref = real_fused(x, w, scale, bias, relu), fused_conv3x3_bn_relu_plain(
+            x, w, scale, bias, relu)
+        hold("fused_conv3x3_bn_relu", x, got, ref, _conv_ok(got, ref))
+        return got
+
+    def pool(x, wrapper, partials=False):
+        if collectives.row_split() is not None and not partials:
+            return real_pool(x, wrapper)  # the combine; its partials call comes back here
+        got, ref = real_pool(x, wrapper, partials), cbam.avg_max_pool_plain(x, partials)
+        area = 1 if not partials else x.shape[1] * x.shape[2]
+        absmean = x.float().abs().mean((1, 2))
+        ok = torch.equal(got[1], ref[1]) and _mean_ok(got[0] / area, ref[0] / area, absmean,
+                                                      torch.float32 if partials else x.dtype)
+        hold("avg_max_pool", x, torch.stack(got), torch.stack(ref), ok)
+        return got
+
+    def stats(x, gate):
+        got, ref = real_stats(x, gate), cbam.gated_spatial_stats_plain(x, gate)
+        z_abs = (x * gate[:, None, None, :]).float().abs().mean(-1)
+        ok = torch.equal(got[:, 1], ref[:, 1]) and _mean_ok(got[:, 0], ref[:, 0], z_abs, x.dtype)
+        hold("gated_spatial_stats", x, got, ref, ok)
+        return got
+
+    def tail(y, shortcut, gate, st, w, halo=0):
+        got = real_tail(y, shortcut, gate, st, w, halo=halo)
+        ref = cbam.cbam_tail_apply_plain(y, shortcut, gate, st, w, halo)
+        hold("cbam_tail", y, got, ref, _tail_ok(got, ref, y, y.dtype))
+        return got
+
+    def mp(x):
+        got, ref = real_mp(x), unpool.max_pool_with_indices_plain(x)
+        hold("max_pool_with_indices", x, got[0], ref[0],
+             _bits_equal(got[0], ref[0]) and _bits_equal(got[1], ref[1]))
+        return got
+
+    def up(vals, codes):
+        got, ref = real_up(vals, codes), unpool.max_unpool_plain(vals, codes)
+        hold("max_unpool", vals, got, ref, _bits_equal(got, ref))
+        return got
+
+    # the stats, tail, pool and unpool wrappers count on the name their module
+    # looks up, here the held function: these comparison runs' launches land there
+    stats.launches = tail.launches = mp.launches = up.launches = 0
+    with patched(fused_conv_module, _fused=fused), \
+            patched(cbam, run_avg_max_pool=pool, gated_spatial_stats=stats, cbam_tail_apply=tail), \
+            patched(unpool, max_pool_with_indices=mp, max_unpool=up):
+        yield
+
+
+def sp_forward(model, x, mesh):
+    """`model`'s logits on this rank's rows of `x` (or on all of it with
+    mesh=None), under `no_grad`; with a mesh the rows are gathered back
+    whole. Returns the forward as a thunk and the logits."""
+    if mesh is None:
+        def fwd():
+            return model(x, return_logits=True)
+        with torch.no_grad():
+            return fwd, fwd()
+    from coastline_torch.parallel.mesh import batch_sharding, space_group
+
+    h, w = x.shape[2:]
+    xl = x[:, :, batch_sharding(mesh).rows_of(h)].contiguous(memory_format=torch.channels_last)
+    group = space_group(mesh)
+
+    def fwd():
+        with collectives.split_rows(group, h, w) as split:
+            y = model(xl, return_logits=True)
+            return collectives.gather_rows(y, split)
+    with torch.no_grad():
+        return fwd, fwd()
+
+
+def sp_eval(dev, mesh=None):
+    """The phase's eval forwards on one device or on this rank's rows:
+    each warmed once, then counted (every counter zeroed just before),
+    timed, and run again with every kernel call held against its plain
+    version (`held_space_kernels`)."""
+    _, _, x = sp_tiles(dev)
+    out = {}
+    for name, dt, sd in sp_models():
+        model = create_model(name, dtype=dt)
+        model.load_state_dict(sd, strict=True)
+        model = model.to(dev).eval()
+        fwd, _ = sp_forward(model, x, mesh)
+        sync(dev)
+        taps = sp_taps(model) if name == "Robust UNet" else {}
+        md_zero()
+        with torch.no_grad():
+            logits = fwd().float()
+        sync(dev)
+        launches = sp_counts()
+        maps = sp_untap(taps, mesh)
+        record = {}
+        with torch.no_grad(), held_space_kernels(record):
+            fwd()
+        with torch.no_grad():
+            ms = cuda_ms(fwd, 3, warmup=0)
+        tag = f"{label(name)}_{'bf16' if dt == torch.bfloat16 else 'f32'}"
+        out[tag] = dict(logits=logits.cpu(), launches=launches, held=record, forward_ms=ms,
+                        maps=maps)
+        del model
+        torch.cuda.empty_cache()
+    return out
+
+
+SP_TAPS = ("bottleneck.1", "bottleneck.2.conv1")  # the dilated block; the first 1024-channel conv
+
+
+def sp_taps(model):
+    """Forward hooks keeping the outputs of the Robust U-Net's `SP_TAPS`
+    (where a rank's bf16 forward first parts from one process's)."""
+    kept, hooks = {}, []
+    for name, mod in model.named_modules():
+        if name in SP_TAPS:
+            hooks.append(mod.register_forward_hook(
+                lambda m, i, o, name=name: kept.__setitem__(name, o)))
+    return dict(kept=kept, hooks=hooks)
+
+
+def sp_untap(taps, mesh):
+    """The tapped maps, whole (a rank's rows gathered), on the host; the
+    hooks removed."""
+    if not taps:
+        return {}
+    for h in taps["hooks"]:
+        h.remove()
+    out = {}
+    for name, t in taps["kept"].items():
+        if mesh is not None:  # both maps are the 1/16 level: SP_SIZE / 16 rows
+            from coastline_torch.parallel.mesh import space_group
+
+            split = collectives.RowSplit(space_group(mesh), SP_SIZE // 16, SP_SIZE // 16)
+            t = collectives.gather_rows(t.contiguous(memory_format=torch.channels_last), split)
+        out[name] = t.cpu()
+    return out
+
+
+def sp_train(dev, mesh=None):
+    """SP_STEPS bf16 Adam steps (lr 1e-4, dropout on, no augmentation) of the
+    full-width Robust U-Net at batch SP_BATCH, SP_SIZE^2, one batch a step:
+    on one device or on this rank's rows of every image. Each process's
+    peak memory is read over the steps, its counter reset once the model,
+    its Adam state and the tiles are on the card; `step_ms` includes the
+    first step's cuDNN plan choice."""
+    sd = robust_unet_state_dict(random_robust_unet_variables(seed=0))
+    images, masks, _ = coast_tiles(SP_STEPS * SP_BATCH, SP_SIZE, 32)
+    model = create_model("Robust UNet", dtype=torch.bfloat16)
+    model.load_state_dict(sd, strict=True)
+    cfg = TrainConfig(batch_size=SP_BATCH, lr=SP_LR, weight_decay=0.0, seed=0)
+    epoch = make_train_epoch(model, cfg, device=dev, mesh=mesh)
+    state = create_train_state(model, cfg, device=dev)
+    idx, valid = batch_indices(len(images), SP_BATCH, shuffle=False,
+                               rng=np.random.default_rng(0))
+    images, masks = torch.from_numpy(images).to(dev), torch.from_numpy(masks).to(dev)
+    sync(dev)
+    torch.cuda.reset_peak_memory_stats(dev)
+    t0 = time.perf_counter()
+    state, losses = epoch(state, images, masks, idx, valid, per_step=True)
+    sync(dev)
+    step_ms = (time.perf_counter() - t0) / SP_STEPS * 1e3
+    peak = torch.cuda.max_memory_allocated(dev) / 2**30
+    params = {k: v.detach().float().cpu() for k, v in model.named_parameters()}
+    return dict(losses=losses.tolist(), peak_gib=peak, step_ms=step_ms, params=params)
+
+
+def sp_scene(dev, mesh=None):
+    """`predict_scene(batch=8, with_band=20)` of a 2048^2 scene with the
+    full-width bf16 UNet extractor, warmed once, then counted."""
+    ex = CoastlineExtractor(variables=random_unet_variables(seed=0), dtype=torch.bfloat16,
+                            image_size=SP_SIZE, device=dev)
+    scene, _ = tiled_scene(SP_SCENE, 13)
+    ex.predict_scene(scene, batch=SP_BATCH, with_band=20, mesh=mesh)
+    sync(dev)
+    md_zero()
+    t0 = time.perf_counter()
+    mask, band = ex.predict_scene(scene, batch=SP_BATCH, with_band=20, mesh=mesh)
+    sync(dev)
+    s = time.perf_counter() - t0
+    launches = sp_counts()
+    redo = coastline_band(torch.from_numpy(mask).to(dev), 20, device=dev).cpu().numpy()
+    return dict(mask=mask, band=band, s=s, launches=launches,
+                band_is_dilation=bool(np.array_equal(band, redo)))
+
+
+def space_rank():
+    """One rank of the space phase (two gloo ranks on `cuda:0`,
+    `make_mesh(2, space=2)`: each holds every image's half of the rows)."""
+    from coastline_torch.parallel.launch import local_device
+    from coastline_torch.parallel.mesh import make_mesh
+
+    md_flags()
+    dev = local_device()
+    mesh = make_mesh(SP_RANKS, space=SP_RANKS)
+    out = dict(rank=torch.distributed.get_rank(), device=str(dev), eval=sp_eval(dev, mesh))
+    out["train"] = sp_train(dev, mesh)
+    out["scene"] = sp_scene(dev, mesh)
+    return out
+
+
+def check_space_kernels(dev):
+    """The two kernel modes the row split adds, against their plain
+    versions at a rank's shapes (half of 8 x 512 x 512 rows), and timed:
+    the CBAM tail reading stats with a 3-row halo and with none (bf16 and
+    f32), and the CBAM pool's float32 partials (bf16 and f32)."""
+    gen = torch.Generator(device=dev).manual_seed(5)
+    shape = (SP_BATCH, SP_SIZE // SP_RANKS, SP_SIZE, 64)
+    out, failures = {}, []
+    for dt in (torch.bfloat16, torch.float32):
+        y, s, gate, w = _cbam_inputs(shape, dt, dev, gen)
+        tag = "bf16" if dt == torch.bfloat16 else "f32"
+        for halo in (3, 0):
+            st = torch.randn((shape[0], 2, shape[1] + 2 * halo, shape[2]), device=dev,
+                             generator=gen).to(dt)
+            got = cbam.cbam_tail_apply(y, s, gate, st, w, halo=halo)
+            ref = cbam.cbam_tail_apply_plain(y, s, gate, st, w, halo)
+            n = y.numel()
+            bound_ms, bound_by = bound(3 * n * y.element_size() + st.numel() * y.element_size(),
+                                       98 * n // shape[3] + 4 * n, PEAK_F32_OPS)
+            out[f"cbam_tail_halo{halo}_{tag}"] = dict(
+                shape=list(shape), halo=halo, ok=_tail_ok(got, ref, y, dt),
+                max_abs_err=float((got.float() - ref.float()).abs().max()),
+                ms=cuda_ms(lambda: cbam.cbam_tail_apply(y, s, gate, st, w, halo=halo), 10),
+                plain_ms=cuda_ms(lambda: cbam.cbam_tail_apply_plain(y, s, gate, st, w, halo),
+                                 3, 1),
+                bound_ms=bound_ms, bound_by=bound_by)
+        got = cbam.avg_max_pool(y, partials=True)
+        ref = cbam.avg_max_pool_plain(y, partials=True)
+        area = shape[1] * shape[2]
+        ok = torch.equal(got[1], ref[1]) and _mean_ok(got[0] / area, ref[0] / area,
+                                                      y.float().abs().mean((1, 2)), torch.float32)
+        bound_ms, bound_by = bound(y.numel() * y.element_size() + 2 * shape[0] * 64 * 4,
+                                   2 * y.numel(), PEAK_F32_OPS)
+        out[f"avg_max_pool_partials_{tag}"] = dict(
+            shape=list(shape), ok=ok, max_abs_err=float((torch.stack(got) - torch.stack(ref))
+                                                        .abs().max()),
+            ms=cuda_ms(lambda: cbam.avg_max_pool(y, partials=True), 10),
+            plain_ms=cuda_ms(lambda: cbam.avg_max_pool_plain(y, partials=True), 3, 1),
+            library_ms=cuda_ms(lambda: (y.float().sum((1, 2)), y.amax((1, 2))), 10),
+            bound_ms=bound_ms, bound_by=bound_by)
+        del y, s, gate, st
+    for name, row in out.items():
+        log("space_kernel", name, json.dumps(row))
+        if not row["ok"]:
+            failures.append(f"{name} disagrees with its plain version: {row}")
+    return out, failures
+
+
+def space_path(dev):
+    """The space phase: one process on the card, then two gloo ranks on
+    cuda:0 under `make_mesh(2, space=2)`, each holding half the rows of
+    every image, against it: (a) the full-width Robust U-Net's bf16 and f32
+    eval forwards at batch 8, 512^2, (b) SegNet's bf16 forward, both with
+    every kernel counted on each rank and every kernel call held against
+    its plain version; (c) 3 bf16 Robust U-Net train steps with each rank's
+    peak memory beside one process's; (d) `predict_scene(mesh=)` of a
+    2048^2 scene with the UNet, mask and band. Then the tail's halo and
+    the pool's partials against their plain versions. Two ranks on one
+    card share its SMs and exchange halos through the host (gloo): their
+    times are not a scaling measurement."""
+    from coastline_torch.parallel.launch import run
+
+    t0 = time.perf_counter()
+    single = dict(eval=sp_eval(dev), train=sp_train(dev), scene=sp_scene(dev))
+    single_s = time.perf_counter() - t0
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    ranks = run(space_rank, SP_RANKS, device="cuda:0", backend="gloo")
+    ranks_s = time.perf_counter() - t0
+    kernels, failures = check_space_kernels(dev)
+    result = dict(ranks=SP_RANKS, backend="gloo", device="cuda:0", single_s=single_s,
+                  ranks_s=ranks_s, kernels=kernels, eval={}, train={}, scene={})
+    want = {"robust_unet_bf16": {"fused_conv3x3_bn_relu": 2, "avg_max_pool": 9,
+                                 "gated_spatial_stats": 9, "cbam_tail": 9},
+            "robust_unet_f32": {"fused_conv3x3_bn_relu": 0, "avg_max_pool": 9,
+                                "gated_spatial_stats": 9, "cbam_tail": 9},
+            "segnet_bf16": {"fused_conv3x3_bn_relu": 2, "max_pool_with_indices": 4,
+                            "max_unpool": 4}}
+    for tag, ref in single["eval"].items():
+        rows = []
+        for r in ranks:
+            e = r["eval"][tag]
+            got = {k: e["launches"][k] for k in want[tag]}
+            cmp = compare_logits(e["logits"], ref["logits"], torch.float32)
+            row = dict(rank=r["rank"], launches=got, held=e["held"], forward_ms=e["forward_ms"],
+                       mask_agree=cmp["mask_agree"], max_abs_err=cmp["max_abs_err"])
+            if e["maps"]:  # where the rank's forward first parts from one process's
+                row["maps_differing_share"] = {k: float((t != ref["maps"][k]).float().mean())
+                                               for k, t in e["maps"].items()}
+            if tag == "robust_unet_f32":
+                row["within_f32_tol"] = bool(torch.allclose(e["logits"], ref["logits"],
+                                                            atol=SP_F32_TOL[0],
+                                                            rtol=SP_F32_TOL[1]))
+                if not row["within_f32_tol"]:
+                    failures.append(f"rank {r['rank']}'s {tag} logits are off one process's: {row}")
+            elif tag == "robust_unet_bf16":
+                f32 = single["eval"]["robust_unet_f32"]["logits"]
+                row["vs_f32_mask_agree"] = compare_logits(e["logits"], f32, torch.float32)[
+                    "mask_agree"]
+                row["single_vs_f32_mask_agree"] = compare_logits(ref["logits"], f32,
+                                                                 torch.float32)["mask_agree"]
+                if row["vs_f32_mask_agree"] < row["single_vs_f32_mask_agree"] - SP_BF16_MARGIN:
+                    failures.append(f"rank {r['rank']}'s {tag} masks are further from float32 "
+                                    f"than one process's: {row}")
+            elif cmp["mask_agree"] < SP_MASK_AGREE[tag.rsplit("_", 1)[0]]:
+                failures.append(f"rank {r['rank']}'s {tag} masks agree on {cmp['mask_agree']}")
+            if got != want[tag]:
+                failures.append(f"rank {r['rank']}'s {tag} forward launched {got}, want "
+                                f"{want[tag]}")
+            for k, h in e["held"].items():
+                if h["failed"] or h["calls"] != want[tag].get(k, h["calls"]):
+                    failures.append(f"rank {r['rank']}'s {tag} {k} calls held: {h}")
+            if set(k for k, n in want[tag].items() if n) - set(e["held"]):
+                failures.append(f"rank {r['rank']}'s {tag} held no call of {want[tag]}")
+            rows.append(row)
+        result["eval"][tag] = dict(single_forward_ms=ref["forward_ms"],
+                                   single_launches=ref["launches"], ranks=rows)
+    ref = single["train"]
+    limit = 2 * SP_LR * SP_STEPS * 1.1
+    result["train"] = dict(single_losses=ref["losses"], single_peak_gib=ref["peak_gib"],
+                           single_step_ms=ref["step_ms"], ranks=[], param_limit=limit,
+                           memory_share_limit=SP_MEMORY_SHARE)
+    for r in ranks:
+        t = r["train"]
+        d = torch.cat([(t["params"][k] - ref["params"][k]).abs().reshape(-1) for k in ref["params"]])
+        row = dict(rank=r["rank"], losses=t["losses"], peak_gib=t["peak_gib"],
+                   peak_share=t["peak_gib"] / ref["peak_gib"], step_ms=t["step_ms"],
+                   param_max_abs=float(d.max()),
+                   loss_rel=[abs(a - b) / abs(b) for a, b in zip(t["losses"], ref["losses"])])
+        result["train"]["ranks"].append(row)
+        if row["param_max_abs"] > limit or max(row["loss_rel"]) > MD_LOSS_REL:
+            failures.append(f"rank {r['rank']}'s Robust U-Net steps are off one process's: {row}")
+        if row["peak_share"] >= SP_MEMORY_SHARE:
+            failures.append(f"rank {r['rank']}'s train-step peak {row['peak_gib']:.2f} GiB is "
+                            f"{row['peak_share']:.3f} of one process's {ref['peak_gib']:.2f}")
+    ref = single["scene"]
+    result["scene"] = dict(size=SP_SCENE, single_s=ref["s"], single_launches=ref["launches"],
+                           ranks=[])
+    for r in ranks:
+        sc = r["scene"]
+        agree = float((sc["mask"] == ref["mask"]).mean())
+        row = dict(rank=r["rank"], s=sc["s"], launches=sc["launches"], mask_agree=agree,
+                   band_is_dilation=sc["band_is_dilation"],
+                   water_fraction=float(sc["mask"].mean()))
+        result["scene"]["ranks"].append(row)
+        if agree < SP_MASK_AGREE["scene"] or not sc["band_is_dilation"]:
+            failures.append(f"rank {r['rank']}'s scene is off one process's: {row}")
+        forwards = ref["launches"]["fused_conv3x3_bn_relu"] // 2
+        if sc["launches"]["fused_conv3x3_bn_relu"] != 2 * forwards or \
+                sc["launches"]["dilate_disk"] != 1:
+            failures.append(f"rank {r['rank']}'s scene launches {sc['launches']}, want "
+                            f"{2 * forwards} fused convs and one dilation")
+    log("space", json.dumps(result))
+    os.makedirs(SPACE_DIR, exist_ok=True)
+    with open(os.path.join(SPACE_DIR, "result.json"), "w") as f:
+        json.dump(dict(result, failures=failures), f, indent=1)
+    if failures:
+        raise AssertionError("space phase failed:\n" + "\n".join(failures))
+    return result
+
+
+def space_launches(result) -> dict:
+    """{kernel: {path: launches}} of the space phase, summed over its ranks."""
+    out = {}
+    for tag, e in result["eval"].items():
+        for r in e["ranks"]:
+            for k, n in r["launches"].items():
+                out.setdefault(k, {}).setdefault(f"space_{tag}", 0)
+                out[k][f"space_{tag}"] += n
+    for r in result["scene"]["ranks"]:
+        for k, n in r["launches"].items():
+            out.setdefault(k, {}).setdefault("space_scene", 0)
+            out[k]["space_scene"] += n
+    return {k: {p: n for p, n in v.items() if n} for k, v in out.items()}
+
+
 TOOLS_DIR = os.path.join(REPO, "build", "tools_path")  # listed in .gitignore
 # the root bench's keys (`bench.py:213-230`), which the port's bench line carries
 ROOT_BENCH_KEYS = ("metric", "value", "unit", "vs_baseline", "best_batch", "bf16_images_per_sec",
@@ -3639,6 +4095,7 @@ def main(argv=None) -> int:
     granule = extraction["granule"]
     int8 = int8_path(dev, train["save_dir"])
     multi = multi_device_path(dev)
+    space = space_path(dev)
     tools = tools_path(dev, train["save_dir"])
 
     def path_launches(path, name):
@@ -3744,10 +4201,16 @@ def main(argv=None) -> int:
                   or (c["lhs_dilation"] and c["w"][0] > 2) or c["act"] == "leaky"],
         library="cuDNN bf16 conv (channels_last) + float32 epilogue + ReLU + the site's "
                 "eager quantization"))
-    for entry in kernels:  # the multi-device phase's launches, summed over its ranks
+    for entry in kernels:  # the multi-device and space phases' launches, summed over ranks
         for path, n in md_launches(multi).get(entry["name"], {}).items():
             entry["launches_by_path"][path] = n
             entry["launches"] += n
+        for path, n in space_launches(space).get(entry["name"], {}).items():
+            entry["launches_by_path"][path] = n
+            entry["launches"] += n
+        held = {k: v for k, v in space["kernels"].items() if k.startswith(entry["name"])}
+        if held:
+            entry["space_modes"] = held
         for path, part in (("bench", "bench"), ("tools_trace", "trace"), ("tools_gui", "gui")):
             n = tools[part]["launches"].get(entry["name"], 0)
             if n:
@@ -3774,7 +4237,7 @@ def main(argv=None) -> int:
                            robust_unet=robust, unpool_cases=unpool_cases, segnet=segnet,
                            zoo=zoo, total_s=time.perf_counter() - t_start,
                            unet_train=train, protocol=protocol, extraction=extraction,
-                           int8=int8, multi_device=multi, tools=tools),
+                           int8=int8, multi_device=multi, space=space, tools=tools),
                       f, indent=1)
     log(f"total {time.perf_counter() - t_start:.1f} s")
     log(json.dumps({"kernels": kernels}))

@@ -39,6 +39,12 @@
 // take the non-portable cluster size, which the H100 allows up to 16.
 // Max starts at -inf (the tail's input is post-BN with no ReLU, so whole
 // channels can be negative) and keeps NaN, as torch.amax and jnp.max do.
+//
+// Partials mode (`partials` = 1): out is a float32 (2, B, C) of the sums,
+// undivided, and the maxima, unrounded. A rank that holds some rows of the
+// image (the mesh's space axis) writes these; the ranks' sums are added and
+// divided by the whole image's area in float32, so a bf16 mean rounds once,
+// as in one process.
 
 #include <cooperative_groups.h>
 
@@ -85,8 +91,8 @@ __device__ __forceinline__ void accumulate(const Raw<T, VEC>& r, float (&sum)[VE
 // b * chunks + chunk; dynamic shared memory as `smem_bytes` below
 template <typename T, int VEC>
 __global__ void __launch_bounds__(MAX_THREADS)
-cbam_avg_max_kernel(const T* __restrict__ x, T* __restrict__ out, int B, int HW, int C, int gw,
-                    int px) {
+cbam_avg_max_kernel(const T* __restrict__ x, void* __restrict__ out, int B, int HW, int C, int gw,
+                    int px, int partials) {
   extern __shared__ float smem[];
   cg::cluster_group cluster = cg::this_cluster();
   const int K = int(cluster.num_blocks());
@@ -178,8 +184,15 @@ cbam_avg_max_kernel(const T* __restrict__ x, T* __restrict__ out, int B, int HW,
         m = nanmax(m, vm[r]);
       }
     }
-    out[(size_t)b * C + c] = from_float<T>(s / float(HW));
-    out[(size_t)(B + b) * C + c] = from_float<T>(m);
+    if (partials) {
+      float* o = static_cast<float*>(out);
+      o[(size_t)b * C + c] = s;
+      o[(size_t)(B + b) * C + c] = m;
+    } else {
+      T* o = static_cast<T*>(out);
+      o[(size_t)b * C + c] = from_float<T>(s / float(HW));
+      o[(size_t)(B + b) * C + c] = from_float<T>(m);
+    }
   }
   cluster.sync();
 }
@@ -191,7 +204,7 @@ size_t smem_bytes(int gw, int vec, int threads) {
 
 template <typename T, int VEC>
 int launch(const void* x, void* out, int B, int HW, int C, int gw, int cluster, int px,
-           int threads, cudaStream_t stream) {
+           int threads, int partials, cudaStream_t stream) {
   auto kernel = cbam_avg_max_kernel<T, VEC>;
   if (cluster > 8) {  // once a device: the H100 schedules clusters of up to 16 CTAs
     static unsigned long long allowed = 0;  // bit d: set on device d
@@ -220,10 +233,25 @@ int launch(const void* x, void* out, int B, int HW, int C, int gw, int cluster, 
   attr[0].val.clusterDim.z = 1;
   cfg.attrs = attr;
   cfg.numAttrs = 1;
-  cudaError_t err = cudaLaunchKernelEx(&cfg, kernel, static_cast<const T*>(x), static_cast<T*>(out),
-                                       B, HW, C, gw, px);
+  cudaError_t err = cudaLaunchKernelEx(&cfg, kernel, static_cast<const T*>(x), out, B, HW, C, gw,
+                                       px, partials);
   if (err != cudaSuccess) return int(err);
   return int(cudaGetLastError());
+}
+
+}  // namespace
+
+namespace {
+
+int entry(const void* x, void* out, int B, int HW, int C, int dtype, int vec, int gw, int cluster,
+          int px, int threads, int partials, void* stream) {
+  if (B <= 0 || HW <= 0 || C <= 0 || gw <= 0 || (gw & (gw - 1)) != 0 || threads <= 0 ||
+      threads > MAX_THREADS || threads % 32 != 0 || threads % gw != 0 || cluster < 1 ||
+      cluster > MAX_CLUSTER || px <= 0 || (long long)cluster * px < HW ||
+      (vec != 1 && C % vec != 0) || smem_bytes(gw, vec, threads) > 48 * 1024)
+    return int(cudaErrorInvalidValue);
+  return CBAM_DISPATCH(dtype, vec, launch, x, out, B, HW, C, gw, cluster, px, threads, partials,
+                       static_cast<cudaStream_t>(stream));
 }
 
 }  // namespace
@@ -235,11 +263,12 @@ int launch(const void* x, void* out, int B, int HW, int C, int gw, int cluster, 
 extern "C" int coastline_avg_max_pool(const void* x, void* out, int B, int HW, int C, int dtype,
                                       int vec, int gw, int cluster, int px, int threads,
                                       void* stream) {
-  if (B <= 0 || HW <= 0 || C <= 0 || gw <= 0 || (gw & (gw - 1)) != 0 || threads <= 0 ||
-      threads > MAX_THREADS || threads % 32 != 0 || threads % gw != 0 || cluster < 1 ||
-      cluster > MAX_CLUSTER || px <= 0 || (long long)cluster * px < HW ||
-      (vec != 1 && C % vec != 0) || smem_bytes(gw, vec, threads) > 48 * 1024)
-    return int(cudaErrorInvalidValue);
-  return CBAM_DISPATCH(dtype, vec, launch, x, out, B, HW, C, gw, cluster, px, threads,
-                       static_cast<cudaStream_t>(stream));
+  return entry(x, out, B, HW, C, dtype, vec, gw, cluster, px, threads, 0, stream);
+}
+
+// The same in partials mode: out (2, B, C) float32 [sum, max].
+extern "C" int coastline_avg_max_pool_partials(const void* x, void* out, int B, int HW, int C,
+                                               int dtype, int vec, int gw, int cluster, int px,
+                                               int threads, void* stream) {
+  return entry(x, out, B, HW, C, dtype, vec, gw, cluster, px, threads, 1, stream);
 }

@@ -24,6 +24,12 @@
 // and pixels, and writes the result with 16-byte stores. The attention map is
 // never written to device memory; each channel chunk recomputes its tile's 98
 // taps a pixel, which is cheap beside the channel traffic.
+//
+// Halo. A rank that holds some rows of the image (the mesh's space axis)
+// passes stats with `halo` (0..3) extra rows above and below its H rows: the
+// neighbouring ranks' rows, or zeros outside the image. The kernel reads
+// stats row gy + halo for output row gy, and takes zeros only beyond them,
+// so y, gate and shortcut are never exchanged.
 
 #include "cbam_common.cuh"
 
@@ -40,7 +46,7 @@ template <typename T, int VEC>
 __global__ void __launch_bounds__(THREADS)
 cbam_tail_kernel(const T* __restrict__ y, const T* __restrict__ sc, const T* __restrict__ gate,
                  const T* __restrict__ stats, const float* __restrict__ w, T* __restrict__ out,
-                 int H, int W, int C, int TH, int TW) {
+                 int H, int W, int C, int TH, int TW, int halo) {
   __shared__ float st_s[2 * HALO_MAX];
   __shared__ float w_s[2 * K * K];
   __shared__ float att_s[THREADS];
@@ -54,11 +60,12 @@ cbam_tail_kernel(const T* __restrict__ y, const T* __restrict__ sc, const T* __r
   const int cn = min(CCH, C - c0);
   const int HH = TH + 2 * PAD, WW = TW + 2 * PAD;
 
+  const int SH = H + 2 * halo;  // rows of the stats planes
   for (int i = tid; i < 2 * HH * WW; i += THREADS) {
     const int plane = i / (HH * WW), r = i % (HH * WW);
-    const int gy = y0 - PAD + r / WW, gx = x0 - PAD + r % WW;
-    st_s[i] = (gy >= 0 && gy < H && gx >= 0 && gx < W)
-                  ? to_float(stats[(((size_t)b * 2 + plane) * H + gy) * W + gx])
+    const int sy = y0 - PAD + r / WW + halo, gx = x0 - PAD + r % WW;
+    st_s[i] = (sy >= 0 && sy < SH && gx >= 0 && gx < W)
+                  ? to_float(stats[(((size_t)b * 2 + plane) * SH + sy) * W + gx])
                   : 0.0f;
   }
   if (tid < 2 * K * K) w_s[tid] = w[tid];
@@ -102,7 +109,7 @@ cbam_tail_kernel(const T* __restrict__ y, const T* __restrict__ sc, const T* __r
 
 template <typename T, int VEC>
 int launch(const void* y, const void* sc, const void* gate, const void* stats, const void* w,
-           void* out, int B, int H, int W, int C, cudaStream_t stream) {
+           void* out, int B, int H, int W, int C, int halo, cudaStream_t stream) {
   const int TW = W < 32 ? W : 32;
   const int TH = H < THREADS / TW ? H : THREADS / TW;
   const long long tiles = (long long)((H + TH - 1) / TH) * ((W + TW - 1) / TW);
@@ -111,19 +118,21 @@ int launch(const void* y, const void* sc, const void* gate, const void* stats, c
   cbam_tail_kernel<T, VEC><<<grid, THREADS, 0, stream>>>(
       static_cast<const T*>(y), static_cast<const T*>(sc), static_cast<const T*>(gate),
       static_cast<const T*>(stats), static_cast<const float*>(w), static_cast<T*>(out), H, W, C,
-      TH, TW);
+      TH, TW, halo);
   return int(cudaGetLastError());
 }
 
 }  // namespace
 
-// y, shortcut, out (B, H, W, C) dt; gate (B, C) dt; stats (B, 2, H, W) dt;
-// w (2, 7, 7) float32 (the conv weight [in][ky][kx], values already rounded to dt).
+// y, shortcut, out (B, H, W, C) dt; gate (B, C) dt; stats (B, 2, H + 2 halo, W)
+// dt; w (2, 7, 7) float32 (the conv weight [in][ky][kx], values already rounded
+// to dt); halo 0..3.
 extern "C" int coastline_cbam_tail(const void* y, const void* shortcut, const void* gate,
                                    const void* stats, const void* w, void* out, int B, int H,
-                                   int W, int C, int dtype, int vec, void* stream) {
-  if (B <= 0 || B > 65535 || H <= 0 || W <= 0 || C <= 0 || (C + CCH - 1) / CCH > 65535)
+                                   int W, int C, int halo, int dtype, int vec, void* stream) {
+  if (B <= 0 || B > 65535 || H <= 0 || W <= 0 || C <= 0 || (C + CCH - 1) / CCH > 65535 ||
+      halo < 0 || halo > PAD)
     return int(cudaErrorInvalidValue);
-  return CBAM_DISPATCH(dtype, vec, launch, y, shortcut, gate, stats, w, out, B, H, W, C,
+  return CBAM_DISPATCH(dtype, vec, launch, y, shortcut, gate, stats, w, out, B, H, W, C, halo,
                        static_cast<cudaStream_t>(stream));
 }

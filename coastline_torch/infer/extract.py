@@ -35,6 +35,7 @@ from coastline_torch.infer.contours import extract_contours
 from coastline_torch.infer.morphology import coastline_band
 from coastline_torch.infer.server import BatchedPredictor
 from coastline_torch.models.unet import UNet
+from coastline_torch.parallel import collectives
 from coastline_torch.utils.device import resolve_device
 from coastline_torch.utils.torch_import import detect_reference_architecture, unet_state_dict
 
@@ -47,13 +48,18 @@ def _make_predict_fn(model, tta: bool = False):
     With `tta=True` the class probabilities (float32) are averaged over the
     identity, H-flip, W-flip and 180-degree terms and, for square inputs,
     the same four on the transposed image, each inverted before averaging,
-    in the JAX package's order."""
+    in the JAX package's order. Inside a row split (a scene on a mesh with a
+    'space' axis) `x_u8` is this rank's rows of the tiles; `tta` then
+    raises, since its flips and transposes move rows between ranks."""
 
     @torch.inference_mode()
     def predict(x_u8):
         x = normalize_u8(x_u8).permute(0, 3, 1, 2)
         if not tta:
             return model(x).argmax(dim=1).to(torch.uint8)
+        if collectives.row_split() is not None:
+            raise NotImplementedError("test-time augmentation on a mesh with a 'space' axis: "
+                                      "its flips move rows between ranks")
 
         def probs_of(xi):
             return torch.softmax(model(xi).float(), dim=1)

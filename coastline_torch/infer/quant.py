@@ -57,6 +57,7 @@ import torch.nn.functional as F
 
 from coastline_torch.kernels import unpool
 from coastline_torch.ops.primitives import adaptive_avg_pool, bilinear_resize
+from coastline_torch.parallel import collectives
 from coastline_torch.kernels.int8_conv import (PackedWeights, activation, int8_conv,
                                                normalize_padding, packed, quantize_codes)
 from coastline_torch.utils.device import resolve_device
@@ -1229,7 +1230,13 @@ def int8_forward(qparams, scales, x, return_logits: bool = False, arch: str = "r
                  policy: Optional[Dict] = None, steps=None):
     """The int8-activation forward (bf16 float path) on `x`'s device;
     `scales` maps site name -> absmax; `steps` is a cache of the sites'
-    device steps that a caller keeps across calls (`QuantizedModel`)."""
+    device steps that a caller keeps across calls (`QuantizedModel`). A
+    row split (a mesh's 'space' axis) raises: the int8 convs take no halo."""
+    if collectives.row_split() is not None:
+        raise NotImplementedError(
+            "int8 forwards on a mesh with a 'space' axis are not ported: the int8 convs "
+            "call int8_conv directly, with no halo exchange (ROADMAP.md, queue 1: int8 "
+            "under space)")
     _, fwd, sig = ARCHS[arch]
     x = _input(x)
     with torch.inference_mode():

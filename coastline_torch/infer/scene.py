@@ -29,6 +29,13 @@ than at position 0), so splitting each chunk's rows over the ranks, as
 the JAX package shards its chunk batch, would not. The tile masks are
 gathered in order (`parallel/collectives.py::gather`, one collective a
 scene), and every rank stitches, and takes the band of, the whole scene.
+
+With a 'space' axis the ranks of one space group forward the same chunks,
+each its rows of every tile (`batch_sharding(mesh).rows_of`) inside
+`collectives.split_rows`, so the layers exchange their halo rows; each
+chunk's mask rows are gathered back over the space group
+(`collectives.gather_rows`), and the stitch and band run as above. In
+float32 on the CPU the tile masks equal one device's bit for bit.
 """
 
 from typing import Callable, Optional
@@ -65,13 +72,16 @@ def build_scene_fn(predict_fn: Callable, h: int, w: int, channels: int, tile: in
     stride = tile - overlap
     if stride <= 0:
         raise ValueError(f"overlap ({overlap}) must be smaller than tile ({tile})")
-    share = owners = None
+    share = owners = rows = space = None
     if mesh is not None:
-        from coastline_torch.parallel.mesh import dataset_sharding, model_axis_size
+        from coastline_torch.parallel import mesh as pmesh
 
-        share = dataset_sharding(mesh)  # this rank's data group, of how many
+        share = pmesh.dataset_sharding(mesh)  # this rank's data group, of how many
         # the gather is by rank: keep the first rank of each data group
-        owners = mesh.mesh.flatten().tolist()[::model_axis_size(mesh)]
+        owners = mesh.mesh.flatten().tolist()[::pmesh.model_axis_size(mesh)
+                                              * pmesh.space_axis_size(mesh)]
+        space = pmesh.space_group(mesh)
+        rows = pmesh.batch_sharding(mesh).rows_of(tile)
     ny = max(1, -(-max(h - overlap, 1) // stride))
     nx = max(1, -(-max(w - overlap, 1) // stride))
     n = ny * nx
@@ -106,7 +116,12 @@ def build_scene_fn(predict_fn: Callable, h: int, w: int, channels: int, tile: in
                 continue
             chunk = torch.zeros((batch, tile, tile, channels), dtype=torch.uint8, device=dev)
             chunk[:k] = grid[gy[start:start + k], gx[start:start + k]]
-            masks[c] = predict_fn(chunk)
+            if space is None:
+                masks[c] = predict_fn(chunk)
+                continue
+            with collectives.split_rows(space, tile, tile) as split:  # this rank's tile rows
+                local = predict_fn(chunk[:, rows].contiguous())
+                masks[c] = collectives.gather_rows(local[:, None], split, tile)[:, 0]
         if share is not None:  # (ranks, local chunks) -> chunks in scene order
             masks = collectives.gather(masks)[owners].transpose(0, 1)
         by_tile = masks.reshape(-1, tile, tile)[:n].view(ny, nx, tile, tile)

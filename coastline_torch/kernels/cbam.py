@@ -42,6 +42,15 @@ any B, H, W, C, and the port's ResidualBlock always takes this tail at eval.
 Each wrapper launches its kernel for a CUDA tensor (or raises) and runs its
 `*_plain` version, the same arithmetic in torch ops with the same roundings,
 only for a tensor on the CPU. `.launches` counts kernel launches.
+
+In a row split (`parallel.collectives.split_rows`, the mesh's `space`
+axis) each rank holds its rows of y and shortcut. The pool then runs in its
+partials mode (float32 sums and maxima of the rank's rows, `partials=True`),
+all-reduced over the ranks and divided by the global area in float32, so a
+bf16 mean rounds once, as in one process; the stats are per pixel; and the
+tail's 7x7 conv reads a stats map that carries 3 rows of halo above and
+below (`halo=3`: fetched from the neighbouring ranks, zeros outside the
+image), so y, gate and shortcut, of 64-1024 channels, are never exchanged.
 """
 
 import collections
@@ -53,6 +62,7 @@ import torch
 import torch.nn.functional as F
 
 from coastline_torch.kernels import _build
+from coastline_torch.parallel import collectives
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 
@@ -62,10 +72,13 @@ _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 # ---------------------------------------------------------------------------
 
 
-def avg_max_pool_plain(x):
+def avg_max_pool_plain(x, partials: bool = False):
     """(B, H, W, C) -> (avg, max), each (B, C) in x.dtype; the mean is a
-    float32 sum divided by H * W, then cast."""
+    float32 sum divided by H * W, then cast. With `partials` the float32
+    sum and the max as float32, undivided and uncast."""
     b, h, w, c = x.shape
+    if partials:
+        return x.float().sum((1, 2)), x.amax((1, 2)).float()
     avg = (x.float().sum((1, 2)) / (h * w)).to(x.dtype)
     return avg, x.amax((1, 2))
 
@@ -78,15 +91,16 @@ def gated_spatial_stats_plain(x, gate):
     return torch.stack([mean, z.amax(-1)], dim=1)
 
 
-def cbam_tail_apply_plain(y, shortcut, gate, stats, w):
+def cbam_tail_apply_plain(y, shortcut, gate, stats, w, halo: int = 0):
     """relu(y * gate * att + shortcut), att = sigmoid(conv7x7(stats, w)) with
     the conv summed in float32 on dt-rounded weights and rounded to dt, the
     sigmoid rounded to dt, and every product and sum rounded to dt. y,
-    shortcut (B, H, W, C); gate (B, C); stats (B, 2, H, W); w (7, 7, 2, 1)
+    shortcut (B, H, W, C); gate (B, C); stats (B, 2, H + 2 halo, W), its
+    first and last `halo` rows (0..3) the rows around y's; w (7, 7, 2, 1)
     HWIO. A float32 conv on CUDA needs cuDNN's TF32 off to be float32."""
     dt = y.dtype
     wf = w.to(dt).float().permute(3, 2, 0, 1)  # (1, 2, 7, 7)
-    att = F.conv2d(stats.float(), wf, padding=3).to(dt)
+    att = F.conv2d(stats.float(), wf, padding=(3 - halo, 3)).to(dt)
     att = torch.sigmoid(att.float()).to(dt).permute(0, 2, 3, 1)  # (B, H, W, 1)
     return torch.relu(y * gate[:, None, None, :] * att + shortcut)
 
@@ -148,15 +162,19 @@ def _sm_count(index: int) -> int:
 
 _SIGNATURES = {  # C entry point -> (pointer args, int args)
     "avg_max_pool": (2, 9),
+    "avg_max_pool_partials": (2, 9),
     "gated_spatial_stats": (3, 5),
-    "cbam_tail": (6, 6),
+    "cbam_tail": (6, 7),
 }
 
 
 @functools.cache
 def _fn(name):
-    """The C entry point of `csrc/<name>.cu`, built, loaded and bound once."""
-    fn = getattr(_build.library(name), f"coastline_{name}")
+    """The C entry point `coastline_<name>` of its source
+    (`csrc/avg_max_pool.cu` for both pool entries, else `csrc/<name>.cu`),
+    built, loaded and bound once."""
+    source = "avg_max_pool" if name.startswith("avg_max_pool") else name
+    fn = getattr(_build.library(source), f"coastline_{name}")
     n_ptr, n_int = _SIGNATURES[name]
     fn.argtypes = [ctypes.c_void_p] * n_ptr + [ctypes.c_int] * n_int + [ctypes.c_void_p]
     fn.restype = ctypes.c_int
@@ -222,33 +240,42 @@ def pool_geometry(b, hw, c, vec, sms) -> PoolGeometry:
         width //= 2
 
 
-def run_avg_max_pool(x, wrapper):
+def run_avg_max_pool(x, wrapper, partials: bool = False):
     """The body of `avg_max_pool` and of `kernels.pools.fused_avg_max_pool`,
     which launch the same kernel under their own counts: checks `x`, runs
     the plain version for a CPU tensor, else launches the pool kernel once
     and adds one to `wrapper.launches`. avg and max are the two rows of one
-    (2, B, C) tensor."""
+    (2, B, C) tensor; with `partials` (float32 sums and maxima) of one
+    float32 one. In a row split the ranks' partials are combined into the
+    image's mean and max (the module docstring)."""
     _check("x", x, 4)
+    split = collectives.row_split()
+    if split is not None and not partials:
+        total, mx = run_avg_max_pool(x, wrapper, partials=True)
+        total = collectives.all_reduce_sum(total, split.group)
+        mx = collectives.all_reduce_max(mx, split.group)
+        area = split.height(x.permute(0, 3, 1, 2)) * x.shape[2]
+        return (total / area).to(x.dtype), mx.to(x.dtype)
     if not _on_card(wrapper.__name__, x):
-        return avg_max_pool_plain(x)
+        return avg_max_pool_plain(x, partials)
     b, h, w, c = x.shape
     vec = _vec(c, x)
     dev = x.device
     geo = pool_geometry(b, h * w, c, vec, _sm_count(dev.index))
-    out = x.new_empty((2, b, c))
+    out = x.new_empty((2, b, c), dtype=torch.float32 if partials else x.dtype)
     with _on_device(dev):
-        status = _fn("avg_max_pool")(x.data_ptr(), out.data_ptr(), b, h * w, c, _DTYPES[x.dtype],
-                                     vec, geo.groups, geo.cluster, geo.px, geo.threads,
-                                     _stream(x))
+        entry = _fn("avg_max_pool_partials" if partials else "avg_max_pool")
+        status = entry(x.data_ptr(), out.data_ptr(), b, h * w, c, _DTYPES[x.dtype], vec,
+                       geo.groups, geo.cluster, geo.px, geo.threads, _stream(x))
     _build.check(status, "avg_max_pool launch")
     wrapper.launches += 1
     return out.unbind(0)
 
 
-def avg_max_pool(x):
+def avg_max_pool(x, partials: bool = False):
     """(B, H, W, C) float32 or bfloat16 -> (avg (B, C), max (B, C)) in x.dtype,
-    one read of x."""
-    return run_avg_max_pool(x, avg_max_pool)
+    one read of x; with `partials` (float32 sum (B, C), float32 max (B, C))."""
+    return run_avg_max_pool(x, avg_max_pool, partials)
 
 
 def gated_spatial_stats(x, gate):
@@ -271,29 +298,33 @@ def gated_spatial_stats(x, gate):
     return out
 
 
-def cbam_tail_apply(y, shortcut, gate, stats, w):
+def cbam_tail_apply(y, shortcut, gate, stats, w, halo: int = 0):
     """relu(y * gate * sigmoid(conv7x7(stats, w)) + shortcut) in one pass.
 
-    y, shortcut (B, H, W, C); gate (B, C); stats (B, 2, H, W), all in one
-    dtype; w (7, 7, 2, 1) HWIO (cast to that dtype) -> (B, H, W, C)."""
+    y, shortcut (B, H, W, C); gate (B, C); stats (B, 2, H + 2 halo, W), all
+    in one dtype, the stats' first and last `halo` rows (0..3) the rows
+    around y's (another rank's, or zeros outside the image); w (7, 7, 2, 1)
+    HWIO (cast to that dtype) -> (B, H, W, C)."""
     _check("y", y, 4)
     dt = y.dtype
     for name, t, nd in (("shortcut", shortcut, 4), ("gate", gate, 2), ("stats", stats, 4)):
         _check(name, t, nd, dt)
     b, h, ww, c = y.shape
+    if not 0 <= halo <= 3:
+        raise ValueError(f"halo must be 0..3 rows, got {halo}")
     if (tuple(shortcut.shape) != tuple(y.shape) or tuple(gate.shape) != (b, c)
-            or tuple(stats.shape) != (b, 2, h, ww) or tuple(w.shape) != (7, 7, 2, 1)):
+            or tuple(stats.shape) != (b, 2, h + 2 * halo, ww) or tuple(w.shape) != (7, 7, 2, 1)):
         raise ValueError(f"shapes do not fit: y {tuple(y.shape)}, shortcut "
                          f"{tuple(shortcut.shape)}, gate {tuple(gate.shape)}, stats "
-                         f"{tuple(stats.shape)}, w {tuple(w.shape)}")
+                         f"{tuple(stats.shape)} (halo {halo}), w {tuple(w.shape)}")
     if not _on_card("cbam_tail", y, shortcut, gate, stats, params=(w,)):
-        return cbam_tail_apply_plain(y, shortcut, gate, stats, w)
+        return cbam_tail_apply_plain(y, shortcut, gate, stats, w, halo)
     taps = w.to(dt).float().permute(2, 3, 0, 1).contiguous()  # (2, 7, 7) [in][ky][kx]
     out = torch.empty_like(y)
     with torch.cuda.device(y.device):
         status = _fn("cbam_tail")(y.data_ptr(), shortcut.data_ptr(), gate.data_ptr(),
                                   stats.data_ptr(), taps.data_ptr(), out.data_ptr(), b, h, ww,
-                                  c, _DTYPES[dt], _vec(c, y, shortcut, out), _stream(y))
+                                  c, halo, _DTYPES[dt], _vec(c, y, shortcut, out), _stream(y))
     _build.check(status, "cbam_tail launch")
     cbam_tail_apply.launches += 1
     return out
@@ -304,10 +335,18 @@ def fused_cbam_tail(y, shortcut, fc1, fc2, sconv):
 
     fc1 (C, C // r), fc2 (C // r, C): ChannelAttention's MLP in the JAX
     Dense layout; sconv (7, 7, 2, 1): SpatialAttention's conv, HWIO. On CUDA
-    tensors it launches the pool, stats and tail kernels once each."""
+    tensors it launches the pool, stats and tail kernels once each. In a
+    row split y and shortcut are this rank's rows (the module docstring)."""
     avg, mx = avg_max_pool(y)
     gate = channel_gate(avg, mx, fc1, fc2)
-    return cbam_tail_apply(y, shortcut, gate, gated_spatial_stats(y, gate), sconv)
+    stats = gated_spatial_stats(y, gate)
+    split = collectives.row_split()
+    if split is None:
+        return cbam_tail_apply(y, shortcut, gate, stats, sconv)
+    height = split.height(stats)
+    needs = [(lo - 3, hi + 3) for lo, hi in split.shares(height)]
+    stats = collectives.fetch_rows(stats, split, height, needs)
+    return cbam_tail_apply(y, shortcut, gate, stats.contiguous(), sconv, halo=3)
 
 
 avg_max_pool.launches = 0

@@ -16,6 +16,12 @@ output, which need a contiguous NHWC layout and a 16-byte-aligned base.
 
 `fused_conv3x3_bn_relu` launches the kernel for a CUDA tensor (or raises),
 and runs `fused_conv3x3_bn_relu_plain` only for a tensor on the CPU.
+
+In a row split (`parallel.collectives.split_rows`, the mesh's `space`
+axis) x is this rank's rows: the wrapper fetches one row above and one
+below from the neighbouring ranks (none at the image's true edges, where
+the kernel's own zero padding stands), runs the unchanged kernel on the
+taller slab and crops the two halo rows of its output.
 """
 
 import ctypes
@@ -24,6 +30,7 @@ import torch
 import torch.nn.functional as F
 
 from coastline_torch.kernels import _build
+from coastline_torch.parallel import collectives
 
 C = 64
 
@@ -62,7 +69,22 @@ def fused_conv3x3_bn_relu(x, w, scale, bias, relu: bool = True):
     scale, bias (64,) float32 -> (B, H, W, 64) bf16.
 
     The BN fold: scale = gamma / sqrt(var + eps), bias = beta + (b - mean) *
-    scale for a conv with bias b."""
+    scale for a conv with bias b. In a row split x is this rank's rows."""
+    split = collectives.row_split()
+    if split is None:
+        return _fused(x, w, scale, bias, relu)
+    xc = x.permute(0, 3, 1, 2)
+    height = split.height(xc)
+    needs = [(lo - (lo > 0), hi + (hi < height)) for lo, hi in split.shares(height)]
+    slab = collectives.fetch_rows(xc, split, height, needs)
+    out = _fused(slab.contiguous(memory_format=torch.channels_last).permute(0, 2, 3, 1),
+                 w, scale, bias, relu)
+    top = int(needs[split.rank][0] < split.share(height)[0])
+    return out[:, top:top + x.shape[1]].contiguous()
+
+
+def _fused(x, w, scale, bias, relu):
+    """The wrapper's body on one slab."""
     if x.ndim != 4 or x.shape[-1] != C or tuple(w.shape) != (3, 3, C, C):
         raise ValueError(f"expected x (B,H,W,{C}) and w (3,3,{C},{C}), got "
                          f"{tuple(x.shape)} and {tuple(w.shape)}")

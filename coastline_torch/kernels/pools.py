@@ -8,6 +8,8 @@ channel chunk, folded in distributed shared memory; its design and bound
 are in the source and `kernels/cbam.py`), at the same geometry, so the two
 give the same bits. This name is the one `ChannelAttention` calls at eval
 (`coastline/ops/blocks.py:103-108`), and it keeps its own launch count.
+In a row split (the mesh's `space` axis) it launches the kernel's partials
+mode and returns the whole image's mean and max (`kernels/cbam.py`).
 """
 
 from coastline_torch.kernels.cbam import run_avg_max_pool

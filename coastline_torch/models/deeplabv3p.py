@@ -18,7 +18,7 @@ import torch
 from torch import nn
 
 from coastline_torch.ops.blocks import ASPP, ConvBNAct
-from coastline_torch.ops.primitives import Conv, ConvTranspose, Norm
+from coastline_torch.ops.primitives import Conv, ConvTranspose, MaxPool, Norm
 
 
 class DeepLabV3Plus(nn.Module):
@@ -27,7 +27,7 @@ class DeepLabV3Plus(nn.Module):
         g = torch.Generator().manual_seed(0)  # the random init is seeded, as JAX's PRNGKey(0)
         self.dtype = dtype
         self.conv1 = ConvBNAct(3, 64, 7, stride=2, generator=g)
-        self.conv2 = nn.Sequential(nn.MaxPool2d(3, 2, 1), *ConvBNAct(64, 128, 3, generator=g))
+        self.conv2 = nn.Sequential(MaxPool(3, 2, 1), *ConvBNAct(64, 128, 3, generator=g))
         self.conv3 = ConvBNAct(128, 256, 3, stride=2, generator=g)
         self.conv4 = ConvBNAct(256, 512, 3, stride=2, generator=g)
         self.aspp = ASPP(512, 256, generator=g)

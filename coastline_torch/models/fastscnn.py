@@ -23,7 +23,7 @@ import torch
 from torch import nn
 
 from coastline_torch.ops.blocks import ConvBNAct, DepthwiseSeparableConv, PyramidPooling
-from coastline_torch.ops.primitives import Conv, Norm, bilinear_resize
+from coastline_torch.ops.primitives import Conv, Norm, bilinear_resize, global_size
 
 
 def _ds_stage(widths, first_stride, g):
@@ -59,12 +59,12 @@ class FastSCNN(nn.Module):
     def forward(self, x, return_logits: bool = False):
         """(N, 3, H, W) float -> (N, n_classes, H, W) float32 probabilities, or
         the logits with `return_logits=True`."""
-        size = x.shape[2:]
+        size = global_size(x)
         x = x.to(self.dtype).contiguous(memory_format=torch.channels_last)
         ltd, gfe = self.learning_to_downsample, self.global_feature_extractor
         low = ltd["dsconv2"](ltd["dsconv1"](ltd["conv1"](x)))
         g = gfe["ppm"](gfe["block3"](gfe["block2"](gfe["block1"](low))))
-        high = bilinear_resize(self.feature_fusion["conv_high"](g), low.shape[2:])
+        high = bilinear_resize(self.feature_fusion["conv_high"](g), global_size(low))
         x = torch.relu(self.feature_fusion["conv_low"](low) + high)
         cls = self.classifier
         x = cls["conv3"](cls["conv2"](cls["conv1"](x)))

@@ -20,7 +20,7 @@ import torch
 from torch import nn
 
 from coastline_torch.ops.blocks import ConvStack, conv_bn
-from coastline_torch.ops.primitives import Conv, Norm, bilinear_resize
+from coastline_torch.ops.primitives import Conv, Norm, bilinear_resize, global_size
 
 
 class HRNetWater(nn.Module):
@@ -46,10 +46,10 @@ class HRNetWater(nn.Module):
         hr = self.hr_branch(stem)
         mr = self.mr_branch(stem)
         lr = self.lr_branch(mr)
-        size = hr.shape[2:]
+        size = global_size(hr)
         fused = torch.cat([hr, bilinear_resize(self.mr_to_hr(mr), size),
                            bilinear_resize(self.lr_to_hr(lr), size)], dim=1)
         h = conv_bn(self.head[0], self.head[1], fused, "relu")
-        h = bilinear_resize(h, (2 * h.shape[2], 2 * h.shape[3]))
+        h = bilinear_resize(h, tuple(2 * d for d in global_size(h)))
         logits = self.head[4](h).float()
         return logits if return_logits else torch.sigmoid(logits)

@@ -20,7 +20,7 @@ import torch
 from torch import nn
 
 from coastline_torch.ops.blocks import ConvBNAct, Dropout2d, PyramidPooling
-from coastline_torch.ops.primitives import Conv, bilinear_resize
+from coastline_torch.ops.primitives import Conv, bilinear_resize, global_size
 
 
 class PSPNet(nn.Module):
@@ -37,7 +37,7 @@ class PSPNet(nn.Module):
     def forward(self, x, return_logits: bool = False):
         """(N, 3, H, W) float -> (N, n_classes, H, W) float32 probabilities, or
         the logits with `return_logits=True`."""
-        size = x.shape[2:]
+        size = global_size(x)
         x = x.to(self.dtype).contiguous(memory_format=torch.channels_last)
         x = self.conv4(self.conv3(self.conv2(self.conv1(x))))
         logits = bilinear_resize(self.final_conv(self.ppm(x)).float(), size)

@@ -41,7 +41,7 @@ from torch import nn
 from torch.utils import checkpoint
 
 from coastline_torch.ops.blocks import AttentionGate, DilatedBlock, Dropout2d, ResidualBlock
-from coastline_torch.ops.primitives import Conv, ConvTranspose, Norm
+from coastline_torch.ops.primitives import Conv, ConvTranspose, MaxPool, Norm
 
 REMAT_FLAVORS = (False, True, "conv")
 
@@ -103,13 +103,13 @@ class RobustUNet(nn.Module):
             return ResidualBlock(cin, cout, rate, generator=g)
 
         def down(cin, cout, rate):
-            return nn.Sequential(nn.MaxPool2d(2), rb(cin, cout, rate))
+            return nn.Sequential(MaxPool(2), rb(cin, cout, rate))
 
         self.inc = rb(3, b, 0.1)
         self.down1 = down(b, 2 * b, 0.1)
         self.down2 = down(2 * b, 4 * b, 0.2)
         self.down3 = down(4 * b, 8 * b, 0.2)
-        self.bottleneck = nn.Sequential(nn.MaxPool2d(2),
+        self.bottleneck = nn.Sequential(MaxPool(2),
                                         DilatedBlock(8 * b, 16 * b, generator=g),
                                         rb(16 * b, 16 * b, 0.3))
         for level, (cin, rate) in zip((4, 3, 2, 1), ((16 * b, 0.2), (8 * b, 0.2),

@@ -27,7 +27,7 @@ import torch
 from torch import nn
 
 from coastline_torch.ops.blocks import ConvBNAct, EfficientSelfAttention, MixFFN
-from coastline_torch.ops.primitives import Conv, Norm, bilinear_resize
+from coastline_torch.ops.primitives import Conv, Norm, bilinear_resize, global_size
 
 STAGES = ((32, 1, 8), (64, 2, 4), (128, 4, 2))  # (channels, heads, reduction) of stages 1-3
 
@@ -54,7 +54,7 @@ class SegFormerLite(nn.Module):
     def forward(self, x, return_logits: bool = False):
         """(N, 3, H, W) float -> (N, n_classes, H, W) float32 probabilities, or
         the logits with `return_logits=True`."""
-        size = x.shape[2:]
+        size = global_size(x)
         x = x.to(self.dtype).contiguous(memory_format=torch.channels_last)
         feats = []
         for i in range(1, 5):
@@ -63,7 +63,7 @@ class SegFormerLite(nn.Module):
                 x = x + getattr(self, f"attn{i}")(x)
                 x = x + getattr(self, f"ffn{i}")(x)
             feats.append(x)
-        quarter = feats[0].shape[2:]
+        quarter = global_size(feats[0])
         fused = [bilinear_resize(getattr(self, f"linear_c{i}")(feats[i - 1]), quarter)
                  for i in (4, 3, 2)] + [self.linear_c1(feats[0])]
         head = self.head(self.linear_fuse(torch.cat(fused, dim=1))).float()

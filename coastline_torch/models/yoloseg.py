@@ -18,7 +18,7 @@ import torch
 from torch import nn
 
 from coastline_torch.ops.blocks import ConvBNAct
-from coastline_torch.ops.primitives import Conv, ConvTranspose, Norm
+from coastline_torch.ops.primitives import Conv, ConvTranspose, MaxPool, Norm
 
 # the backbone: (in, out, kernel) for a LeakyReLU ConvBNAct, "M" for a 2x2 max pool
 BACKBONE = ((3, 32, 3), "M", (32, 64, 3), "M", (64, 128, 3), (128, 64, 1), (64, 128, 3), "M",
@@ -32,7 +32,7 @@ class YOLOSeg(nn.Module):
         self.dtype = dtype
         self.backbone = nn.Sequential(*(
             m for spec in BACKBONE
-            for m in ((nn.MaxPool2d(2),) if spec == "M"
+            for m in ((MaxPool(2),) if spec == "M"
                       else ConvBNAct(*spec, act="leaky", generator=g))))
         head = []
         for cin, cout in ((256, 128), (128, 64), (64, 32), (32, 16)):

@@ -35,6 +35,12 @@ the reference's state_dict names (those `utils/torch_import.py`'s exporters
 write) and torch's default init. WaterNet's bottleneck ChannelAttention
 launches `fused_avg_max_pool` at eval; no other block of these launches a
 kernel.
+
+In a row split (`parallel.collectives.split_rows`) the layers fetch their
+rows (`ops/primitives.py`); the blocks add what needs the whole image:
+ChannelAttention's train-mode mean and max over the ranks' rows, the
+pyramid's and ASPP's pooled maps whole on every rank, and attention's
+reduced keys and values gathered over the ranks.
 """
 
 from typing import Optional, Tuple
@@ -46,8 +52,10 @@ from torch import nn
 from coastline_torch.kernels.cbam import channel_gate, fused_cbam_tail
 from coastline_torch.kernels.fused_conv import fused_conv3x3_bn_relu
 from coastline_torch.kernels.pools import fused_avg_max_pool
-from coastline_torch.ops.primitives import (AdaptiveAvgPool, Conv, Norm, avg_pool_global,
-                                             bilinear_resize, max_pool, pair)
+from coastline_torch.ops.primitives import (AdaptiveAvgPool, Conv, MaxPool, Norm,
+                                             avg_pool_global, global_size, max_pool, pair,
+                                             resize_whole)
+from coastline_torch.parallel import collectives
 
 _INIT = "kaiming_out"  # every conv of the Robust U-Net's blocks (`Main_Final.py:282-288`)
 _ACT_MODULES = {"relu": nn.ReLU, "leaky": lambda: nn.LeakyReLU(0.1),
@@ -155,7 +163,9 @@ class Dropout2d(nn.Module):
     masks are not the JAX package's: the random streams differ by design.
     With `rows = (start, total)` the input is rows [start, start + N) of a
     batch of `total` split over ranks: the masks are drawn for the whole
-    batch and this rank keeps its rows, so they equal one process's."""
+    batch and this rank keeps its rows, so they equal one process's. The
+    ranks of a space group hold the same samples and the same generator
+    state, so they draw the same (N, C) mask for their rows of them."""
 
     def __init__(self, rate: float):
         super().__init__()
@@ -213,9 +223,14 @@ class ChannelAttention(nn.Module):
         return self.fc[0].weight[:, :, 0, 0].t(), self.fc[2].weight[:, :, 0, 0].t()
 
     def forward(self, x):
-        if self.training:
+        split = collectives.row_split()
+        if self.training and split is None:
             avg = x.mean((2, 3), dtype=torch.float32).to(x.dtype)
             mx = x.amax((2, 3))
+        elif self.training:  # the float32 sums and the maxima of every rank's rows
+            total = collectives.all_reduce_grad(x.sum((2, 3), dtype=torch.float32), split.group)
+            avg = (total / (split.height(x) * x.shape[3])).to(x.dtype)
+            mx = collectives.global_max(x.amax((2, 3)), split.group)
         else:
             avg, mx = fused_avg_max_pool(x.permute(0, 2, 3, 1))
         return x * channel_gate(avg, mx, *self.dense_kernels())[:, :, None, None]
@@ -348,7 +363,7 @@ class ASPP(nn.Module):
         self.bn = Norm(features)
 
     def forward(self, x):
-        pooled = bilinear_resize(self.conv5(avg_pool_global(x)), x.shape[2:])
+        pooled = resize_whole(self.conv5(avg_pool_global(x)), global_size(x))
         branches = [conv(x) for conv in (self.conv1, self.conv2, self.conv3, self.conv4)]
         return torch.relu(self.bn(self.conv_out(torch.cat(branches + [pooled], dim=1))))
 
@@ -357,7 +372,10 @@ class PyramidPooling(nn.Module):
     """PSP pyramid pooling (`blocks.py:269-288`): for each level k in
     `pool_sizes`, adaptive average pool to k x k -> 1x1 conv to C / 4 -> BN
     -> ReLU -> bilinear back to H x W; concat with the input (2C channels).
-    `convs.{i}` is Sequential(pool, conv, BN, ReLU), the reference's layout."""
+    `convs.{i}` is Sequential(pool, conv, BN, ReLU), the reference's layout.
+    In a row split the pooled level is whole on every rank, its conv, BN
+    and ReLU run as one process's (`collectives.whole_rows`), and each rank
+    resizes it to its own rows."""
 
     def __init__(self, in_ch: int, pool_sizes=(1, 2, 3, 6), generator=None):
         super().__init__()
@@ -368,8 +386,13 @@ class PyramidPooling(nn.Module):
             for k in pool_sizes)
 
     def forward(self, x):
-        return torch.cat([x] + [bilinear_resize(level(x), x.shape[2:]) for level in self.convs],
-                         dim=1)
+        size, outs = global_size(x), [x]
+        for pool, conv, norm, relu in self.convs:
+            pooled = pool(x)
+            with collectives.whole_rows():
+                outs.append(relu(norm(conv(pooled))))
+            outs[-1] = resize_whole(outs[-1], size)
+        return torch.cat(outs, dim=1)
 
 
 class DepthwiseSeparableConv(nn.Module):
@@ -400,7 +423,7 @@ class MultiScaleBlock(nn.Module):
         self.branch1 = ConvBNAct(in_ch, f4, 1, generator=generator)
         self.branch2 = ConvBNAct(in_ch, f4, 3, generator=generator)
         self.branch3 = ConvBNAct(in_ch, f4, 5, generator=generator)
-        self.branch4 = nn.Sequential(nn.MaxPool2d(3, 1, 1),
+        self.branch4 = nn.Sequential(MaxPool(3, 1, 1),
                                      *ConvBNAct(in_ch, f4, 1, generator=generator))
 
     def forward(self, x):
@@ -444,7 +467,11 @@ class EfficientSelfAttention(nn.Module):
     `num_heads` heads, then a 1x1 projection (`proj`). As the JAX package
     computes it, outside any kernel: two batched matmuls in the compute
     dtype, the scores scaled after the first, the softmax in float32 cast
-    back. (`F.scaled_dot_product_attention` would round otherwise in bf16.)"""
+    back. (`F.scaled_dot_product_attention` would round otherwise in bf16.)
+    In a row split the queries stay this rank's; the reduction conv's
+    stride-`reduction` windows start at global multiples of it
+    (`ops/primitives.py`), and the reduced keys and values are gathered
+    over the ranks in image order, so every query sees them all."""
 
     def __init__(self, channels: int, num_heads: int, reduction: int, generator=None):
         super().__init__()
@@ -459,7 +486,11 @@ class EfficientSelfAttention(nn.Module):
         n, c, h, w = x.shape
         heads, dh = self.num_heads, c // self.num_heads
         q = self.q(x).reshape(n, heads, dh, h * w).transpose(2, 3)
-        kv = self.kv(self.reduction(x)).flatten(2)
+        kv = self.kv(self.reduction(x))
+        split = collectives.row_split()
+        if split is not None:
+            kv = collectives.gather_rows(kv, split)
+        kv = kv.flatten(2)
         k = kv[:, :c].reshape(n, heads, dh, -1)            # (n, heads, dh, keys)
         v = kv[:, c:].reshape(n, heads, dh, -1).transpose(2, 3)
         scores = torch.matmul(q, k) * dh ** -0.5

@@ -9,22 +9,59 @@ group, with the JAX package's axis names:
     `DistributedDataParallel`, which all-reduces the gradients;
   * `dcn`: an outer batch axis (`make_mesh(dcn=N)`); the batch splits over
     ('dcn', 'data') jointly, as in JAX;
+  * `space`: image rows (`make_mesh(space=S)`, between `data` and
+    `model`, JAX's order): the S ranks of a space group hold the same
+    samples and split every image's rows (below);
   * `model`: the innermost axis. Every parameter and its Adam moments are
     sharded over their output channels (dim 0 of a torch weight) inside a
-    model group and replicated over the data groups: FSDP2's
-    `fully_shard` on the 2-D (data, model) mesh, i.e. HSDP. FSDP is data
+    model group and replicated over the other ranks: FSDP2's
+    `fully_shard` on the 2-D (rest, model) mesh, i.e. HSDP. FSDP is data
     parallel inside its shard group, so with a model axis the global batch
-    splits over all the mesh's ranks.
+    splits over the model ranks too.
 
-A batch of B rows splits over the mesh's N ranks in rank order: rank r
-(its flat position in the mesh, (dcn, data, model) row-major) holds rows
-[r B / N, (r + 1) B / N) (`batch_sharding`). So batch position j belongs to
-data group j // (B / d) and, inside it, to the group's model index. A
-sample-sharded dataset (`shard_device_dataset`) splits over the d data
-groups only: each rank keeps its group's contiguous slab on its own device.
+A batch of B samples splits over the mesh's N / S sample groups in order:
+the rank at flat position r ((dcn, data, space, model) row-major) belongs
+to sample group g = (r // (S m)) m + r % m (m the model axis) and holds
+samples [g B S / N, (g + 1) B S / N) (`batch_sharding`). So batch position
+j belongs to data group j // (B / d) and, inside it, to the group's model
+index. A sample-sharded dataset (`shard_device_dataset`) splits over the d
+data groups only: each rank keeps its group's contiguous slab on its own
+device, the ranks of one space group the same slab.
 
-The `space` axis (image rows split over ranks with a halo exchange for
-every conv, pool and resize) is not ported: `space > 1` raises.
+The space axis, in full:
+
+  * Row rule. Space rank s of S holds rows [ceil(s H / S), ceil((s + 1) H /
+    S)) of every H-row map (`collectives.row_share`): 33 rows over 2 are 17
+    + 16, a 6-row map 3 + 3. Every layer derives its output's global
+    height from its input's, and every rank's share from this rule, so all
+    ranks know who needs which rows without asking (`ops/primitives.py`).
+  * Halo. A layer whose windows span rows fetches, for this rank's output
+    rows, the input rows they read that other ranks own
+    (`collectives.fetch_rows`): only those rows, taken from every rank that
+    owns one (a halo wider than a neighbour's share reaches past it: the
+    Robust U-Net's dilation-4 bottleneck at 64^2 sits on 2 rows a rank),
+    and rows outside the image take the layer's padding, as in one
+    process. Strided windows start at global multiples of the stride, so a
+    2x2 pool window on a seam reads its far row from the other rank. The
+    exchange is one `all_reduce` of a zeroed byte buffer, each row written
+    by its owner (exact), because gloo offers only `all_reduce` and
+    `broadcast` for CUDA tensors; its backward sends each fetched row's
+    gradient to the owner the same way.
+  * Whole-image reductions. Global pools, the channel attention's mean and
+    max, BN's batch sums and the losses' and metrics' per-image sums add
+    (or max) the ranks' partials over the space group (BN over every rank
+    of the step); PSPNet's pooled pyramid levels are whole on every rank;
+    attention's reduced keys and values are gathered whole.
+  * Kernels. The fused conv fetches one halo row each side and crops; the
+    CBAM pool returns float32 partials for the all-reduce; the CBAM tail's
+    7x7 conv reads a stats map carrying a 3-row halo; SegNet's pool and
+    unpool fetch a straddling window's row.
+  * Cost. Per conv, pool or resize: one all-reduce of (ranks' halo rows) x
+    W x C elements, a copy of the local map into a slab with its halo, and
+    on the card, with gloo, the host round trip of that buffer. Per
+    attention block an all-reduce of the reduced keys and values. Memory: a
+    rank's activations are 1 / S of a sample's plus one slab at a time.
+    int8 forwards refuse a space mesh (ROADMAP queue 1).
 
 The numpy helpers (`pad_for_sharding`, `sharded_batch_indices`,
 `localize_aligned_indices`, `process_local_slab`) are the JAX package's,
@@ -48,17 +85,15 @@ def mesh_shape(n: int, space: int = 1, dcn: int = 1, model: int = 1):
         raise ValueError(
             f"{n} devices not divisible by space={space} x dcn={dcn} "
             f"x model={model}")
-    if space > 1:
-        raise NotImplementedError(
-            "space > 1 (image rows sharded over devices) is not ported: it needs a "
-            "hand-written halo exchange for every conv, pool and resize (ROADMAP.md, "
-            "queue 1: spatial sharding)")
     dims, names = [], []
     if dcn > 1:
         dims.append(dcn)
         names.append("dcn")
-    dims.append(n // (dcn * model))
+    dims.append(n // (dcn * space * model))
     names.append("data")
+    if space > 1:
+        dims.append(space)
+        names.append("space")
     if model > 1:
         dims.append(model)
         names.append("model")
@@ -79,10 +114,13 @@ def _device_type() -> str:
 def make_mesh(n_devices: Optional[int] = None, space: int = 1,
               devices: Optional[Sequence[int]] = None, dcn: int = 1, model: int = 1):
     """A ('data',) mesh over the ranks of the process group, with an outer
-    'dcn' axis when dcn > 1 and an innermost 'model' axis when model > 1.
-    `devices` are ranks (default: all, in order), the first `n_devices`
-    of them taken. The mesh spans every rank of the group. On CUDA, a mesh
-    with a model axis, or over NCCL, needs a card a rank."""
+    'dcn' axis when dcn > 1, a 'space' axis after 'data' when space > 1 and
+    an innermost 'model' axis when model > 1. `devices` are ranks
+    (default: all, in order), the first `n_devices` of them taken. The mesh
+    spans every rank of the group. On CUDA, a mesh with a model axis, or
+    over NCCL, needs a card a rank. With a space axis it also makes, on
+    every rank, each space group's complement (the ranks of the other
+    samples at the same rows, `whole_group`)."""
     if not dist.is_initialized() and n_devices is None:
         raise RuntimeError(_NO_GROUP)
     ranks = list(devices) if devices is not None else (
@@ -106,7 +144,13 @@ def make_mesh(n_devices: Optional[int] = None, space: int = 1,
                               if model > 1 else ""))
     from torch.distributed.device_mesh import DeviceMesh
 
-    return DeviceMesh(kind, torch.tensor(ranks).reshape(dims), mesh_dim_names=names)
+    mesh = DeviceMesh(kind, torch.tensor(ranks).reshape(dims), mesh_dim_names=names)
+    if space > 1:  # every rank makes every group, in one order
+        at = names.index("space")
+        grid = mesh.mesh.movedim(at, -1).reshape(-1, space)
+        whole = [dist.new_group(grid[:, j].tolist()) for j in range(space)]
+        mesh.coastline_whole_group = whole[space_index(mesh)]
+    return mesh
 
 
 def _data_axes(mesh):
@@ -123,6 +167,31 @@ def model_axis_size(mesh) -> int:
     return mesh.size(names.index("model")) if "model" in names else 1
 
 
+def space_axis_size(mesh) -> int:
+    """Ranks an image's rows split over (1 without a 'space' axis)."""
+    names = mesh.mesh_dim_names
+    return mesh.size(names.index("space")) if "space" in names else 1
+
+
+def space_index(mesh) -> int:
+    """This rank's place in its space group (0 without a 'space' axis)."""
+    return (mesh_rank(mesh) // model_axis_size(mesh)) % space_axis_size(mesh)
+
+
+def space_group(mesh):
+    """The process group of this rank's space group (the ranks holding the
+    other rows of its samples); None without a 'space' axis."""
+    return mesh.get_group("space") if "space" in mesh.mesh_dim_names else None
+
+
+def whole_group(mesh):
+    """The ranks at this rank's space index: those that hold the other
+    samples of a split batch at the same rows (a train-mode BN over a map
+    every space rank holds whole sums over them); None without a 'space'
+    axis."""
+    return getattr(mesh, "coastline_whole_group", None)
+
+
 def mesh_rank(mesh) -> int:
     """This rank's flat position in the mesh (row-major over its axes)."""
     return mesh.mesh.flatten().tolist().index(dist.get_rank())
@@ -130,10 +199,14 @@ def mesh_rank(mesh) -> int:
 
 @dataclass(frozen=True)
 class Rows:
-    """Rank `index` of `count`'s contiguous share of a leading axis."""
+    """Rank `index` of `count`'s contiguous share of a leading axis and,
+    with a space axis, space rank `space_index` of `space_count`'s share of
+    an image's rows."""
 
     index: int
     count: int
+    space_index: int = 0
+    space_count: int = 1
 
     def of(self, n: int) -> slice:
         if n % self.count:
@@ -141,10 +214,18 @@ class Rows:
         per = n // self.count
         return slice(self.index * per, (self.index + 1) * per)
 
+    def rows_of(self, height: int) -> slice:
+        """This rank's rows of a `height`-row image (`collectives.row_share`)."""
+        return slice(*collectives.row_share(height, self.space_index, self.space_count))
+
 
 def batch_sharding(mesh) -> Rows:
-    """This rank's rows of a global batch: rank r of N holds [r B/N, (r+1) B/N)."""
-    return Rows(mesh_rank(mesh), mesh.size())
+    """This rank's share of a global batch: sample group g of G (the module
+    docstring) holds samples [g B/G, (g+1) B/G), and with a space axis its
+    space rank's rows of each."""
+    m, s = model_axis_size(mesh), space_axis_size(mesh)
+    r = mesh_rank(mesh)
+    return Rows((r // (s * m)) * m + r % m, mesh.size() // s, space_index(mesh), s)
 
 
 def replicated(mesh) -> Rows:
@@ -154,16 +235,17 @@ def replicated(mesh) -> Rows:
 
 def dataset_sharding(mesh) -> Rows:
     """This rank's data group's slab of a sample-sharded dataset."""
-    return Rows(mesh_rank(mesh) // model_axis_size(mesh), data_axis_size(mesh))
+    return Rows(mesh_rank(mesh) // (model_axis_size(mesh) * space_axis_size(mesh)),
+                data_axis_size(mesh))
 
 
 def param_sharding(mesh):
     """The 2-D (replicate, shard) mesh `fully_shard` takes for the 'model'
-    axis: ('data', 'model'), or ('dcn' x 'data', 'model') flattened; None
-    without a model axis (every parameter replicated)."""
+    axis: ('data', 'model'), or ('dcn' x 'data' x 'space', 'model')
+    flattened; None without a model axis (every parameter replicated)."""
     if "model" not in mesh.mesh_dim_names:
         return None
-    if "dcn" not in mesh.mesh_dim_names:
+    if mesh.mesh_dim_names == ("data", "model"):
         return mesh
     from torch.distributed.device_mesh import DeviceMesh
 
@@ -300,9 +382,9 @@ def shard_device_dataset(mesh, images: np.ndarray, masks: np.ndarray, paths=None
         if n_stored % k:
             raise ValueError(f"global stored size {n_stored} not divisible by the "
                              f"data-axis size {k}")
-        if model_axis_size(mesh) > 1:
-            raise ValueError("with a model axis a rank's shard spans several processes' "
-                             "slabs: pass the global arrays (n_valid=None)")
+        if model_axis_size(mesh) * space_axis_size(mesh) > 1:
+            raise ValueError("with a model or space axis a rank's shard spans several "
+                             "processes' slabs: pass the global arrays (n_valid=None)")
         di, dm = (torch.from_numpy(np.ascontiguousarray(a)).to(local_device(mesh))
                   for a in (images, masks))
     if paths is not None:

@@ -42,13 +42,17 @@ def hsv_water_prior(rgb01):
     return (darkness * (0.5 + 0.5 * hueness)).clamp(0.0, 1.0)
 
 
-def hsv_consistency(probs, rgb01, axes=None):
+def hsv_consistency(probs, rgb01, axes=None, count=None):
     """Confidence-weighted |probs - prior|: a scalar mean with `axes=None`,
     else the mean over `axes` (`(1, 2)`: one value an image, the train
-    loop's masked-mean path). probs (N, H, W), rgb01 (N, H, W, 3)."""
+    loop's masked-mean path), or with `count` the sum over `axes` divided
+    by it (a rank's rows of images of `count` pixels). probs (N, H, W),
+    rgb01 (N, H, W, 3)."""
     prior = hsv_water_prior(rgb01)
     dev = (2.0 * prior - 1.0).abs() * (probs - prior).abs()
-    return dev.mean() if axes is None else dev.mean(dim=axes)
+    if axes is None:
+        return dev.mean()
+    return dev.mean(dim=axes) if count is None else dev.sum(dim=axes) / count
 
 
 def hsv_guided_bce(logits, targets, rgb01, weight: float = 0.1):

@@ -36,6 +36,14 @@ each rank's loss is its masked sum over the whole batch's valid count times
 the rank count, so the averaged gradient is the global masked mean's. Eval
 forwards run the bare model under `no_grad`, so the kernels launch; their
 loss sums and per-image metrics are gathered in global order.
+
+With a 'space' axis the ranks of a space group take the same samples, each
+its rows of every image (`batch_sharding(mesh).rows_of`): the augmentation
+runs on the whole images before the row cut, the forward runs inside
+`collectives.split_rows`, each rank's per-image loss is its pixels' sum
+over the image's pixel count (the ranks' terms add up to the image's mean
+under the same `denom`), and the eval metrics' per-image pixel counts are
+summed over the space group before any ratio.
 """
 
 import contextlib
@@ -53,7 +61,7 @@ from coastline_torch.parallel import collectives
 from coastline_torch.train.hsv import hsv_consistency
 from coastline_torch.train.losses import per_image_bce, per_image_cross_entropy
 from coastline_torch.train.lr import PlateauState, plateau_init, plateau_update
-from coastline_torch.train.metrics import per_image_metrics
+from coastline_torch.train.metrics import metrics_from_counts, per_image_counts
 from coastline_torch.utils.device import resolve_device
 from coastline_torch.utils.metrics_log import JsonlLogger
 from coastline_torch.utils.profiling import loop_seconds
@@ -154,27 +162,30 @@ def _check_loss(config: TrainConfig):
         raise ValueError(f"unknown loss {config.loss!r}")
 
 
-def _per_image_loss(config: TrainConfig, logits, masks, rgb01=None):
+def _per_image_loss(config: TrainConfig, logits, masks, rgb01=None, count=None):
     """(N,) per-image mean losses; logits NCHW (one channel for bce, two
     classes for ce), masks (N, H, W). With `hsv_bce` and `rgb01` (N, H, W,
     3) in [0, 1], each image's BCE gains `hsv_weight` times its HSV
-    consistency (`loop.py:112-135`)."""
+    consistency (`loop.py:112-135`). With `count` (a rank's rows of images
+    of `count` pixels) each term is the sum over the rank's pixels / count."""
     if config.loss == "ce":
-        return per_image_cross_entropy(logits, masks)
-    per_img = per_image_bce(logits, masks)
+        return per_image_cross_entropy(logits, masks, count)
+    per_img = per_image_bce(logits, masks, count)
     if config.loss == "hsv_bce" and rgb01 is not None:
         probs = torch.sigmoid(logits.float()[:, 0] if logits.ndim == 4 else logits.float())
-        per_img = per_img + config.hsv_weight * hsv_consistency(probs, rgb01, axes=(1, 2))
+        per_img = per_img + config.hsv_weight * hsv_consistency(probs, rgb01, axes=(1, 2),
+                                                                count=count)
     return per_img
 
 
-def _compute_loss(config: TrainConfig, logits, masks, valid, rgb01=None, denom=None):
+def _compute_loss(config: TrainConfig, logits, masks, valid, rgb01=None, denom=None,
+                  count=None):
     """Masked mean over the valid samples of `_per_image_loss`: the masked
     sum over `denom`, by default the valid count (at least 1)."""
     w = valid.float()
     if denom is None:
         denom = w.sum().clamp_min(1.0)
-    return (_per_image_loss(config, logits, masks, rgb01) * w).sum() / denom
+    return (_per_image_loss(config, logits, masks, rgb01, count) * w).sum() / denom
 
 
 def _probs(config: TrainConfig, logits):
@@ -190,12 +201,13 @@ def _as_device(images_u8, masks, idx, valid, dev):
 
 
 class _Split:
-    """This rank's share of the batches of a mesh run: its rows of a batch
-    of `b` (`rows(b)`), the rank count and the group the batch splits over,
-    and `net`, the model as the train step calls it: DDP over the group, or
-    with a 'model' axis the model itself, FSDP-sharded in place. No model of
-    the registry leaves a parameter unused in a train step, so DDP runs
-    without `find_unused_parameters`."""
+    """This rank's share of the batches of a mesh run: its samples of a
+    batch of `b` (`rows(b)`) and, with a space axis, its rows of each image
+    (`cut`, run the forward inside `rows_ctx`), the rank count and the group
+    the batch splits over, and `net`, the model as the train step calls it:
+    DDP over the group, or with a 'model' axis the model itself,
+    FSDP-sharded in place. No model of the registry leaves a parameter
+    unused in a train step, so DDP runs without `find_unused_parameters`."""
 
     def __init__(self, mesh, model, dev, train: bool):
         from coastline_torch.parallel import mesh as pmesh
@@ -203,6 +215,14 @@ class _Split:
         self.share = pmesh.batch_sharding(mesh)
         self.world = mesh.size()
         self.group = torch.distributed.group.WORLD  # a mesh spans every rank of it
+        self.space_group = pmesh.space_group(mesh)
+        self.whole_group = pmesh.whole_group(mesh)
+        # the ranks holding the samples in order, one of each space group
+        m, s, flat = pmesh.model_axis_size(mesh), pmesh.space_axis_size(mesh), \
+            mesh.mesh.flatten().tolist()
+        self.sample_ranks = [flat[p] for p in sorted(
+            (p for p in range(len(flat)) if (p // m) % s == 0),
+            key=lambda p: (p // (s * m)) * m + p % m)]
         self.net = model
         if train and pmesh.model_axis_size(mesh) > 1:
             self.net = pmesh.state_sharding(mesh, model)
@@ -215,6 +235,26 @@ class _Split:
 
     def rows(self, b: int) -> slice:
         return self.share.of(b)
+
+    def cut(self, t, dim: int):
+        """This rank's rows of the images in `t` (their rows along `dim`)."""
+        if self.space_group is None:
+            return t
+        rows = self.share.rows_of(t.shape[dim])
+        return t.narrow(dim, rows.start, rows.stop - rows.start)
+
+    def rows_ctx(self, height: int, width: int):
+        """`collectives.split_rows` over the space group for images of
+        `height` x `width`; nothing without a space axis."""
+        if self.space_group is None:
+            return contextlib.nullcontext()
+        return collectives.split_rows(self.space_group, height, width, self.whole_group)
+
+    def counts_over_space(self, counts):
+        """Per-image pixel counts summed over the space group."""
+        if self.space_group is None:
+            return counts
+        return collectives.all_reduce_sum(counts, self.space_group)
 
 
 def _split(mesh, model, dev, sharded_dataset: bool, train: bool):
@@ -269,11 +309,17 @@ def make_train_epoch(model, config: TrainConfig, augment_fn: Optional[Callable] 
             if augment_fn is not None:
                 x01, y = (augment_fn(state.generator, x01, y) if rows is None else
                           augment_fn(state.generator, x01, y, rows=(rows.start, b)))
+            height, width, count = x01.shape[1], x01.shape[2], None
+            if split is not None and split.space_group is not None:  # whole images, then rows
+                x01, y, count = split.cut(x01, 1), split.cut(y, 1), height * width
             x = normalize01(x01).permute(0, 3, 1, 2)
             opt.zero_grad(set_to_none=True)
-            with (contextlib.nullcontext() if split is None
-                  else collectives.split_batch(split.group)):
-                loss = _compute_loss(config, net(x, return_logits=True), y, bvalid, x01, denom)
+            with contextlib.ExitStack() as scope:
+                if split is not None:
+                    scope.enter_context(collectives.split_batch(split.group))
+                    scope.enter_context(split.rows_ctx(height, width))
+                loss = _compute_loss(config, net(x, return_logits=True), y, bvalid, x01, denom,
+                                     count)
                 loss.backward()
             opt.step()
             state.step += 1
@@ -354,26 +400,31 @@ def make_eval_epoch(model, config: TrainConfig, device="cuda", *, mesh=None,
         model.eval()
         rows = None if split is None else split.rows(idx.shape[1])
         losses, metrics = [], []
+        height, width = images.shape[1], images.shape[2]
+        count = None if split is None or split.space_group is None else height * width
         for bidx, bvalid in zip(idx, valid):
             if rows is not None:
                 bidx, bvalid = bidx[rows], bvalid[rows]
             x_u8 = images.index_select(0, bidx)
-            x = normalize_images(x_u8).permute(0, 3, 1, 2)
             y = masks.index_select(0, bidx)
-            logits = model(x, return_logits=True)
+            if count is not None:
+                x_u8, y = split.cut(x_u8, 1), split.cut(y, 1)
+            x = normalize_images(x_u8).permute(0, 3, 1, 2)
+            with contextlib.nullcontext() if split is None else split.rows_ctx(height, width):
+                logits = model(x, return_logits=True)
             rgb01 = x_u8.float() / 255.0
             losses.append(_compute_loss(config, logits, y, bvalid, rgb01) if rows is None else
-                          (_per_image_loss(config, logits, y, rgb01) * bvalid).sum())
-            metrics.append(per_image_metrics(_probs(config, logits), y.float(), config.threshold))
+                          (_per_image_loss(config, logits, y, rgb01, count) * bvalid).sum())
+            counts = per_image_counts(_probs(config, logits), y.float(), config.threshold)
+            metrics.append(counts if split is None else split.counts_over_space(counts))
         losses = torch.stack(losses)
         if rows is not None:
             losses = (collectives.all_reduce_sum(losses, split.group)
                       / valid.sum(1).clamp_min(1.0))
-            keys = list(metrics[0])
-            local = torch.stack([torch.stack([m[k] for k in keys], 1) for m in metrics])
-            every = collectives.gather(local, split.group)  # (ranks, batches, rows, keys)
-            every = every.transpose(0, 1).reshape(-1, len(keys))
-            metrics = [{k: every[:, j] for j, k in enumerate(keys)}]
+            local = torch.stack(metrics)  # (batches, rows, 4)
+            every = collectives.gather(local, split.group)[split.sample_ranks]
+            metrics = [every.transpose(0, 1).reshape(-1, local.shape[-1])]
+        metrics = [metrics_from_counts(c) for c in metrics]
         v = valid.reshape(-1)
         n = v.sum().clamp_min(1.0)
         agg = {}
@@ -539,10 +590,18 @@ class Evaluator:
             return normalize_images(x_u8.to(self.device)).permute(0, 3, 1, 2)
 
         inference = torch.inference_mode if self.mesh is None else torch.no_grad
+        split = _split(self.mesh, model, self.device, self.sharded_data, train=False)
+
+        def forward(x, size):
+            with contextlib.nullcontext() if split is None else split.rows_ctx(*size):
+                return model(x)
 
         def seconds(x, n_loop):
+            size = x.shape[2:]
+            if split is not None:
+                x = split.cut(x, 2)
             with inference():
-                sec = loop_seconds(lambda: model(x), self.device, n_loop=n_loop)
+                sec = loop_seconds(lambda: forward(x, size), self.device, n_loop=n_loop)
             if self.mesh is not None:
                 sec = float(collectives.all_reduce_max(torch.tensor([sec], device=self.device)))
             return sec
@@ -554,12 +613,12 @@ class Evaluator:
             if self.mesh is None:
                 xb = batch_of(np.arange(throughput_batch))
             else:
-                ranks = self.mesh.size()
-                per = -(-throughput_batch // ranks)  # ceil: keep >= requested
-                throughput_batch = per * ranks
                 from coastline_torch.parallel.mesh import batch_sharding
 
-                first = 0 if self.sharded_data else batch_sharding(self.mesh).index * per
+                share = batch_sharding(self.mesh)  # the space ranks of a sample share it
+                per = -(-throughput_batch // share.count)  # ceil: keep >= requested
+                throughput_batch = per * share.count
+                first = 0 if self.sharded_data else share.index * per
                 xb = batch_of(first + np.arange(per))
             throughput_ips = throughput_batch / seconds(xb, 10)
             del xb

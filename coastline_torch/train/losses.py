@@ -1,7 +1,11 @@
 """Segmentation losses (counterpart of `coastline/train/losses.py:20-45`).
 
 Logits are NCHW with the class axis at dim 1, as the port's models return
-them; the JAX package keeps classes last. The losses work in float32.
+them; the JAX package keeps classes last. The losses work in float32. The
+per-image losses take `count`, the image's pixel count, when a rank holds
+some of its rows (the mesh's space axis): each rank's sum over its pixels
+divided by the whole image's count, the ranks' terms adding up to the
+per-image mean.
 `LOSS_REGISTRY` names them beside the HSV-guided BCE (`train/hsv.py`).
 """
 
@@ -50,16 +54,25 @@ def cross_entropy_loss(logits, targets):
     return _cross_entropy(logits, targets).mean()
 
 
-def per_image_bce(logits, targets):
-    """(N, 1, H, W) or (N, H, W) logits, (N, H, W) targets -> (N,) mean BCE."""
+def _per_image_mean(values, count=None):
+    """(N, ...) -> (N,): the mean over each image's values, or their sum
+    over `count`."""
+    values = values.flatten(1)
+    return values.mean(1) if count is None else values.sum(1) / count
+
+
+def per_image_bce(logits, targets, count=None):
+    """(N, 1, H, W) or (N, H, W) logits, (N, H, W) targets -> (N,) mean BCE
+    (the sum over `count` pixels with `count`)."""
     if logits.ndim == 4 and targets.ndim == 3:
         targets = targets[:, None]
-    return _bce(logits, targets).flatten(1).mean(1)
+    return _per_image_mean(_bce(logits, targets), count)
 
 
-def per_image_cross_entropy(logits, targets):
-    """(N, K, H, W) logits, (N, H, W) classes -> (N,) mean cross-entropy."""
-    return _cross_entropy(logits, targets).flatten(1).mean(1)
+def per_image_cross_entropy(logits, targets, count=None):
+    """(N, K, H, W) logits, (N, H, W) classes -> (N,) mean cross-entropy
+    (the sum over `count` pixels with `count`)."""
+    return _per_image_mean(_cross_entropy(logits, targets), count)
 
 
 def _hsv_guided_bce(*args, **kwargs):

@@ -13,19 +13,25 @@ from typing import Dict
 import torch
 
 
-def per_image_metrics(probs, targets, threshold: float = 0.5) -> Dict[str, torch.Tensor]:
-    """probs, targets (N, H, W) or (N, 1, H, W) -> per-image (N,) float32
-    accuracy, iou, precision, recall and f1_score."""
+def per_image_counts(probs, targets, threshold: float = 0.5) -> torch.Tensor:
+    """probs, targets (N, H, W) or (N, 1, H, W) -> (N, 4) float32 pixel
+    counts tp, fp, fn, tn of each image; a rank holding some rows of the
+    images sums them with the other ranks' before `metrics_from_counts`."""
     if probs.ndim == 4:
         probs = probs[:, 0]
     if targets.ndim == 4:
         targets = targets[:, 0]
     pred = (probs > threshold).float()
     targ = (targets > 0.5).float()
-    tp = (pred * targ).sum((1, 2))
-    fp = (pred * (1 - targ)).sum((1, 2))
-    fn = ((1 - pred) * targ).sum((1, 2))
-    tn = ((1 - pred) * (1 - targ)).sum((1, 2))
+    return torch.stack([(pred * targ).sum((1, 2)), (pred * (1 - targ)).sum((1, 2)),
+                        ((1 - pred) * targ).sum((1, 2)),
+                        ((1 - pred) * (1 - targ)).sum((1, 2))], 1)
+
+
+def metrics_from_counts(counts) -> Dict[str, torch.Tensor]:
+    """(N, 4) tp, fp, fn, tn -> per-image (N,) accuracy, iou, precision,
+    recall and f1_score."""
+    tp, fp, fn, tn = counts.unbind(1)
     iou = tp / (tp + fp + fn + 1e-8)
     precision = tp / (tp + fp + 1e-8)
     recall = tp / (tp + fn + 1e-8)
@@ -33,6 +39,12 @@ def per_image_metrics(probs, targets, threshold: float = 0.5) -> Dict[str, torch
     accuracy = (tp + tn) / (tp + tn + fp + fn)
     return {"accuracy": accuracy, "iou": iou, "precision": precision, "recall": recall,
             "f1_score": f1}
+
+
+def per_image_metrics(probs, targets, threshold: float = 0.5) -> Dict[str, torch.Tensor]:
+    """probs, targets (N, H, W) or (N, 1, H, W) -> per-image (N,) float32
+    accuracy, iou, precision, recall and f1_score."""
+    return metrics_from_counts(per_image_counts(probs, targets, threshold))
 
 
 def binary_iou(pred_bool, targ_bool):

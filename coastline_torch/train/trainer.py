@@ -19,11 +19,13 @@ every validation forward runs in eval mode, where a bf16 UNet launches
 
 With a mesh (`parallel/mesh.py`, one process a device, `device` the
 rank's) each rank trains and validates on its rows of every batch
-(`train/loop.py`), the validation sums are all-reduced, and rank 0 alone
+(`train/loop.py`; with a 'space' axis its rows of every image too), the
+validation sums are all-reduced, and rank 0 alone
 writes the checkpoints (full state, `train/checkpoint.py`), the resume
 sidecar, the history, the figures and the progress lines.
 """
 
+import contextlib
 import json
 import os
 import pickle
@@ -135,7 +137,9 @@ class WaterSegmentationTrainer:
         each batch's loss and pixel accuracy masked by its valid samples and
         its IoU over them (union == 0 -> 1.0), averaged over the batches
         that hold a valid sample (`batches`, for combining chunks). On a
-        mesh each rank runs its rows and the batch sums are all-reduced."""
+        mesh each rank runs its samples (with a space axis its rows of them,
+        each image's loss and accuracy its pixels' sums over the image's
+        count) and the batch sums are all-reduced."""
         model = self.model
         split = _split(self.mesh, model, self.device, self.sharded_data, train=False)
 
@@ -147,17 +151,24 @@ class WaterSegmentationTrainer:
             images, masks, idx, valid = _as_device(images, masks, idx, valid, self.device)
             model.eval()
             rows = None if split is None else split.rows(idx.shape[1])
+            height, width = images.shape[1], images.shape[2]
+            count = None if split is None or split.space_group is None else height * width
             sums = []
             for bidx, w in zip(idx, valid):
                 if rows is not None:
                     bidx, w = bidx[rows], w[rows]
-                x = normalize_images(images.index_select(0, bidx)).permute(0, 3, 1, 2)
-                y = masks.index_select(0, bidx).long()
-                logits = model(x, return_logits=True)
+                x_u8, y = images.index_select(0, bidx), masks.index_select(0, bidx).long()
+                if count is not None:
+                    x_u8, y = split.cut(x_u8, 1), split.cut(y, 1)
+                x = normalize_images(x_u8).permute(0, 3, 1, 2)
+                with contextlib.nullcontext() if split is None else split.rows_ctx(height, width):
+                    logits = model(x, return_logits=True)
                 pred = logits.argmax(1)
+                hits = (pred == y).float()
                 sums.append(torch.stack([
-                    (per_image_cross_entropy(logits, y) * w).sum(),
-                    ((pred == y).float().mean((1, 2)) * w).sum(),
+                    (per_image_cross_entropy(logits, y, count) * w).sum(),
+                    ((hits.mean((1, 2)) if count is None else hits.sum((1, 2)) / count)
+                     * w).sum(),
                     (((pred == 1) & (y == 1)).sum((1, 2)) * w).sum(),
                     (((pred == 1) | (y == 1)).sum((1, 2)) * w).sum()]))
             sums = torch.stack(sums)

@@ -287,6 +287,52 @@ def test_cbam_tail_kernel_matches_plain(dev, shape, dtype):
     assert _tail_ok(got, cbam.cbam_tail_apply_plain(y, s, gate, stats, w), y, dtype)
 
 
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("halo", [3, 0])
+@pytest.mark.parametrize("shape", [(8, 256, 512, 64), (2, 16, 128, 64), (3, 37, 53, 48),
+                                   (1, 2, 45, 64)])
+def test_cbam_tail_kernel_with_a_stats_halo_matches_plain(dev, shape, halo, dtype):
+    """The tail of a rank that holds some rows of the image (a mesh's
+    'space' axis): stats carry `halo` rows above and below y's, and the
+    kernel reads them where it reads zeros without them."""
+    y, gate = _cbam_case(shape, dtype, dev, 2)
+    s, _ = _cbam_case(shape, dtype, dev, 3)
+    b, h, w_, _ = shape
+    stats = torch.from_numpy(np.random.default_rng(5).normal(size=(b, 2, h + 2 * halo, w_))
+                             .astype(np.float32)).to(dev, dtype)
+    w = torch.from_numpy(np.random.default_rng(4).normal(0, 0.15, (7, 7, 2, 1))
+                         .astype(np.float32)).to(dev)
+    before = cbam.cbam_tail_apply.launches
+    got = cbam.cbam_tail_apply(y, s, gate, stats, w, halo=halo)
+    torch.cuda.synchronize()
+    assert cbam.cbam_tail_apply.launches == before + 1
+    ref = cbam.cbam_tail_apply_plain(y, s, gate, stats, w, halo)
+    assert _tail_ok(got, ref, y, dtype)
+    if halo:  # the halo rows are read: zeroing them moves the edge rows
+        cut = stats.clone()
+        cut[:, :, :halo] = 0
+        assert not torch.equal(cbam.cbam_tail_apply(y, s, gate, cut, w, halo=halo)[:, 0],
+                               got[:, 0])
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("shape", [(8, 256, 512, 64), (8, 16, 32, 1024), (3, 37, 53, 48),
+                                   (1, 1, 1, 64)])
+def test_avg_max_pool_partials_match_plain(dev, shape, dtype):
+    """The pool's partials mode (a rank's rows of an image): float32 sums,
+    undivided, and float32 maxima, one launch, counted."""
+    x, _ = _cbam_case(shape, dtype, dev, 6)
+    before = cbam.avg_max_pool.launches
+    total, mx = cbam.avg_max_pool(x, partials=True)
+    torch.cuda.synchronize()
+    assert cbam.avg_max_pool.launches == before + 1
+    assert total.dtype == mx.dtype == torch.float32
+    ref_total, ref_mx = cbam.avg_max_pool_plain(x, partials=True)
+    assert torch.equal(mx, ref_mx)
+    area = shape[1] * shape[2]
+    assert _mean_ok(total / area, ref_total / area, x.float().abs().mean((1, 2)), torch.float32)
+
+
 def test_cbam_kernels_reject_non_contiguous(dev):
     x, gate = _cbam_case((2, 8, 8, 64), torch.bfloat16, dev)
     xt = x.transpose(1, 2)

@@ -88,7 +88,8 @@ def test_mesh_shapes_and_space_axis():
     assert mesh.mesh_shape(8, dcn=2) == ((2, 4), ("dcn", "data"))
     assert mesh.mesh_shape(8, model=2) == ((4, 2), ("data", "model"))
     assert mesh.mesh_shape(8, dcn=2, model=2) == ((2, 2, 2), ("dcn", "data", "model"))
-    with pytest.raises(NotImplementedError, match="spatial sharding"):
+    assert mesh.mesh_shape(8, space=2) == ((4, 2), ("data", "space"))
+    with pytest.raises(RuntimeError, match="process group"):
         mesh.make_mesh(8, space=2)
     with pytest.raises(RuntimeError, match="process group"):
         mesh.make_mesh(2)
